@@ -3,9 +3,11 @@
     python3 chip_smoke.py
 
 Builds every kernel of the serving path from the sources in the checkout,
-holds each against its plain PyTorch version at the main path's shapes, then
-renders two 800x800 orbit frames from a full-width checkpoint written by the
-port and checks that the kernel carried the render. Prints one line per
+holds each against its plain PyTorch version at the main path's shapes (on
+weights whose outputs depend on the input, with bounds shown to reject
+faulty versions), then renders two 800x800 orbit frames from a full-width
+checkpoint written by the port, checks that the kernel carried the render,
+and profiles one more frame for the kernel's and idle shares. Prints one line per
 phase, the card's name and power limit, a JSON line of kernel timings, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
 card or when any phase fails.
@@ -31,14 +33,25 @@ POSES = 2
 PEAK_BF16 = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12         # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-# kernel vs plain version, |k - p| <= atol + rtol * |p|:
+# The kernel check's weights: He-uniform (bound sqrt(6/fan_in)), so the
+# activations keep their scale through the ReLU layers and color and weights
+# vary with the input; the nn.Linear-style init leaves them near constants.
+HE_GAIN = math.sqrt(6.0)
+# kernel vs plain version, (atol, rtol, mean_rtol): every element within
+# |k - p| <= atol + rtol * |p|, and mean |k - p| <= mean_rtol * mean |p|.
 # fp32: both sides round nowhere but sum 256-term dot products in another
 #   order (FMA chains vs cuBLAS), through 10 layers and exp() of the
 #   transmittance prefix;
-# bf16: every activation is rounded to bf16 (relative step 2^-8); another
-#   fp32 summation order can move a pre-activation across a rounding
-#   boundary, and each such flip moves downstream values by ~0.4%.
-TOL = {"fp32": (1e-5, 1e-4), "bf16": (1e-3, 1e-2)}
+# bf16: every activation is rounded to bf16 (relative step 2^-8). Another
+#   fp32 summation order now and then moves a pre-activation across a
+#   rounding boundary; through the He weights one such flip moves a sample's
+#   outputs by up to ~0.3% (max |k - p| 1.6e-3 on an H100). The element
+#   bound admits those rare flips; the mean bound holds the rest tight.
+TOL = {"fp32": (1e-5, 1e-4, 1e-5), "bf16": (3e-3, 3e-3, 1e-3)}
+# the element bound (at the outputs' median) must sit SEP_MAX times and the
+# mean bound SEP_MEAN times below the outputs' spread (std), or the
+# comparison could not see a fault
+SEP_MAX, SEP_MEAN = 3, 100
 
 
 def card_line() -> str:
@@ -88,12 +101,31 @@ def sample_rays(n: int, s: int, gen: torch.Generator, dev):
     return o.contiguous(), d.contiguous(), ts.contiguous()
 
 
-def errors(k: torch.Tensor, p: torch.Tensor, atol: float, rtol: float):
+def errors(k: torch.Tensor, p: torch.Tensor, tol):
+    """(max |k - p|, mean |k - p|, within both bounds of ``tol``)."""
+    atol, rtol, mean_rtol = tol
     diff = (k - p).abs()
-    max_abs = diff.max().item()
-    max_rel = (diff / p.abs().clamp_min(1e-6)).max().item()
-    ok = bool((diff <= atol + rtol * p.abs()).all().item()) and bool(torch.isfinite(k).all())
-    return max_abs, max_rel, ok
+    max_abs, mean_abs = diff.max().item(), diff.mean().item()
+    ok = (bool((diff <= atol + rtol * p.abs()).all().item())
+          and mean_abs <= mean_rtol * p.abs().mean().item() and bool(torch.isfinite(k).all()))
+    return max_abs, mean_abs, ok
+
+
+def mutants(fm):
+    """The plain version with one deliberate fault each; the comparison must
+    reject every one of them."""
+    def with_w(i, w):
+        ws = list(fm.ws)
+        ws[i] = w
+        return fm._replace(ws=ws)
+
+    return {
+        "skip concat dropped": with_w(5, torch.zeros_like(fm.ws[5])),
+        "trunk[2] transposed": with_w(2, fm.ws[2].t().contiguous()),
+        "direction encoding dropped": with_w(10, torch.zeros_like(fm.ws[10])),
+        "bf16 rounding points swapped": fm._replace(
+            dtype=None if fm.dtype else torch.bfloat16),
+    }
 
 
 def library_chain(fm, n: int, s: int, dev):
@@ -126,7 +158,7 @@ def phase_kernels(dev, report):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = init_nerf_mlp(gen, device=dev)
+    params = init_nerf_mlp(gen, device=dev, gain=HE_GAIN)
     ok_all = True
     for prec, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
         fm = fr.prepare_fused_mlp(params, dtype)
@@ -135,18 +167,35 @@ def phase_kernels(dev, report):
             kc, kw = fr.fused_forward(fm, o, d, ts)
             pc, pw = fr.fused_forward_plain(fm, o, d, ts)
             torch.cuda.synchronize()
-            atol, rtol = TOL[prec]
-            ca, cr, cok = errors(kc, pc, atol, rtol)
-            wa, wr, wok = errors(kw, pw, atol, rtol)
+            tol = atol, rtol, mean_rtol = TOL[prec]
+            ca, cm, cok = errors(kc, pc, tol)
+            wa, wm, wok = errors(kw, pw, tol)
+            # the comparison can see a fault: its bounds sit far below the
+            # outputs' spread, and every faulty plain version fails them
+            spread = [p.std().item() for p in (pc, pw)]
+            max_at = [atol + rtol * p.abs().median().item() for p in (pc, pw)]
+            mean_at = [mean_rtol * p.abs().mean().item() for p in (pc, pw)]
+            sep_ok = all(SEP_MAX * a <= sp and SEP_MEAN * m <= sp
+                         for a, m, sp in zip(max_at, mean_at, spread))
+            missed = [name for name, bad in mutants(fm).items()
+                      if all(errors(b, p, tol)[2] for b, p in
+                             zip(fr.fused_forward_plain(bad, o, d, ts), (pc, pw)))]
+            print(f"[kernel] {prec} S={s}: spread (std) color={spread[0]:.3e} "
+                  f"weights={spread[1]:.3e}; element bound at the median color={max_at[0]:.3e} "
+                  f"weights={max_at[1]:.3e} (need {SEP_MAX}x below), mean bound color="
+                  f"{mean_at[0]:.3e} weights={mean_at[1]:.3e} (need {SEP_MEAN}x below); "
+                  f"faulty plain versions passed: {missed or 'none'} "
+                  f"{'PASS' if sep_ok and not missed else 'FAIL'}", flush=True)
             ms = cuda_ms(lambda: fr.fused_forward(fm, o, d, ts))
             plain_ms = cuda_ms(lambda: fr.fused_forward_plain(fm, o, d, ts))
             lib_ms = cuda_ms(library_chain(fm, RAYS, s, dev))
             b_ms, b_by = bound_ms(fm, RAYS, s, PEAK_BF16 if dtype else PEAK_FP32)
-            ok_all &= cok and wok
-            print(f"[kernel] {prec} N={RAYS} S={s}: color max_abs={ca:.3e} max_rel={cr:.3e} "
-                  f"weights max_abs={wa:.3e} max_rel={wr:.3e} (tol atol={atol} rtol={rtol}) "
-                  f"{'PASS' if cok and wok else 'FAIL'}; ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+            ok_all &= cok and wok and sep_ok and not missed
+            print(f"[kernel] {prec} N={RAYS} S={s}: color max_abs={ca:.3e} mean_abs={cm:.3e} "
+                  f"weights max_abs={wa:.3e} mean_abs={wm:.3e} (tol atol={atol} rtol={rtol} "
+                  f"mean_rtol={mean_rtol}) {'PASS' if cok and wok else 'FAIL'}; ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} "
+                  f"({b_by})", flush=True)
             report[(prec, s)] = dict(err=max(ca, wa), ms=ms, plain_ms=plain_ms,
                                      library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     if not ok_all:
@@ -229,6 +278,45 @@ def phase_reference(dev, ckpt: Path):
         raise AssertionError("card render disagrees with the CPU reference")
 
 
+def phase_profile(ckpt: Path, dev):
+    """One more frame of the main path under ``torch.profiler``: the share of
+    the frame's wall time the kernel takes, and the device's idle share (wall
+    time covered by no device activity). A measurement, not a check: where
+    the profiler sees no device activity it says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from minimal_nerf_torch.kernels import fused_raymarch as fr
+    from minimal_nerf_torch.render import render_views
+
+    frames_iter = render_views(str(ckpt), rays=RAYS, num_poses=1, height=HW, width=HW,
+                               device=dev)
+    before = fr.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        list(frames_iter)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    fr.launches = before
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        print("[profile] 1 frame: the profiler recorded no device activity; kernel "
+              "and idle shares not measured", flush=True)
+        return
+    kernel_us = sum(b - a for a, b, name in spans if "fused_fwd_kernel" in name)
+    busy_us, end = 0.0, -math.inf
+    for a, b, _ in spans:  # union of the device intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    print(f"[profile] 1 frame {HW}x{HW} under torch.profiler: wall={wall_us / 1e3:.1f} ms, "
+          f"device busy={busy_us / 1e3:.1f} ms, fused kernel={kernel_us / 1e3:.1f} ms "
+          f"({100 * kernel_us / wall_us:.1f}% of wall), other device work="
+          f"{(busy_us - kernel_us) / 1e3:.1f} ms, device idle share="
+          f"{100 * (1 - busy_us / wall_us):.1f}%", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -254,6 +342,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = phase_main_path(dev, Path(tmp))
         phase_reference(dev, ckpt)
+        try:
+            phase_profile(ckpt, dev)
+        except Exception as exc:  # a measurement only: the checks ran above
+            print(f"[profile] not measured: {type(exc).__name__}: {exc}", flush=True)
 
     main_shapes = [report[("bf16", s)] for s in SAMPLES]
     entry = {

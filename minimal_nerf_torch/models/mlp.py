@@ -29,16 +29,21 @@ Params = Dict[str, Any]
 
 
 def init_linear(in_dim: int, out_dim: int, generator: torch.Generator,
-                device="cpu") -> Params:
-    """Torch-``nn.Linear``-style init: ``U(+-1/sqrt(in_dim))`` for w and b."""
+                device="cuda", gain: float = 1.0) -> Params:
+    """Torch-``nn.Linear``-style init: ``U(+-1/sqrt(in_dim))`` for w and b.
+
+    ``gain`` scales the weights' bound only; ``gain=sqrt(6)`` is the He
+    (Kaiming) uniform init, which keeps the activations' scale through the
+    ReLU layers so the outputs depend on the input.
+    """
     bound = 1.0 / math.sqrt(in_dim)
 
-    def uniform(*shape):
+    def uniform(scale, *shape):
         u = torch.rand(*shape, generator=generator, dtype=torch.float32,
                        device=generator.device)
-        return (u * (2 * bound) - bound).to(device)
+        return (u * (2 * scale) - scale).to(device)
 
-    return {"w": uniform(in_dim, out_dim), "b": uniform(out_dim)}
+    return {"w": uniform(gain * bound, in_dim, out_dim), "b": uniform(bound, out_dim)}
 
 
 def nerf_mlp_shapes(position_dim: int = 10, direction_dim: int = 4,
@@ -60,12 +65,13 @@ def init_nerf_mlp(
     direction_dim: int = 4,
     width: int = 256,
     rgb_width: int = 128,
-    device="cpu",
+    device="cuda",
+    gain: float = 1.0,
 ) -> Params:
     """Initialize one NeRF MLP (coarse or fine) from ``generator``."""
     pos_enc = 2 * 3 * position_dim
     dir_enc = 2 * 3 * direction_dim
-    lin = lambda i, o: init_linear(i, o, generator, device)  # noqa: E731
+    lin = lambda i, o: init_linear(i, o, generator, device, gain)  # noqa: E731
     return {
         "trunk": [lin(pos_enc, width), lin(width, width), lin(width, width),
                   lin(width, width)],
@@ -129,7 +135,7 @@ def map_params(fn, tree):
     return fn(tree)
 
 
-def params_from_jax(tree, device="cpu") -> Params:
+def params_from_jax(tree, device="cuda") -> Params:
     """A params tree of numpy arrays (e.g. ``jax.device_get`` of JAX params)
     as fp32 torch tensors on ``device``."""
     return map_params(

@@ -47,11 +47,11 @@ class NeRFConfig:
 
 
 def init_nerf_network(generator: torch.Generator, config: NeRFConfig,
-                      device="cpu") -> Params:
+                      device="cuda", gain: float = 1.0) -> Params:
     """Independent coarse and fine MLPs drawn in turn from ``generator``."""
     return {
         name: init_nerf_mlp(generator, config.position_dim, config.direction_dim,
-                            device=device)
+                            device=device, gain=gain)
         for name in ("coarse", "fine")
     }
 

@@ -32,7 +32,7 @@ def pixel_dirs(xs: torch.Tensor, ys: torch.Tensor, height: int, width: int,
 
 
 def get_rays(height: int, width: int, focal, c2w,
-             device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+             device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """Rays for every pixel: ``rays_o [H, W, 3]``, ``rays_d [H, W, 3]``."""
     c2w = torch.as_tensor(np.asarray(c2w), dtype=torch.float32, device=device)
     i, j = torch.meshgrid(

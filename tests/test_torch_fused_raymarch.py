@@ -15,6 +15,7 @@ import torch
 from minimal_nerf_torch.kernels import fused_raymarch as t_fused
 from minimal_nerf_torch.models import mlp as t_mlp
 from minimal_nerf_torch.models import nerf as t_nerf
+from minimal_nerf_torch.ops.encoding import positional_encoding
 from minimal_nerf_tpu.kernels import fused_raymarch as j_fused
 from minimal_nerf_tpu.models import mlp as j_mlp
 from minimal_nerf_tpu.models import nerf as j_nerf
@@ -22,21 +23,36 @@ from minimal_nerf_tpu.models import nerf as j_nerf
 # fp32: both sides compute the same rounding points in fp32; only the order
 # of the matmul/scan sums differs (tolerance of tests/test_fused_raymarch.py)
 FP32_TOL = dict(rtol=3e-5, atol=1e-6)
-# bf16: activations are rounded to bf16 (8 mantissa bits, relative step
-# 2^-8 = 0.4%) after every layer; a different fp32 summation order can move
-# a pre-activation across a rounding boundary, and one such flip moves a
-# downstream value by ~0.4% of its size. Colors/weights are O(0.1-1), so a
-# few flips through 8 layers stay below 1e-2 absolute.
-BF16_TOL = dict(rtol=2e-2, atol=1e-2)
+# bf16: both sides round x, the encodings and every activation to bf16 at
+# the same points; only a different fp32 summation order could move a
+# pre-activation across a bf16 rounding boundary (relative step 2^-8). At
+# these sizes the two agree to <= 2.5e-6 absolute; the bound keeps 4x of
+# margin above that and stays 1e3x below the effect of dropping any one
+# bf16 rounding point, which the bf16 test asserts.
+BF16_TOL = dict(rtol=1e-4, atol=1e-5)
+# He-uniform weights (bound sqrt(6/fan_in)): the activations keep their
+# scale through the ReLU layers, so colors and weights depend on the input
+# and a wrong layer or rounding point shows in the outputs. (The fp32 tests
+# keep the nn.Linear-style init: with He weights the highest encoding
+# frequencies turn fp32 rounding of x into differences above FP32_TOL.)
+HE_GAIN = np.sqrt(6.0)
 
 
 def T(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def _mlp(seed=0, width=64, rgb_width=32):
-    jp = j_mlp.init_nerf_mlp(jax.random.PRNGKey(seed), width=width, rgb_width=rgb_width)
-    return jp, t_mlp.params_from_jax(jax.device_get(jp))
+def _scaled(jp, gain):
+    """A JAX params tree as numpy arrays, weights scaled by ``gain``."""
+    return jax.tree_util.tree_map_with_path(
+        lambda path, a: np.asarray(a, np.float32) * (gain if path[-1].key == "w" else 1.0),
+        jax.device_get(jp))
+
+
+def _mlp(seed=0, width=64, rgb_width=32, gain=1.0):
+    jp = _scaled(j_mlp.init_nerf_mlp(jax.random.PRNGKey(seed), width=width,
+                                     rgb_width=rgb_width), gain)
+    return jp, t_mlp.params_from_jax(jp, "cpu")
 
 
 def _inputs(seed, n, s):
@@ -65,24 +81,34 @@ def test_plain_pass_fp32_matches_jax(n, s):
     assert t_fused.launches == 0  # CPU tensors never launch the kernel
 
 
-def test_plain_pass_bf16_matches_jax():
-    jp, tp = _mlp(seed=2)
+def test_plain_pass_bf16_matches_jax(monkeypatch):
+    jp, tp = _mlp(seed=2, gain=HE_GAIN)
     o, d, ts = _inputs(3, 8, 16)
     jc, jw = j_fused.fused_render_pass(jp, jnp.asarray(o), jnp.asarray(d), jnp.asarray(ts),
                                        compute_dtype=jnp.bfloat16, ray_tile=8, interpret=True)
     tc, tw = t_fused.fused_render_pass(tp, T(o), T(d), T(ts), compute_dtype=torch.bfloat16)
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **BF16_TOL)
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), **BF16_TOL)
-    # the bf16 rounding points matter: the fp32 pass differs from both
-    tc32, _ = t_fused.fused_render_pass(tp, T(o), T(d), T(ts))
-    assert np.abs(tc32.numpy() - np.asarray(jc)).max() > np.abs(
-        tc.numpy() - np.asarray(jc)).max()
+    # the tolerance separates the precisions: the outputs spread far wider
+    # than it, and a pass without the bf16 rounding points fails it, be it
+    # the fp32 pass or one that encodes x unrounded (as nerf_mlp_apply does)
+    assert np.asarray(jc).std() > 1e3 * BF16_TOL["atol"]
+    assert np.asarray(jw).std() > 1e3 * BF16_TOL["atol"]
+    tc32, tw32 = t_fused.fused_render_pass(tp, T(o), T(d), T(ts))
+    monkeypatch.setattr(t_fused, "_encode", lambda x, dim, dtype: t_mlp.round_to(
+        positional_encoding(x, dim), dtype))
+    tcx, twx = t_fused.fused_render_pass(tp, T(o), T(d), T(ts), compute_dtype=torch.bfloat16)
+    for c, w in ((tc32, tw32), (tcx, twx)):
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose(c.numpy(), np.asarray(jc), **BF16_TOL)
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose(w.numpy(), np.asarray(jw), **BF16_TOL)
 
 
 def test_plain_pass_nondefault_encoding_dims():
-    jp = j_mlp.init_nerf_mlp(jax.random.PRNGKey(7), position_dim=6, direction_dim=2,
-                             width=32, rgb_width=32)
-    tp = t_mlp.params_from_jax(jax.device_get(jp))
+    jp = _scaled(j_mlp.init_nerf_mlp(jax.random.PRNGKey(7), position_dim=6, direction_dim=2,
+                                     width=32, rgb_width=32), HE_GAIN)
+    tp = t_mlp.params_from_jax(jp, "cpu")
     o, d, ts = _inputs(8, 8, 12)
     jc, jw = j_fused.fused_render_pass(jp, jnp.asarray(o), jnp.asarray(d), jnp.asarray(ts),
                                        position_dim=6, direction_dim=2, ray_tile=8,
@@ -108,7 +134,7 @@ def _network(cfg, seed=4):
                                         width=64, rgb_width=32),
           "fine": j_mlp.init_nerf_mlp(k_f, cfg.position_dim, cfg.direction_dim,
                                       width=64, rgb_width=32)}
-    return jp, t_mlp.params_from_jax(jax.device_get(jp))
+    return jp, t_mlp.params_from_jax(jax.device_get(jp), "cpu")
 
 
 @pytest.mark.parametrize("fine_sampling", ["reference", "linterp"])

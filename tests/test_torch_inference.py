@@ -15,6 +15,7 @@ from minimal_nerf_torch import render as t_render
 from minimal_nerf_torch import views as t_views
 from minimal_nerf_torch.kernels import fused_raymarch as t_fused
 from minimal_nerf_torch.models import nerf as t_nerf
+from minimal_nerf_torch.ops import cameras as t_cam
 from minimal_nerf_torch.training import checkpoint as t_ckpt
 from minimal_nerf_torch.training import trainer as t_trainer
 from minimal_nerf_torch.training.config import TrainConfig as TTrainConfig
@@ -60,7 +61,7 @@ def test_jax_checkpoint_loads_in_port(tmp_path):
 def test_port_checkpoint_loads_in_jax(tmp_path):
     g = torch.Generator().manual_seed(3)
     cfg = t_nerf.NeRFConfig()
-    tp = t_nerf.init_nerf_network(g, cfg)
+    tp = t_nerf.init_nerf_network(g, cfg, device="cpu")
     path = t_ckpt.save_checkpoint(tmp_path / t_ckpt.checkpoint_name("b", 2, 9), tp, 9,
                                   cfg.to_dict(), TTrainConfig(kernel="fused").to_dict())
     header, leaves = t_ckpt.load_checkpoint(path)
@@ -114,7 +115,8 @@ def test_render_chunk_and_view_on_jax_checkpoint(tmp_path):
     from minimal_nerf_torch.ops import cameras
 
     focal = cameras.focal_from_angle(16, t_views.DEFAULT_CAM_ANGLE_X)
-    o, d = cameras.get_rays(16, 16, focal, cameras.pose_spherical(30.0, -30.0, 4.0))
+    o, d = cameras.get_rays(16, 16, focal, cameras.pose_spherical(30.0, -30.0, 4.0),
+                            device="cpu")
     ims = {}
     for kernel in ("fused", "xla"):
         chunk, ncfg, _ = t_inf.build_render_chunk(str(path), 64, kernel=kernel, device="cpu")
@@ -160,6 +162,11 @@ def test_default_device_is_cuda_and_raises_without_card(tmp_path):
         t_inf.build_render_chunk(str(path), 64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         next(t_render.render_views(str(path)))
+    # the helpers build on the card by default too, never silently on the CPU
+    with pytest.raises((AssertionError, RuntimeError)):
+        t_nerf.init_nerf_network(torch.Generator(), t_nerf.NeRFConfig())
+    with pytest.raises((AssertionError, RuntimeError)):
+        t_cam.get_rays(4, 4, 5.0, t_cam.pose_spherical(30.0, -30.0, 4.0))
 
 
 def test_render_cli_writes_gif(tmp_path):

@@ -65,7 +65,7 @@ def test_encoding_matches_jax(rng, dim):
 
 def _mlp_pair(width=64, rgb_width=32, seed=0):
     jp = j_mlp.init_nerf_mlp(jax.random.PRNGKey(seed), width=width, rgb_width=rgb_width)
-    return jp, t_mlp.params_from_jax(jax.device_get(jp))
+    return jp, t_mlp.params_from_jax(jax.device_get(jp), "cpu")
 
 
 def test_mlp_apply_fp32_matches_jax(rng):
@@ -85,7 +85,7 @@ def test_params_roundtrip_and_init():
                     jax.tree_util.tree_leaves(back)):
         np.testing.assert_array_equal(a, b)
     g = torch.Generator().manual_seed(1)
-    p = t_mlp.init_nerf_mlp(g, width=64, rgb_width=32)
+    p = t_mlp.init_nerf_mlp(g, width=64, rgb_width=32, device="cpu")
     shapes = t_mlp.nerf_mlp_shapes(width=64, rgb_width=32)
     for leaf, shape in zip(jax.tree_util.tree_leaves(p), jax.tree_util.tree_leaves(
             shapes, is_leaf=lambda s: isinstance(s, tuple))):
@@ -93,6 +93,11 @@ def test_params_roundtrip_and_init():
     bound = 1 / np.sqrt(60)
     w = p["trunk"][0]["w"]
     assert w.abs().max() <= bound and w.abs().max() > 0.9 * bound
+    # gain scales the weights' bound (He init at sqrt(6)), not the biases'
+    he = t_mlp.init_nerf_mlp(torch.Generator().manual_seed(1), width=64, rgb_width=32,
+                             device="cpu", gain=np.sqrt(6))
+    torch.testing.assert_close(he["trunk"][0]["w"], w * np.sqrt(6))
+    torch.testing.assert_close(he["trunk"][0]["b"], p["trunk"][0]["b"])
 
 
 # ----------------------------------------------------------------- rendering
@@ -182,7 +187,7 @@ def test_cameras_match_jax():
     poses = t_cam.spherical_poses(5)
     np.testing.assert_array_equal(poses, j_cam.spherical_poses(5))
     focal = t_cam.focal_from_angle(12, 0.7)
-    to, td = t_cam.get_rays(10, 12, focal, poses[1])
+    to, td = t_cam.get_rays(10, 12, focal, poses[1], device="cpu")
     jo, jd = j_cam.get_rays(10, 12, focal, poses[1])
     close(to, jo)
     close(td, jd)
