@@ -2,19 +2,31 @@
 
     python3 chip_smoke.py
 
-Builds every kernel of the serving path from the sources in the checkout,
-holds each against its plain PyTorch version at the main path's shapes (on
-weights whose outputs depend on the input, with bounds shown to reject
-faulty versions), then renders two 800x800 orbit frames from a full-width
-checkpoint written by the port, checks that the kernel carried the render,
-and profiles one more frame for the kernel's and idle shares. Prints one line per
-phase, the card's name and power limit, a JSON line of kernel timings, and
-as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
-card or when any phase fails.
+Builds every kernel of the serving and training paths from the sources in
+the checkout (the fused ray-march forward and backward), holds each against
+its plain PyTorch version at the main paths' shapes (on weights whose
+outputs depend on the input, with bounds shown to reject faulty versions),
+then:
+
+- ``[main]`` renders two 800x800 orbit frames from a full-width checkpoint
+  written by the port and checks that the forward kernel carried the render;
+- ``[reference]`` holds a small render on the card against the CPU;
+- ``[train]`` trains 100 full-width steps on a procedural scene made on the
+  card, checks the loss falls and the kernels' launch counts, saves a
+  checkpoint and renders a frame from it;
+- ``[train-reference]`` holds one train step on the card against the same
+  step on the CPU;
+- ``[profile]`` profiles one frame and one train step for the kernels' and
+  the idle shares.
+
+Prints one line per phase, the card's name and power limit, a JSON line of
+kernel timings, and as its last line ``{"ok": true, "device": {...}}``.
+Exits non-zero without a card or when any phase fails.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -25,7 +37,7 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ["fused_raymarch_fwd"]
+KERNELS = ["fused_raymarch_fwd", "fused_raymarch_bwd"]
 RAYS = 4096
 SAMPLES = (64, 192)       # coarse pass, then the 64 + 128 sorted union
 HW = 800                  # frame height and width
@@ -54,6 +66,18 @@ TOL = {"fp32": (1e-5, 1e-4, 1e-5), "bf16": (3e-3, 3e-3, 1e-3)}
 SEP_MAX, SEP_MEAN = 3, 100
 
 
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside do not count: the kernels' counts are restored after."""
+    from minimal_nerf_torch.kernels import fused_raymarch as fr
+
+    before = (fr.launches, fr.bwd_launches, fr.wgrad_launches)
+    try:
+        yield
+    finally:
+        fr.launches, fr.bwd_launches, fr.wgrad_launches = before
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -79,11 +103,22 @@ def macs_per_point(pd: int = 10, dd: int = 4, width: int = 256, rgb: int = 128) 
             + width + (width + de) * rgb + rgb * 3)
 
 
-def bound_ms(fm, n: int, s: int, peak: float):
-    """(least time in ms, what bounds it) for one pass of n rays x s samples."""
-    ops = 2.0 * macs_per_point() * n * s
+def bwd_macs_per_point(pd: int = 10, dd: int = 4, width: int = 256, rgb: int = 128) -> int:
+    """The backward's multiply-adds per point: the forward again, the
+    activation gradients of every layer but those reading the encodings (t0,
+    the skip's f0we, r0wd), and every weight gradient."""
+    fwd = macs_per_point(pd, dd, width, rgb)
+    no_enc_inputs = fwd - 6 * pd * width - 6 * pd * width - 6 * dd * rgb
+    return 2 * fwd + no_enc_inputs
+
+
+def bound_ms(fm, n: int, s: int, peak: float, macs: int = 0, io_floats: int = 0):
+    """(least time in ms, what bounds it) for one pass of n rays x s samples:
+    the forward by default, else ``macs`` per point and ``io_floats`` fp32
+    values in and out besides the weights."""
+    ops = 2.0 * (macs or macs_per_point()) * n * s
     weight_bytes = sum(w.numel() * w.element_size() for w in fm.ws + fm.bs)
-    io_bytes = 4 * (n * 3 * 2 + n * s) + 4 * (n * 3 + n * s)
+    io_bytes = 4 * (io_floats or (n * 3 * 2 + n * s) + (n * 3 + n * s))
     t_ops, t_bytes = ops / peak, (weight_bytes + io_bytes) / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -202,6 +237,145 @@ def phase_kernels(dev, report):
         raise AssertionError("kernel disagrees with its plain version")
 
 
+# backward kernel vs plain version, per gradient leaf: (max_rtol, mean_rtol)
+# with max |k - p| <= max_rtol * max |p| and mean |k - p| <= mean_rtol *
+# mean |p|. fp32: other sum orders only, but each gradient sums up to 786k
+# points' products of both signs, and a pre-activation within an ulp of 0
+# can take the other side of its ReLU mask, moving one point's product
+# (H100 readings at N=4096, worst over the leaves: max 8.1e-4, mean
+# 2.1e-4). bf16: another fp32 sum order flips the bf16 rounding of some
+# activations; downstream 5-10% of the bf16 gradient activations round to
+# the other neighbour (a 2^-8 step each), and the weight gradients sum many
+# such flips (H100 readings: max 1.2e-2, mean 7.7e-3). The bounds sit 2.4x
+# to 3.7x above the readings; every faulty plain version fails them.
+BWD_TOL = {"fp32": (3e-3, 5e-4), "bf16": (3e-2, 2e-2)}
+
+
+def bwd_errors(k, p):
+    """Per leaf (max |k - p| / max |p|, mean |k - p| / mean |p|, max |k - p|)."""
+    out = []
+    for a, b in zip(k, p):
+        diff = (a - b).abs()
+        out.append((diff.max().item() / (b.abs().max().item() + 1e-30),
+                    diff.mean().item() / (b.abs().mean().item() + 1e-30), diff.max().item()))
+    return out
+
+
+def bwd_within(errs, tol) -> bool:
+    return all(mx <= tol[0] and mn <= tol[1] for mx, mn, _ in errs)
+
+
+def bwd_mutants(fr, fm):
+    """Plain backwards with one fault each; every one must fail the bounds."""
+    def inclusive_suffix(*args):
+        orig = fr._suffix_sum
+        fr._suffix_sum = lambda x: orig(x) + x
+        try:
+            return fr.fused_backward_plain(*args)
+        finally:
+            fr._suffix_sum = orig
+
+    ws = list(fm.ws)
+    ws[5] = torch.zeros_like(ws[5])
+    return {"inclusive suffix sum": (inclusive_suffix, fm),
+            "skip concat's encoding term dropped": (fr.fused_backward_plain,
+                                                    fm._replace(ws=ws))}
+
+
+def library_bwd_chain(fm, n: int, s: int, dev):
+    """The backward's matmuls as torch.matmul calls (cuBLAS): the forward
+    chain again, the activation gradients and the weight gradients, at the
+    pass's shapes. The yardstick, never used by the port."""
+    dtype = fm.dtype or torch.float32
+    rows = n * s
+    ws = [w.to(dtype) for w in fm.ws]
+    fwd = library_chain(fm, n, s, dev)
+    acts = {k: torch.randn(rows, c, device=dev, dtype=dtype)
+            for k, c in (("e", ws[0].shape[0]), ("ed", ws[10].shape[0]), ("a", 256),
+                         ("r0", 128))}
+    g256 = torch.randn(rows, 256, device=dev, dtype=dtype)
+    g128 = torch.randn(rows, 128, device=dev, dtype=dtype)
+    g3 = torch.randn(rows, 3, device=dev, dtype=dtype)
+
+    def run():
+        fwd()
+        g = g3 @ ws[11].t()
+        g = g @ ws[9].t()
+        for i in (7, 6, 4, 3, 2, 1):
+            g = g @ ws[i].t()
+        a, e, ed, r0 = acts["a"].t(), acts["e"].t(), acts["ed"].t(), acts["r0"].t()
+        for x, gg in ((e, g256), (a, g256), (a, g256), (a, g256), (a, g256), (e, g256),
+                      (a, g256), (a, g256), (a, g3[:, :1]), (a, g128), (ed, g128), (r0, g3)):
+            x @ gg
+
+    return run
+
+
+def phase_kernel_bwd(dev, report):
+    """The backward kernel against its plain version at full width, N=4096,
+    S=64 (with a weights cotangent) and S=192 (without, as in training),
+    fp32 and bf16, on He-uniform weights; mutants; bitwise determinism;
+    times."""
+    from minimal_nerf_torch.kernels import fused_raymarch as fr
+    from minimal_nerf_torch.models.mlp import init_nerf_mlp
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = init_nerf_mlp(gen, device=dev, gain=HE_GAIN)
+    ok_all = True
+    for prec, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        fm = fr.prepare_fused_mlp(params, dtype)
+        tol = BWD_TOL[prec]
+        for s in SAMPLES:
+            o, d, ts = sample_rays(RAYS, s, gen, dev)
+            dc = torch.randn((RAYS, 3), generator=gen, device=dev)
+            dw = (0.1 * torch.randn((RAYS, s), generator=gen, device=dev)
+                  if s == SAMPLES[0] else None)
+            args = (fm, o, d, ts, dc, dw)
+            kw, kb = fr.fused_backward(*args)
+            again = fr.fused_backward(*args)
+            plain = fr.fused_backward_plain(*args)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(kw + kb, again[0] + again[1]))
+            errs = bwd_errors(kw + kb, plain[0] + plain[1])
+            within = bwd_within(errs, tol)
+            # the bounds against each leaf's spread (std): how far below it
+            # they sit, at the least separated leaf
+            seps = [(p.std().item() / (tol[0] * p.abs().max().item()),
+                     p.std().item() / (tol[1] * p.abs().mean().item()))
+                    for p in plain[0] + plain[1] if p.numel() > 1]
+            missed = []
+            for name, (fn, bad) in bwd_mutants(fr, fm).items():
+                bw, bb = fn(bad, o, d, ts, dc, dw)
+                if bwd_within(bwd_errors(bw + bb, plain[0] + plain[1]), tol):
+                    missed.append(name)
+            ms = cuda_ms(lambda: fr.fused_backward(*args), warmup=1, reps=3)
+            plain_ms = cuda_ms(lambda: fr.fused_backward_plain(*args), warmup=1, reps=3)
+            lib_ms = cuda_ms(library_bwd_chain(fm, RAYS, s, dev), warmup=1, reps=3)
+            io = RAYS * 3 * 3 + RAYS * s * (2 if dw is not None else 1) + sum(
+                w.numel() for w in fm.ws + fm.bs)
+            b_ms, b_by = bound_ms(fm, RAYS, s, PEAK_BF16 if dtype else PEAK_FP32,
+                                  macs=bwd_macs_per_point(), io_floats=io)
+            ok = within and same and not missed
+            ok_all &= ok
+            print(f"[kernel-bwd] {prec} N={RAYS} S={s} "
+                  f"dweights={'yes' if dw is not None else 'no'}: "
+                  f"22 leaves, worst over the leaves max_rel={max(e[0] for e in errs):.3e} "
+                  f"mean_rel={max(e[1] for e in errs):.3e} (bounds {tol[0]} / {tol[1]}); "
+                  f"max_abs={max(e[2] for e in errs):.3e}; leaf spread (std) over the "
+                  f"element bound >= {min(x for x, _ in seps):.2f}x, over the mean bound >= "
+                  f"{min(y for _, y in seps):.1f}x; two launches bit-identical: {same}; "
+                  f"faulty plain versions passed: {missed or 'none'}; ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} "
+                  f"({b_by}) {'PASS' if ok else 'FAIL'}", flush=True)
+            report[("bwd", prec, s)] = dict(err=max(e[2] for e in errs), ms=ms,
+                                            plain_ms=plain_ms, library_ms=lib_ms,
+                                            bound_ms=b_ms, bound_by=b_by)
+            del kw, kb, again, plain
+            torch.cuda.empty_cache()
+    if not ok_all:
+        raise AssertionError("backward kernel disagrees with its plain version")
+
+
 def phase_main_path(dev, tmp: Path):
     from minimal_nerf_torch.kernels import fused_raymarch as fr
     from minimal_nerf_torch.models.nerf import NeRFConfig, init_nerf_network
@@ -257,13 +431,12 @@ def phase_reference(dev, ckpt: Path):
     uniforms = {"coarse": torch.rand((n, cfg.coarse_samples), generator=gen, device=dev),
                 "eps": torch.rand((n, 1), generator=gen, device=dev),
                 "jitter": torch.rand((n, cfg.fine_samples, 1), generator=gen, device=dev)}
-    before = fr.launches
-    card = fr.render_rays_fused(params, cfg, o, d, compute_dtype=tcfg.compute_dtype,
-                                uniforms=uniforms)
+    with uncounted():
+        card = fr.render_rays_fused(params, cfg, o, d, compute_dtype=tcfg.compute_dtype,
+                                    uniforms=uniforms)
     to_cpu = lambda tree: map_params(lambda t: t.cpu(), tree)  # noqa: E731
     ref = fr.render_rays_fused(to_cpu(params), cfg, o.cpu(), d.cpu(),
                                compute_dtype=tcfg.compute_dtype, uniforms=to_cpu(uniforms))
-    fr.launches = before
     # same weights, draws and rounding points: the kernel and the plain
     # version differ only in the order of fp32 sums (see TOL)
     ok = True
@@ -278,43 +451,215 @@ def phase_reference(dev, ckpt: Path):
         raise AssertionError("card render disagrees with the CPU reference")
 
 
-def phase_profile(ckpt: Path, dev):
-    """One more frame of the main path under ``torch.profiler``: the share of
-    the frame's wall time the kernel takes, and the device's idle share (wall
-    time covered by no device activity). A measurement, not a check: where
-    the profiler sees no device activity it says so."""
-    from torch.profiler import ProfilerActivity, profile
+TRAIN_FRAMES, TRAIN_STEPS = 20, 100
 
+
+def make_train_scene(dev):
+    """The procedural ``random_object`` scene: 20 train frames at 800x800,
+    rendered on the card by the port's ``data/procedural.py``."""
+    from minimal_nerf_torch.data.procedural import make_procedural_scene
+
+    t0 = time.perf_counter()
+    scenes, _ = make_procedural_scene((("train", TRAIN_FRAMES),), height=HW, width=HW,
+                                      scene="object", seed=0, chunk=8192, device=dev)
+    torch.cuda.synchronize()
+    scene = scenes["train"]
+    print(f"[train] scene: {TRAIN_FRAMES} frames {HW}x{HW} made on the card in "
+          f"{time.perf_counter() - t0:.1f} s; image mean {scene.images.float().mean().item():.2f}",
+          flush=True)
+    return scene
+
+
+def init_train_params(dev, cfg, density_bias: float = 0.0):
+    """``init_nerf_network(seed)``, as the JAX trainer starts, plus
+    ``density_bias`` on both density heads."""
+    from minimal_nerf_torch.models.nerf import init_nerf_network
+
+    params = init_nerf_network(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    for mlp in params.values():
+        mlp["density"]["b"] += density_bias
+    return params
+
+
+def init_density_bias(dev, cfg, tcfg, scene) -> float:
+    """0, unless the seeded init renders the first train batch all black
+    (relu(sigma) = 0 everywhere: no gradient flows); then the render
+    phase's +0.5."""
     from minimal_nerf_torch.kernels import fused_raymarch as fr
-    from minimal_nerf_torch.render import render_views
+    from minimal_nerf_torch.training import loop
 
+    batch = loop.sample_train_batch(0, scene.images, scene.poses, loop.scene_static(scene),
+                                    tcfg.num_rays, TRAIN_FRAMES, tcfg.cropping_epochs, 0,
+                                    generator=torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad(), uncounted():
+        out = fr.render_rays_fused(init_train_params(dev, cfg), cfg, batch["origin"],
+                                   batch["direc"], torch.Generator(device=dev).manual_seed(0),
+                                   compute_dtype=tcfg.compute_dtype)
+    peak = max(out[k].abs().max().item() for k in out)
+    print(f"[train] seeded init's largest ray color on the first batch: {peak:.3e}"
+          + (" (black: density bias +0.5 applied)" if peak == 0.0 else " (not black: no bias)"),
+          flush=True)
+    return 0.5 if peak == 0.0 else 0.0
+
+
+def phase_train(dev, tmp: Path, scene):
+    """100 full-width steps of ``make_train_step`` at ``TrainConfig()``
+    defaults; a checkpoint of the result rendered through the render path."""
+    from minimal_nerf_torch.kernels import fused_raymarch as fr
+    from minimal_nerf_torch.models.nerf import NeRFConfig
+    from minimal_nerf_torch.render import render_views
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.checkpoint import checkpoint_name, save_checkpoint
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    cfg, tcfg = NeRFConfig(), TrainConfig()  # 64+128, 4096 rays, bf16, lr 5e-4
+    bias = init_density_bias(dev, cfg, tcfg, scene)
+    step_fn = loop.make_train_step(cfg, tcfg, loop.scene_static(scene), device=dev)
+    params = init_train_params(dev, cfg, bias)
+    step_fn(params, loop.adam_init(params), scene.images, scene.poses, 0, 0)  # warm-up
+    params = init_train_params(dev, cfg, bias)
+    state = loop.adam_init(params)
+    fr.launches = fr.bwd_launches = fr.wgrad_launches = 0
+    losses, times = [], []
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, scene.images, scene.poses, step, 0)
+        losses.append(metrics["train_loss"].item())
+        times.append(time.perf_counter() - t0)
+    counts = dict(fwd=fr.launches, bwd=fr.bwd_launches, wgrad=fr.wgrad_launches)
+    ms = 1e3 * sorted(times)[len(times) // 2]
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    want = 2 * TRAIN_STEPS
+    ok = (all(math.isfinite(x) for x in losses) and last < first
+          and counts == dict(fwd=want, bwd=want, wgrad=want))
+    print(f"[train] {TRAIN_STEPS} steps, {tcfg.num_rays} rays, {tcfg.precision}, "
+          f"{cfg.coarse_samples}+{cfg.fine_samples} samples, width 256/128, lr {tcfg.start_lr}: "
+          f"median ms/step={ms:.2f} rays/s={tcfg.num_rays / (ms / 1e3):.0f}; loss first "
+          f"{losses[0]:.5f} last {losses[-1]:.5f}, mean of first 10 {first:.5f} > last 10 "
+          f"{last:.5f}: {last < first}; launches fwd={counts['fwd']} bwd={counts['bwd']} "
+          f"wgrad={counts['wgrad']} (want {want} each = 2 passes x {TRAIN_STEPS} steps) "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("training did not run through the kernels as expected")
+    ckpt = save_checkpoint(tmp / checkpoint_name("train", TRAIN_STEPS // TRAIN_FRAMES,
+                                                 TRAIN_STEPS),
+                           params, TRAIN_STEPS, cfg.to_dict(), tcfg.to_dict())
     frames_iter = render_views(str(ckpt), rays=RAYS, num_poses=1, height=HW, width=HW,
                                device=dev)
     before = fr.launches
+    frame = next(iter(frames_iter))
+    renders, fr.launches = fr.launches - before, before
+    want_r = 2 * math.ceil(HW * HW / RAYS)
+    ok = frame.shape == (HW, HW, 3) and str(frame.dtype) == "uint8" and renders == want_r
+    print(f"[train] checkpoint {ckpt.name} rendered through the render path: {frame.shape} "
+          f"{frame.dtype}, mean {float(frame.mean()):.2f}, forward launches {renders} (want "
+          f"{want_r}) {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("render from the trained checkpoint failed")
+    return dict(ms=ms, losses=losses, counts=counts, bias=bias), step_fn, params, state
+
+
+def phase_train_reference(dev, scene, bias: float):
+    """One train step on the card (kernels) against the same step on the
+    CPU (plain versions): shared weights, a 256-ray batch and shared draws,
+    full width, bf16."""
+    from minimal_nerf_torch.kernels import fused_raymarch as fr
+    from minimal_nerf_torch.models.mlp import map_params
+    from minimal_nerf_torch.models.nerf import NeRFConfig
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.checkpoint import flatten_tree
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    cfg, tcfg = NeRFConfig(), TrainConfig()
+    n = 256
+    gen = torch.Generator(device=dev).manual_seed(4)
+    batch = loop.sample_train_batch(0, scene.images, scene.poses, loop.scene_static(scene), n,
+                                    TRAIN_FRAMES, tcfg.cropping_epochs, 0, generator=gen)
+    batch = {k: batch[k] for k in ("origin", "direc", "rgb")}
+    uniforms = {"coarse": torch.rand((n, cfg.coarse_samples), generator=gen, device=dev),
+                "eps": torch.rand((n, 1), generator=gen, device=dev),
+                "jitter": torch.rand((n, cfg.fine_samples, 1), generator=gen, device=dev)}
+    to_cpu = lambda tree: map_params(lambda t: t.detach().cpu(), tree)  # noqa: E731
+    lr = loop.make_lr_schedule(tcfg, TRAIN_FRAMES)(0)
+    results = []
+    for params, b, u in ((init_train_params(dev, cfg, bias), batch, uniforms),
+                         (to_cpu(init_train_params(dev, cfg, bias)), to_cpu(batch),
+                          to_cpu(uniforms))):
+        with uncounted():
+            metrics, grads = loop.loss_and_grads(params, cfg, b, tcfg.compute_dtype,
+                                                 fr.make_fused_render_fn(), uniforms=u)
+        loop.adam_update(params, grads, loop.adam_init(params), lr)
+        results.append((metrics["train_loss"].item(), flatten_tree(to_cpu(grads)),
+                        flatten_tree(to_cpu(params))))
+    (card_loss, card_g, card_p), (cpu_loss, cpu_g, cpu_p) = results
+    errs = bwd_errors(card_g, cpu_g)
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    lr = float(lr)
+    moved = [(a - b).abs() for a, b in zip(card_p, cpu_p)]
+    p_max = max(m.max().item() for m in moved)
+    p_mean = sum(m.sum().item() for m in moved) / sum(m.numel() for m in moved)
+    # loss: bf16 rounding flips between kernel and plain move it by ~1e-4;
+    # gradients: the backward kernel's bf16 bounds; Adam's first step moves
+    # each weight by lr * g / (|g| + eps), so a gradient near 0 may move the
+    # two sides by up to 2 lr, while on average they agree far closer
+    ok = (loss_rel <= 1e-3 and bwd_within(errs, BWD_TOL["bf16"])
+          and p_max <= 2.0 * lr * 1.001 and p_mean <= 0.05 * lr)
+    print(f"[train-reference] one step, {n} rays, bf16, card (kernels) vs CPU (plain), shared "
+          f"weights, batch and draws: loss card {card_loss:.6f} cpu {cpu_loss:.6f} "
+          f"(rel {loss_rel:.2e}, tol 1e-3); gradients worst over the leaves max_rel="
+          f"{max(e[0] for e in errs):.3e} mean_rel={max(e[1] for e in errs):.3e} (bounds "
+          f"{BWD_TOL['bf16'][0]} / {BWD_TOL['bf16'][1]}); params after Adam max |d|="
+          f"{p_max:.3e} (tol 2 lr = {2 * lr:.1e}) mean |d|={p_mean:.3e} (tol 0.05 lr) "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("train step on the card disagrees with the CPU reference")
+
+
+def profile_shares(label: str, fn):
+    """Run ``fn`` under ``torch.profiler``: print the forward kernel's and the
+    backward kernels' time and share of the wall time, other device work and
+    the device's idle share (wall time covered by no device activity). Fails
+    when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with uncounted(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        list(frames_iter)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    fr.launches = before
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
-        print("[profile] 1 frame: the profiler recorded no device activity; kernel "
-              "and idle shares not measured", flush=True)
-        return
-    kernel_us = sum(b - a for a, b, name in spans if "fused_fwd_kernel" in name)
+        raise AssertionError(f"[profile] {label}: the profiler recorded no device activity")
+    kernel_us = lambda key: sum(b - a for a, b, name in spans if key in name)  # noqa: E731
+    fwd_us = kernel_us("fused_fwd_kernel")
+    parts = {k: kernel_us(k) for k in ("fused_bwd_kernel", "wgrad_", "reduce_slices")}
+    bwd_us = sum(parts.values())
     busy_us, end = 0.0, -math.inf
     for a, b, _ in spans:  # union of the device intervals
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    print(f"[profile] 1 frame {HW}x{HW} under torch.profiler: wall={wall_us / 1e3:.1f} ms, "
-          f"device busy={busy_us / 1e3:.1f} ms, fused kernel={kernel_us / 1e3:.1f} ms "
-          f"({100 * kernel_us / wall_us:.1f}% of wall), other device work="
-          f"{(busy_us - kernel_us) / 1e3:.1f} ms, device idle share="
+    print(f"[profile] {label} under torch.profiler: wall={wall_us / 1e3:.1f} ms, device "
+          f"busy={busy_us / 1e3:.1f} ms, forward kernel={fwd_us / 1e3:.1f} ms "
+          f"({100 * fwd_us / wall_us:.1f}% of wall), backward kernels={bwd_us / 1e3:.1f} ms "
+          f"({100 * bwd_us / wall_us:.1f}%: per-ray {parts['fused_bwd_kernel'] / 1e3:.1f}, "
+          f"weight gradients {parts['wgrad_'] / 1e3:.1f}, reduction "
+          f"{parts['reduce_slices'] / 1e3:.2f}), other device work="
+          f"{(busy_us - fwd_us - bwd_us) / 1e3:.1f} ms, device idle share="
           f"{100 * (1 - busy_us / wall_us):.1f}%", flush=True)
+
+
+def phase_profile(ckpt: Path, dev, train_step):
+    """One more frame of the render path and one more train step."""
+    from minimal_nerf_torch.render import render_views
+
+    frames_iter = render_views(str(ckpt), rays=RAYS, num_poses=1, height=HW, width=HW,
+                               device=dev)
+    profile_shares(f"1 frame {HW}x{HW}", lambda: list(frames_iter))
+    profile_shares(f"1 train step ({RAYS} rays)", train_step)
 
 
 def main() -> int:
@@ -334,36 +679,44 @@ def main() -> int:
     print(f"[build] {KERNELS} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                print(f"[build] {name}: {line.split('entry function')[1].strip()[:72]}",
+                      flush=True)
+            elif "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
     report = {}
     phase_kernels(dev, report)
+    phase_kernel_bwd(dev, report)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = phase_main_path(dev, Path(tmp))
         phase_reference(dev, ckpt)
-        try:
-            phase_profile(ckpt, dev)
-        except Exception as exc:  # a measurement only: the checks ran above
-            print(f"[profile] not measured: {type(exc).__name__}: {exc}", flush=True)
+        scene = make_train_scene(dev)
+        train, step_fn, params, state = phase_train(dev, Path(tmp), scene)
+        phase_train_reference(dev, scene, train["bias"])
+        phase_profile(ckpt, dev, lambda: step_fn(params, state, scene.images, scene.poses,
+                                                 TRAIN_STEPS, 0))
 
-    main_shapes = [report[("bf16", s)] for s in SAMPLES]
-    entry = {
-        "name": "fused_raymarch_fwd",
-        "route": "cuda",
-        "source": "minimal_nerf_torch/kernels/csrc/fused_raymarch_fwd.cu",
-        "replaces": "minimal_nerf_tpu/kernels/fused_raymarch.py:175",
-        "launches": launches,
-        # one 4096-ray chunk of the main path: the S=64 and S=192 passes, bf16
-        "max_abs_err": max(r["err"] for r in main_shapes),
-        "ms": sum(r["ms"] for r in main_shapes),
-        "plain_ms": sum(r["plain_ms"] for r in main_shapes),
-        "bound_ms": sum(r["bound_ms"] for r in main_shapes),
-        "bound_by": main_shapes[-1]["bound_by"],
-        "library_ms": sum(r["library_ms"] for r in main_shapes),
-    }
+    def entry(name, replaces, shapes, launches):
+        # one 4096-ray chunk or step of the main path: S=64 and S=192, bf16
+        return {"name": name, "route": "cuda",
+                "source": f"minimal_nerf_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["err"] for r in shapes),
+                "ms": sum(r["ms"] for r in shapes),
+                "plain_ms": sum(r["plain_ms"] for r in shapes),
+                "bound_ms": sum(r["bound_ms"] for r in shapes),
+                "bound_by": shapes[-1]["bound_by"],
+                "library_ms": sum(r["library_ms"] for r in shapes)}
+
+    kernels = [
+        entry("fused_raymarch_fwd", "minimal_nerf_tpu/kernels/fused_raymarch.py:175",
+              [report[("bf16", s)] for s in SAMPLES], launches),
+        entry("fused_raymarch_bwd", "minimal_nerf_tpu/kernels/fused_raymarch.py:191",
+              [report[("bwd", "bf16", s)] for s in SAMPLES], train["counts"]["bwd"]),
+    ]
     print(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

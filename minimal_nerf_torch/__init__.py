@@ -6,8 +6,11 @@ the JAX layout (``{"w": [in, out], "b": [out]}``) so the same weights drive
 both packages. Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.
 
-This slice covers serving: rendering views from a checkpoint through the
-fused ray-march forward kernel (``kernels/fused_raymarch.py``).
+Ported so far: serving (rendering views from a checkpoint through the fused
+ray-march forward kernel, ``kernels/fused_raymarch.py``) and the train step
+(``training/loop.py``: batch sampling, the hierarchical loss through the
+fused forward and backward kernels, Adam, the LR schedule) on in-memory and
+procedural scenes (``data/``).
 """
 
 from __future__ import annotations

@@ -1,0 +1,129 @@
+"""Procedural analytic scenes: self-contained ground truth for training.
+
+Counterpart of ``minimal_nerf_tpu/data/procedural.py`` (the ``field`` and
+``object`` archetypes; writing a PNG tree is not ported). A scene is soft
+colored spheres inside the ``[-1.5, 1.5]^3`` box, rendered with the same
+transmittance compositing the model learns (``ops.rendering``) at a high
+sample count, from poses on the reference's spherical orbit. The sphere
+parameters come from ``np.random.default_rng(key)`` as in JAX, so both
+packages build the same field; the integration jitter comes from a
+``torch.Generator`` or from given uniforms.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from minimal_nerf_torch.data.synthetic import SyntheticScene
+from minimal_nerf_torch.ops import cameras, rendering
+
+
+@dataclasses.dataclass(frozen=True)
+class SphereField:
+    """K soft spheres: centers ``[K, 3]``, radii ``[K]``, colors ``[K, 3]``,
+    peak densities ``[K]`` (float32 numpy arrays)."""
+
+    centers: np.ndarray
+    radii: np.ndarray
+    colors: np.ndarray
+    densities: np.ndarray
+
+    @classmethod
+    def random(cls, key: int = 0, num_spheres: int = 6) -> "SphereField":
+        """Large spheres spread through the box."""
+        rng = np.random.default_rng(key)
+        return cls(
+            centers=rng.uniform(-1.0, 1.0, (num_spheres, 3)).astype(np.float32),
+            radii=rng.uniform(0.25, 0.6, num_spheres).astype(np.float32),
+            colors=rng.uniform(0.1, 1.0, (num_spheres, 3)).astype(np.float32),
+            densities=rng.uniform(20.0, 60.0, num_spheres).astype(np.float32),
+        )
+
+    @classmethod
+    def random_object(cls, key: int = 0, num_spheres: int = 48) -> "SphereField":
+        """A compact object: many small spheres inside a ~0.75-radius ball,
+        the rest of the frustum empty (the Blender scenes' profile)."""
+        rng = np.random.default_rng(key)
+        dirs = rng.normal(size=(num_spheres, 3))
+        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True) + 1e-9
+        r = 0.75 * rng.random(num_spheres) ** (1 / 3)  # uniform in the ball
+        return cls(
+            centers=(dirs * r[:, None]).astype(np.float32),
+            radii=rng.uniform(0.06, 0.22, num_spheres).astype(np.float32),
+            colors=rng.uniform(0.1, 1.0, (num_spheres, 3)).astype(np.float32),
+            densities=rng.uniform(40.0, 120.0, num_spheres).astype(np.float32),
+        )
+
+    def field(self, pts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Analytic ``(density [..., 1], rgb [..., 3])`` at points ``[..., 3]``:
+        ``sigma_k * sigmoid((r_k - |x - c_k|) / 0.02)`` summed over spheres,
+        colors weighted by each sphere's density."""
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=pts.device)  # noqa: E731
+        d2 = torch.sum((pts[..., None, :] - t(self.centers)) ** 2, dim=-1)  # [..., K]
+        dist = torch.sqrt(d2 + 1e-12)
+        sigma_k = torch.sigmoid((t(self.radii) - dist) / 0.02) * t(self.densities)
+        sigma = torch.sum(sigma_k, dim=-1, keepdim=True)
+        rgb = (sigma_k @ t(self.colors)) / (sigma + 1e-9)
+        return sigma, torch.clamp(rgb, 0.0, 1.0)
+
+
+def render_analytic_view(field: SphereField, pose, height: int, width: int, focal: float,
+                         num_samples: int = 256, near: float = 2.0, far: float = 6.0,
+                         chunk: int = 16384, generator: Optional[torch.Generator] = None,
+                         uniforms: Optional[torch.Tensor] = None,
+                         device="cuda") -> torch.Tensor:
+    """Ground-truth render of one view by dense stratified integration:
+    ``[H, W, 3]`` uint8 on ``device`` (black background). ``uniforms
+    [H*W, num_samples]`` replaces the jitter draws."""
+    o, d = cameras.get_rays(height, width, focal, pose, device=device)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    out = []
+    for i in range(0, o.shape[0], chunk):
+        samples, ts = rendering.generate_coarse_samples(
+            o[i: i + chunk], d[i: i + chunk], num_samples, near, far, generator=generator,
+            uniforms=None if uniforms is None else uniforms[i: i + chunk])
+        sigma, rgb = field.field(samples)
+        weights = rendering.calculate_unnormalized_weights(sigma, rendering.generate_deltas(ts))
+        out.append(rendering.estimate_ray_color(weights, rgb))
+    im = torch.cat(out).reshape(height, width, 3)
+    return (torch.clamp(im, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def make_procedural_scene(split_frames=(("train", 20), ("val", 2), ("test", 4)),
+                          height: int = 100, width: int = 100,
+                          camera_angle_x: float = 0.6911112070083618,
+                          field: Optional[SphereField] = None, seed: int = 0,
+                          gt_samples: int = 256, scene: str = "field", chunk: int = 16384,
+                          device="cuda"):
+    """In-memory ``SyntheticScene``s for each split, on ``device``.
+
+    Poses follow the spherical orbit with split-specific azimuth offsets and
+    a slight elevation wobble, as in JAX. ``scene`` is ``"field"`` or
+    ``"object"``. The jitter is drawn from a generator seeded with ``seed``.
+    Returns ``(dict split -> SyntheticScene, field)``.
+    """
+    if field is None:
+        field = {"field": SphereField.random, "object": SphereField.random_object}[scene](seed)
+    focal = cameras.focal_from_angle(width, camera_angle_x)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    offsets = {"train": 0.0, "val": 3.1, "test": 7.3}
+    scenes = {}
+    for si, (split, n_frames) in enumerate(split_frames):
+        images, poses = [], []
+        for i in range(n_frames):
+            theta = -180.0 + (360.0 / n_frames) * i + offsets.get(split, 0.0)
+            phi = -30.0 + 10.0 * np.sin(2.1 * i + si)
+            pose = cameras.pose_spherical(theta, phi, 4.0)
+            images.append(render_analytic_view(field, pose, height, width, focal,
+                                               num_samples=gt_samples, chunk=chunk,
+                                               generator=gen, device=device))
+            poses.append(pose)
+        scenes[split] = SyntheticScene(
+            images=torch.stack(images),
+            poses=torch.as_tensor(np.stack(poses), dtype=torch.float32, device=device),
+            focal=focal, camera_angle_x=camera_angle_x, split=split, base_dir="<procedural>")
+    return scenes, field

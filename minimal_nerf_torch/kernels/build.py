@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``_build/lib<name>-<hash>.so`` (``-gencode arch=compute_90a,code=sm_90a``),
-keyed by the source's content so an edited source rebuilds. The build runs at
+keyed by the content of the source and of the shared ``csrc/*.cuh`` headers,
+so an edited source or header rebuilds. The build runs at
 first use, never at import, and several sources build in parallel
 (``build_all``). ``_build/`` is listed in ``.gitignore``.
 """
@@ -36,8 +37,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,17 +1,24 @@
-"""Fused ray-march forward pass: positions -> encoding -> MLP -> compositing.
+"""Fused ray-march pass: positions -> encoding -> MLP -> compositing, and its
+gradient.
 
-Counterpart of ``minimal_nerf_tpu/kernels/fused_raymarch.py`` (forward only;
-the backward kernel comes with training). One call per render pass takes
-per-ray origins/directions and sample times and returns the composited ray
-colors plus the per-sample weights the hierarchical sampler needs.
+Counterpart of ``minimal_nerf_tpu/kernels/fused_raymarch.py``. One call per
+render pass takes per-ray origins/directions and sample times and returns
+the composited ray colors plus the per-sample weights the hierarchical
+sampler needs; its backward turns ``dcolor``/``dweights`` into the MLP's
+weight and bias gradients summed over all rays.
 
-- ``fused_forward`` is the wrapper: for CUDA tensors it launches the
-  hand-written kernel in ``csrc/fused_raymarch_fwd.cu`` (and adds one to
-  ``launches``); for CPU tensors it runs ``fused_forward_plain``, the same
-  function in plain PyTorch with the same rounding points. Any other device
-  raises; there is no fallback.
+- ``fused_forward`` / ``fused_backward`` are the wrappers: for CUDA tensors
+  they launch the hand-written kernels in ``csrc/fused_raymarch_fwd.cu`` and
+  ``csrc/fused_raymarch_bwd.cu`` (adding one to ``launches`` /
+  ``bwd_launches``); for CPU tensors they run ``fused_forward_plain`` /
+  ``fused_backward_plain``, the same functions in plain PyTorch with the same
+  rounding points. Any other device raises; there is no fallback.
+- ``_FusedPass`` is the ``torch.autograd.Function`` joining the two: it takes
+  the prepared ``FusedMLP`` plus the fp32 parameter tensors it was prepared
+  from, and maps the kernel's flat gradients back onto those tensors. ``o``,
+  ``d`` and ``ts`` get no gradient (as in ``_fused_core_bwd``).
 - ``fused_render_pass`` / ``render_rays_fused`` / ``make_fused_render_fn``
-  mirror the JAX entry points.
+  mirror the JAX entry points and are differentiable in the parameters.
 """
 
 from __future__ import annotations
@@ -25,16 +32,29 @@ import torch
 from minimal_nerf_torch.models.mlp import round_to
 from minimal_nerf_torch.ops import rendering
 from minimal_nerf_torch.ops.encoding import positional_encoding
+from minimal_nerf_torch.training.checkpoint import flatten_tree
 
 Params = Dict[str, Any]
 
-# kernel launches since the last reset (the wrapper adds one per launch)
+# kernel launches since the last reset (each wrapper adds one per launch):
+# the forward kernel, the backward's per-ray kernel, and the backward's
+# weight-gradient kernel (which is followed by its fixed-order reduction)
 launches = 0
+bwd_launches = 0
+wgrad_launches = 0
 
 KERNEL = "fused_raymarch_fwd"
-WIDTH, RGB_WIDTH = 256, 128   # the widths the kernel is compiled for
-POS_SLOT, DIR_SLOT = 64, 32   # padded encoding widths in the kernel
-MAX_SAMPLES = 1024            # samples per ray the kernel's buffer holds
+BWD_KERNEL = "fused_raymarch_bwd"
+WIDTH, RGB_WIDTH = 256, 128   # the widths the kernels are compiled for
+POS_SLOT, DIR_SLOT = 64, 32   # padded encoding widths in the kernels
+MAX_SAMPLES = 1024            # samples per ray the kernels' buffers hold
+
+# The backward's scratch, feature-major [channel, point] in the compute
+# dtype: every layer's input (e, ed, a0..a5, h, r0), then every layer's
+# output gradient (g_a0..g_a5, g_h, g_r0, and the heads' 8-channel block),
+# the channel order of csrc/fused_raymarch_bwd.cu
+SCRATCH_CHANNELS = (POS_SLOT + DIR_SLOT + 7 * WIDTH + RGB_WIDTH
+                    + 7 * WIDTH + RGB_WIDTH + 8)  # 3944
 
 
 def flatten_mlp_params(params: Params, compute_dtype=None
@@ -61,6 +81,20 @@ def flatten_mlp_params(params: Params, compute_dtype=None
     return ws, [b.float().reshape(1, -1) for b in bs]
 
 
+def unflatten_mlp_grads(gws: List[torch.Tensor], gbs: List[torch.Tensor]) -> Params:
+    """Inverse of ``flatten_mlp_params`` for the 12 + 10 fp32 gradients
+    (``minimal_nerf_tpu/kernels/raymarch.py:398-421``): the split halves of
+    ``feature[0]`` and ``rgb[0]`` are concatenated back."""
+    lin = lambda w, b: {"w": w, "b": b.reshape(-1)}  # noqa: E731
+    return {
+        "trunk": [lin(gws[i], gbs[i]) for i in range(4)],
+        "feature": [lin(torch.cat([gws[4], gws[5]], dim=0), gbs[4]),
+                    lin(gws[6], gbs[5]), lin(gws[7], gbs[6])],
+        "density": lin(gws[8], gbs[7]),
+        "rgb": [lin(torch.cat([gws[9], gws[10]], dim=0), gbs[8]), lin(gws[11], gbs[9])],
+    }
+
+
 class FusedMLP(NamedTuple):
     """One MLP prepared for the fused pass (see ``prepare_fused_mlp``)."""
 
@@ -70,6 +104,12 @@ class FusedMLP(NamedTuple):
     # kernel operands (packed weights, flat biases) for CUDA, else None
     kernel_ws: Optional[List[torch.Tensor]]
     kernel_bs: Optional[List[torch.Tensor]]
+    # the transposed weights the backward's reverse sweep multiplies by
+    # (T1, T2, T3, F0H, F1, F2, R0H), packed likewise; CUDA only
+    kernel_wts: Optional[List[torch.Tensor]] = None
+    # the parameter tensors this was prepared from, in ``flatten_tree``
+    # order: gradients flow to them through ``_FusedPass``
+    leaves: Tuple[torch.Tensor, ...] = ()
 
 
 def _pack_mma(w: torch.Tensor, k_pad: int) -> torch.Tensor:
@@ -91,13 +131,24 @@ def _pad_rows(w: torch.Tensor, k_pad: int) -> torch.Tensor:
     return out
 
 
-def _kernel_operands(ws, bs, dtype):
-    """The weights in the layouts the CUDA kernel reads.
+def _layout(w: torch.Tensor, k_pad: int, dtype) -> torch.Tensor:
+    """One MLP matrix ``[K, N]`` as the kernels read it: bf16 packed in mma
+    fragment order, fp32 row-major, K padded to ``k_pad`` either way."""
+    if dtype == torch.bfloat16:
+        return _pack_mma(w, k_pad)
+    return _pad_rows(w, k_pad).contiguous()
 
-    bf16: every MLP matrix packed in mma fragment order with K padded to the
-    kernel's slot; fp32: ``[K_pad, N]`` row-major. The density weight is a
-    flat ``[256]`` and the rgb output weight ``[3, 128]``, both in the compute
-    dtype.
+
+# the layers whose transposes the reverse sweep multiplies by
+_TRANSPOSED = (1, 2, 3, 4, 6, 7, 9)
+
+
+def _kernel_operands(ws, bs, dtype):
+    """The weights in the layouts the CUDA kernels read.
+
+    Every MLP matrix in ``_layout`` with K padded to the kernel's slot; the
+    density weight is a flat ``[256]`` and the rgb output weight ``[3, 128]``,
+    both in the compute dtype. Third, the reverse sweep's ``W^T``.
     """
     width = ws[0].shape[1]
     rgb_width = ws[9].shape[1]
@@ -111,23 +162,27 @@ def _kernel_operands(ws, bs, dtype):
             out.append(w.reshape(-1).contiguous())
         elif i == 11:
             out.append(w.t().contiguous())
-        elif dtype == torch.bfloat16:
-            out.append(_pack_mma(w, k_pad.get(i, w.shape[0])))
         else:
-            out.append(_pad_rows(w, k_pad.get(i, w.shape[0])).contiguous())
-    return out, [b.reshape(-1).contiguous() for b in bs]
+            out.append(_layout(w, k_pad.get(i, w.shape[0]), dtype))
+    wts = [_layout(ws[i].t(), ws[i].shape[1], dtype) for i in _TRANSPOSED]
+    return out, [b.reshape(-1).contiguous() for b in bs], wts
 
 
 def prepare_fused_mlp(params: Params, compute_dtype=None) -> FusedMLP:
-    """Flatten (and, on a CUDA device, pack) one MLP for ``fused_forward``."""
+    """Flatten (and, on a CUDA device, pack) one MLP for the fused pass.
+
+    The prepared operands are detached copies; ``leaves`` keeps the
+    parameter tensors themselves so ``_FusedPass`` can give them gradients.
+    """
     if compute_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype {compute_dtype} not supported")
     dtype = None if compute_dtype == torch.float32 else compute_dtype
-    ws, bs = flatten_mlp_params(params, dtype)
-    kws = kbs = None
-    if ws[0].device.type == "cuda":
-        kws, kbs = _kernel_operands(ws, bs, dtype)
-    return FusedMLP(ws, bs, dtype, kws, kbs)
+    with torch.no_grad():
+        ws, bs = flatten_mlp_params(params, dtype)
+        kws = kbs = kwts = None
+        if ws[0].device.type == "cuda":
+            kws, kbs, kwts = _kernel_operands(ws, bs, dtype)
+    return FusedMLP(ws, bs, dtype, kws, kbs, kwts, tuple(flatten_tree(params)))
 
 
 def _encode(x: torch.Tensor, dim: int, dtype) -> torch.Tensor:
@@ -136,13 +191,8 @@ def _encode(x: torch.Tensor, dim: int, dtype) -> torch.Tensor:
     return round_to(positional_encoding(round_to(x, dtype), dim), dtype)
 
 
-def fused_forward_plain(fm: FusedMLP, o, d, ts, position_dim: int = 10,
-                        direction_dim: int = 4):
-    """Plain PyTorch version of the kernel: ``color [N, 3]``, ``weights [N, S]``.
-
-    Same rounding points as the kernel and ``_fused_forward_core``; only the
-    order of fp32 sums differs (matmuls, ``torch.cumsum`` for the scan).
-    """
+def _forward_core(fm: FusedMLP, o, d, ts, position_dim: int, direction_dim: int):
+    """The forward chain with its intermediates (``_fused_forward_core``)."""
     ws, bs, dtype = fm.ws, fm.bs, fm.dtype
     (t0w, t1w, t2w, t3w, f0wh, f0we, f1w, f2w, dw, r0wh, r0wd, r1w) = [
         round_to(w, dtype) for w in ws]
@@ -162,17 +212,98 @@ def fused_forward_plain(fm: FusedMLP, o, d, ts, position_dim: int = 10,
     a4 = act(a3 @ f0wh + e @ f0we + f0b)
     a5 = act(a4 @ f1w + f1b)
     h = round_to(a5 @ f2w + f2b, dtype)
-    sigma = torch.relu(h @ dw + db)[..., 0]  # [N, S]
+    sg = torch.relu(h @ dw + db)  # [N, S, 1]
     r0 = act(h @ r0wh + ed @ r0wd + r0b)
     rgb = torch.sigmoid(r0 @ r1w + r1b)  # [N, S, 3]
 
     deltas = torch.cat([ts[:, 1:] - ts[:, :-1],
                         torch.full((n, 1), 1e10, dtype=ts.dtype, device=ts.device)], dim=1)
-    ndd = -sigma * deltas
+    ndd = -sg[..., 0] * deltas
     excl = torch.cat([torch.zeros_like(ndd[:, :1]), torch.cumsum(ndd[:, :-1], dim=1)], dim=1)
-    weights = (1.0 - torch.exp(ndd)) * torch.exp(excl)
+    transmittance, ealpha = torch.exp(excl), torch.exp(ndd)
+    weights = (1.0 - ealpha) * transmittance
     color = torch.sum(weights[..., None] * rgb, dim=1)
-    return color, weights
+    return dict(e=e, ed=ed, a0=a0, a1=a1, a2=a2, a3=a3, a4=a4, a5=a5, h=h, sg=sg, r0=r0,
+                rgb=rgb, deltas=deltas, transmittance=transmittance, ealpha=ealpha,
+                weights=weights, color=color)
+
+
+def fused_forward_plain(fm: FusedMLP, o, d, ts, position_dim: int = 10,
+                        direction_dim: int = 4):
+    """Plain PyTorch version of the kernel: ``color [N, 3]``, ``weights [N, S]``.
+
+    Same rounding points as the kernel and ``_fused_forward_core``; only the
+    order of fp32 sums differs (matmuls, ``torch.cumsum`` for the scan).
+    """
+    f = _forward_core(fm, o, d, ts, position_dim, direction_dim)
+    return f["color"], f["weights"]
+
+
+def _suffix_sum(x: torch.Tensor) -> torch.Tensor:
+    """``out[:, i] = sum_{j > i} x[:, j]`` (strict, without cancellation)."""
+    rev = torch.cumsum(torch.flip(x, [1]), dim=1)
+    return torch.flip(torch.cat([torch.zeros_like(rev[:, :1]), rev[:, :-1]], dim=1), [1])
+
+
+def _grad_act(v: torch.Tensor, mask: torch.Tensor, dtype) -> torch.Tensor:
+    """A ReLU layer's input gradient, stored in the compute dtype (``gact``)."""
+    return round_to(v * mask, dtype)
+
+
+def fused_backward_plain(fm: FusedMLP, o, d, ts, dcolor, dweights=None,
+                         position_dim: int = 10, direction_dim: int = 4):
+    """Plain PyTorch version of the backward kernel (``_fused_bwd_kernel``).
+
+    Returns the 12 weight gradients ``[in, out]`` and 10 bias gradients
+    ``[1, out]`` (fp32, summed over all rays) in ``flatten_mlp_params``
+    order. ``dweights=None`` means zeros. Rounding points as in JAX: the
+    gradient activations, ``g_rgbpre`` and ``g_sigpre`` are rounded to the
+    compute dtype, ReLU masks compare the stored activations in fp32, and
+    the weight-gradient products take compute-dtype operands with fp32 sums.
+    """
+    dtype = fm.dtype
+    (_, t1w, t2w, t3w, f0wh, _, f1w, f2w, dw, r0wh, _, r1w) = [
+        round_to(w, dtype) for w in fm.ws]
+    f = _forward_core(fm, o, d, ts, position_dim, direction_dim)
+    weights, rgb = f["weights"], f["rgb"]
+
+    # compositing backward
+    g_rgb = weights[..., None] * dcolor[:, None, :]
+    g_w = torch.sum(dcolor[:, None, :] * rgb, dim=-1)
+    if dweights is not None:
+        g_w = g_w + dweights
+    wg = weights * g_w
+    g_sigma = f["deltas"] * (f["transmittance"] * f["ealpha"] * g_w - _suffix_sum(wg))
+
+    # MLP backward
+    pos = lambda v: (v > 0).float()  # noqa: E731
+    gact = lambda v, mask: _grad_act(v, mask, dtype)  # noqa: E731
+
+    def a_tb(a, b):
+        return (round_to(a, dtype).reshape(-1, a.shape[-1]).t()
+                @ round_to(b, dtype).reshape(-1, b.shape[-1]))
+
+    def bsum(g):
+        return torch.sum(g.float(), dim=(0, 1))[None, :]
+
+    g_rgbpre = round_to(g_rgb * rgb * (1.0 - rgb), dtype)
+    g_r0 = gact(g_rgbpre @ r1w.t(), pos(f["r0"]))
+    g_sigpre = round_to(g_sigma[..., None] * (f["sg"] > 0), dtype)
+    g_h = round_to(g_r0 @ r0wh.t() + g_sigpre @ dw.t(), dtype)
+    g_a5 = gact(g_h @ f2w.t(), pos(f["a5"]))
+    g_a4 = gact(g_a5 @ f1w.t(), pos(f["a4"]))
+    g_a3 = gact(g_a4 @ f0wh.t(), pos(f["a3"]))
+    g_a2 = gact(g_a3 @ t3w.t(), pos(f["a2"]))
+    g_a1 = gact(g_a2 @ t2w.t(), pos(f["a1"]))
+    g_a0 = gact(g_a1 @ t1w.t(), pos(f["a0"]))
+
+    gws = [a_tb(f["e"], g_a0), a_tb(f["a0"], g_a1), a_tb(f["a1"], g_a2), a_tb(f["a2"], g_a3),
+           a_tb(f["a3"], g_a4), a_tb(f["e"], g_a4), a_tb(f["a4"], g_a5), a_tb(f["a5"], g_h),
+           a_tb(f["h"], g_sigpre), a_tb(f["h"], g_r0), a_tb(f["ed"], g_r0),
+           a_tb(f["r0"], g_rgbpre)]
+    gbs = [bsum(g) for g in (g_a0, g_a1, g_a2, g_a3, g_a4, g_a5, g_h, g_sigpre, g_r0,
+                             g_rgbpre)]
+    return gws, gbs
 
 
 def _check(name, t: torch.Tensor, shape, dtype=torch.float32):
@@ -181,13 +312,10 @@ def _check(name, t: torch.Tensor, shape, dtype=torch.float32):
                          f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
 
 
-def _launch(fm: FusedMLP, o, d, ts, position_dim, direction_dim):
-    global launches
-    from minimal_nerf_torch.kernels import build
-
-    n, s = ts.shape
-    dev = o.device
-    for name, t, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("ts", ts, (n, s))):
+def _check_launch(fm: FusedMLP, tensors, s, position_dim, direction_dim):
+    """Device, dtype, shape and contiguity checks shared by both kernels."""
+    dev = tensors[0][1].device
+    for name, t, shape in tensors:
         _check(name, t, shape)
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, expected {dev}")
@@ -201,23 +329,37 @@ def _launch(fm: FusedMLP, o, d, ts, position_dim, direction_dim):
     if not (1 <= 6 * position_dim <= POS_SLOT and 1 <= 6 * direction_dim <= DIR_SLOT):
         raise ValueError(f"encoding dims {position_dim}/{direction_dim} exceed the "
                          f"kernel's {POS_SLOT}/{DIR_SLOT} channel slots")
+    return dev
+
+
+def _ptrs(ts_list):
+    """``(pointer to an array of the tensors' data pointers, the array)``;
+    the caller keeps the array alive until the launch returns."""
+    arr = (ctypes.c_void_p * len(ts_list))(*[t.data_ptr() for t in ts_list])
+    return ctypes.cast(arr, ctypes.c_void_p), arr
+
+
+def _launch(fm: FusedMLP, o, d, ts, position_dim, direction_dim):
+    global launches
+    from minimal_nerf_torch.kernels import build
+
+    n, s = ts.shape
+    dev = _check_launch(fm, [("o", o, (n, 3)), ("d", d, (n, 3)), ("ts", ts, (n, s))],
+                        s, position_dim, direction_dim)
     color = torch.empty((n, 3), dtype=torch.float32, device=dev)
     weights = torch.empty((n, s), dtype=torch.float32, device=dev)
     if n == 0:
         return color, weights
 
-    lib = build.load(KERNEL)
-    fn = lib.fused_raymarch_fwd
+    fn = build.load(KERNEL).fused_raymarch_fwd
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p, p]
     fn.restype = i
-    w_ptrs = (ctypes.c_void_p * 12)(*[w.data_ptr() for w in fm.kernel_ws])
-    b_ptrs = (ctypes.c_void_p * 10)(*[b.data_ptr() for b in fm.kernel_bs])
+    (w_ptrs, _keep_w), (b_ptrs, _keep_b) = _ptrs(fm.kernel_ws), _ptrs(fm.kernel_bs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(o.data_ptr(), d.data_ptr(), ts.data_ptr(), n, s, position_dim,
-                direction_dim, int(fm.dtype == torch.bfloat16),
-                ctypes.cast(w_ptrs, ctypes.c_void_p), ctypes.cast(b_ptrs, ctypes.c_void_p),
+                direction_dim, int(fm.dtype == torch.bfloat16), w_ptrs, b_ptrs,
                 color.data_ptr(), weights.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{KERNEL} launch failed with code {rc}")
@@ -239,18 +381,148 @@ def fused_forward(fm: FusedMLP, o, d, ts, position_dim: int = 10,
     raise ValueError(f"no fused ray-march implementation for device {o.device}")
 
 
+def _bwd_sizes(n: int, s: int, lib) -> Tuple[int, int, int, int]:
+    """``(points, padded points, slices, partial floats)`` of one backward:
+    the kernel's own choice of rays per CTA and point slices."""
+    fn = lib.fused_raymarch_bwd_sizes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 4)()
+    rc = fn(n, s, out)
+    if rc != 0:
+        raise ValueError(f"{BWD_KERNEL} does not take n={n}, s={s} (code {rc})")
+    return tuple(int(v) for v in out)
+
+
+def _launch_bwd(fm: FusedMLP, o, d, ts, dcolor, dweights, position_dim, direction_dim):
+    global bwd_launches, wgrad_launches
+    from minimal_nerf_torch.kernels import build
+
+    n, s = ts.shape
+    tensors = [("o", o, (n, 3)), ("d", d, (n, 3)), ("ts", ts, (n, s)),
+               ("dcolor", dcolor, (n, 3))]
+    if dweights is not None:
+        tensors.append(("dweights", dweights, (n, s)))
+    dev = _check_launch(fm, tensors, s, position_dim, direction_dim)
+    if fm.kernel_wts is None or any(w.device != dev for w in fm.kernel_wts):
+        raise ValueError(f"transposed weights are not prepared on {dev}")
+    if n == 0:
+        return _split_grads(torch.zeros((sum(r * c for r, c in GRAD_BLOCKS),),
+                                        dtype=torch.float32, device=dev), fm)
+    lib = build.load(BWD_KERNEL)
+    _, p_alloc, slices, total = _bwd_sizes(n, s, lib)
+    if total != sum(r * c for r, c in GRAD_BLOCKS):
+        raise RuntimeError(f"{BWD_KERNEL} writes {total} gradient floats, expected "
+                           f"the {len(GRAD_BLOCKS)} blocks of GRAD_BLOCKS")
+    grads = torch.empty((total,), dtype=torch.float32, device=dev)
+    sdtype = fm.dtype or torch.float32
+    scratch = torch.empty((SCRATCH_CHANNELS, p_alloc), dtype=sdtype, device=dev)
+    partial = torch.empty((slices, total), dtype=torch.float32, device=dev)
+
+    fn = lib.fused_raymarch_bwd
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p, p]
+    fn.restype = i
+    (w_ptrs, _kw), (b_ptrs, _kb), (wt_ptrs, _kt) = (
+        _ptrs(fm.kernel_ws), _ptrs(fm.kernel_bs), _ptrs(fm.kernel_wts))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(o.data_ptr(), d.data_ptr(), ts.data_ptr(), dcolor.data_ptr(),
+                dweights.data_ptr() if dweights is not None else None, n, s, position_dim,
+                direction_dim, int(fm.dtype == torch.bfloat16), w_ptrs, b_ptrs, wt_ptrs,
+                scratch.data_ptr(), partial.data_ptr(), grads.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{BWD_KERNEL} launch failed with code {rc}")
+    bwd_launches += 1
+    wgrad_launches += 1
+    return _split_grads(grads, fm)
+
+
+# ``(rows, cols)`` of each block the weight-gradient kernel writes, in its
+# order: the 12 weight products (encodings padded to their slots, the two
+# heads sharing one 8-column gradient block), then the column sums of the 9
+# gradient blocks (32 rows, the first one used)
+GRAD_BLOCKS = ([(POS_SLOT, WIDTH)] + [(WIDTH, WIDTH)] * 4 + [(POS_SLOT, WIDTH)]
+               + [(WIDTH, WIDTH)] * 2 + [(WIDTH, 8), (WIDTH, RGB_WIDTH),
+                                         (DIR_SLOT, RGB_WIDTH), (RGB_WIDTH, 8)]
+               + [(32, WIDTH)] * 7 + [(32, RGB_WIDTH), (32, 8)])
+
+
+def _split_grads(flat: torch.Tensor, fm: FusedMLP):
+    """The kernel's flat fp32 output as 12 weight and 10 bias gradients."""
+    blocks, off = [], 0
+    for rows, cols in GRAD_BLOCKS:
+        blocks.append(flat[off: off + rows * cols].view(rows, cols))
+        off += rows * cols
+    pe, de = fm.ws[0].shape[0], fm.ws[10].shape[0]
+    gws = blocks[:12]
+    gws[0], gws[5], gws[10] = gws[0][:pe], gws[5][:pe], gws[10][:de]
+    gws[8], gws[11] = gws[8][:, :1], gws[11][:, 1:4]
+    rows0 = [b[:1] for b in blocks[12:]]
+    gbs = rows0[:7] + [rows0[8][:, :1], rows0[7], rows0[8][:, 1:4]]
+    return gws, gbs
+
+
+def fused_backward(fm: FusedMLP, o, d, ts, dcolor, dweights=None, position_dim: int = 10,
+                   direction_dim: int = 4):
+    """The 12 weight and 10 bias gradients (fp32) of one fused pass.
+
+    CUDA tensors go through the backward kernel, CPU tensors through
+    ``fused_backward_plain``; any other device raises. ``dweights=None``
+    means zeros.
+    """
+    if o.device.type == "cuda":
+        return _launch_bwd(fm, o, d, ts, dcolor, dweights, position_dim, direction_dim)
+    if o.device.type == "cpu":
+        return fused_backward_plain(fm, o, d, ts, dcolor, dweights, position_dim,
+                                    direction_dim)
+    raise ValueError(f"no fused ray-march implementation for device {o.device}")
+
+
+class _FusedPass(torch.autograd.Function):
+    """``fused_forward`` with ``fused_backward`` as its gradient.
+
+    Inputs: the prepared ``FusedMLP``, ``o, d, ts``, the encoding dims, then
+    ``fm.leaves`` (the fp32 parameters ``fm`` was packed from). The backward
+    maps the flat gradients back onto those leaves; ``o, d, ts`` get none.
+    """
+
+    @staticmethod
+    def forward(ctx, fm, o, d, ts, position_dim, direction_dim, *leaves):
+        ctx.fm, ctx.dims = fm, (position_dim, direction_dim)
+        ctx.save_for_backward(o, d, ts)
+        ctx.set_materialize_grads(False)
+        return fused_forward(fm, o, d, ts, position_dim, direction_dim)
+
+    @staticmethod
+    def backward(ctx, dcolor, dweights):
+        o, d, ts = ctx.saved_tensors
+        fm = ctx.fm
+        if dcolor is None:
+            dcolor = torch.zeros((ts.shape[0], 3), dtype=torch.float32, device=ts.device)
+        gws, gbs = fused_backward(fm, o, d, ts, dcolor.float().contiguous(),
+                                  None if dweights is None else dweights.float().contiguous(),
+                                  *ctx.dims)
+        grads = flatten_tree(unflatten_mlp_grads(gws, gbs))
+        return (None,) * 6 + tuple(grads)
+
+
 def fused_render_pass(params, o_rays, d_rays, ts, position_dim: int = 10,
                       direction_dim: int = 4, compute_dtype=None):
     """One fused pass for sample times ``ts [N, S, 1]`` or ``[N, S]``.
 
     ``params`` is one MLP tree or a ``FusedMLP``. Returns ``color [N, 3]``
-    and ``weights [N, S, 1]``.
+    and ``weights [N, S, 1]``, differentiable in the parameters when they
+    require gradients.
     """
     fm = params if isinstance(params, FusedMLP) else prepare_fused_mlp(params, compute_dtype)
     ts2 = ts[..., 0] if ts.dim() == 3 else ts
-    color, weights = fused_forward(fm, o_rays.float().contiguous(),
-                                   d_rays.float().contiguous(),
-                                   ts2.float().contiguous(), position_dim, direction_dim)
+    args = (fm, o_rays.float().contiguous(), d_rays.float().contiguous(),
+            ts2.float().contiguous(), position_dim, direction_dim)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in fm.leaves):
+        color, weights = _FusedPass.apply(*args, *fm.leaves)
+    else:
+        color, weights = fused_forward(*args)
     return color, weights[..., None]
 
 
@@ -261,7 +533,8 @@ def render_rays_fused(params: Params, config, o_rays, d_rays,
     """Hierarchical render with both passes through the fused pass.
 
     Same draws and math as ``models.nerf.render_rays``; sampling and the
-    sorted union run in PyTorch between the two passes. ``params`` holds
+    sorted union run in PyTorch between the two passes, and the fine pass's
+    times carry no gradient (``sg(all_ts)`` in JAX). ``params`` holds
     ``"coarse"`` and ``"fine"`` MLP trees or ``FusedMLP``s. ``mlp_apply`` is
     accepted for interface parity and ignored.
     """
@@ -278,20 +551,23 @@ def render_rays_fused(params: Params, config, o_rays, d_rays,
     coarse_color, coarse_weights = pass_(params["coarse"], coarse_ts)
     all_ts = fine_times(config, o_rays, d_rays, coarse_weights, coarse_ts,
                         generator, uniforms)
-    fine_color, _ = pass_(params["fine"], all_ts)
+    fine_color, _ = pass_(params["fine"], all_ts.detach())
     return {"fine_rgb_rays": fine_color, "coarse_rgb_rays": coarse_color}
 
 
 def make_fused_render_fn():
     """A ``render_fn`` hook (signature of ``models.nerf.render_rays``).
 
-    The MLPs are flattened and packed once per params object, not per call.
+    The MLPs are flattened and packed once per state of the parameters, not
+    per call: the cache is keyed on the params object and every leaf's
+    ``_version``, which an in-place update (an optimizer step) advances.
     """
     cache: Dict[str, Any] = {}
 
     def render_fn(params, config, o_rays, d_rays, generator=None, compute_dtype=None,
                   mlp_apply=None, coarse_sampler=None, uniforms=None):
-        key = (id(params), compute_dtype)
+        key = (id(params), compute_dtype,
+               tuple((id(t), t._version) for t in flatten_tree(params)))
         if cache.get("key") != key:
             cache.update(key=key, params=params, prepared={
                 k: prepare_fused_mlp(params[k], compute_dtype) for k in ("coarse", "fine")})

@@ -1,1 +1,1 @@
-"""Training configuration, checkpoints and (for now) inference-time loading."""
+"""Training: configuration, the train step, checkpoints and inference-time loading."""

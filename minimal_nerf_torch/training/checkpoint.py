@@ -10,9 +10,10 @@ is a numpy ``.npz`` holding ``leaf_0 .. leaf_{L-1}`` plus a JSON
 - ``params``: ``coarse``/``fine`` -> ``density``, ``feature[0..2]``,
   ``rgb[0..1]``, ``trunk[0..3]``, each with ``b`` before ``w``.
 
-A default ``full`` checkpoint therefore has 2 + 3 * 40 = 122 leaves. The port
-has no optimizer yet, so it writes zero moments and zero counts; the file
-loads in the JAX package's ``load_state_for_inference``.
+A default ``full`` checkpoint therefore has 2 + 3 * 40 = 122 leaves.
+``save_checkpoint`` writes zero moments and zero counts (the train step's
+Adam state is not saved yet); the file loads in the JAX package's
+``load_state_for_inference``.
 """
 
 from __future__ import annotations

@@ -1,0 +1,202 @@
+"""The train step: batch sampling, hierarchical render, loss, Adam, LR.
+
+Counterpart of ``minimal_nerf_tpu/training/loop.py`` (single device; the
+multi-step scan, occupancy and data parallelism are not ported yet). PyTorch
+runs eagerly, so there is no ``jit``: ``make_train_step`` returns a plain
+function that samples a batch, renders it through the fused kernels (or a
+given ``render_fn``), takes the gradients with autograd and applies Adam with
+optax's semantics IN PLACE on the parameter tensors.
+
+Adam is written as plain functions over ``{"count", "mu", "nu"}`` with ``mu``
+and ``nu`` in the parameter tree's layout, the state optax keeps, so the
+moments map onto the checkpoint's leaves without reshaping.
+
+Random draws: each step derives its generators from ``(seed, step)``; the
+per-epoch frame permutation from ``(seed, epoch)`` alone, so every step of an
+epoch sees the same permutation and visits each frame exactly once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from minimal_nerf_torch.data.synthetic import ray_batch_from_arrays
+from minimal_nerf_torch.models.mlp import map_params
+from minimal_nerf_torch.models.nerf import NeRFConfig
+from minimal_nerf_torch.training.checkpoint import flatten_tree, unflatten_tree
+from minimal_nerf_torch.training.config import TrainConfig
+
+Params = Dict[str, Any]
+
+# stream tags separating the generators derived from one seed
+_PERM_STREAM, _BATCH_STREAM, _RENDER_STREAM = 0x5EED, 1, 2
+
+
+@dataclasses.dataclass
+class SceneStatic:
+    """Static facts about a scene split."""
+
+    height: int
+    width: int
+    focal: float
+    num_frames: int
+
+
+def scene_static(scene) -> SceneStatic:
+    return SceneStatic(height=scene.height, width=scene.width, focal=scene.focal,
+                       num_frames=scene.num_frames)
+
+
+def make_lr_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Callable:
+    """``lr(step) = max(start_lr * gamma^epoch, lr_floor)`` with
+    ``gamma = (end/start)^(1/decay_epochs)``: the reference's ExponentialLR
+    stepped once per epoch (staircase). Returns an fp32 scalar tensor."""
+    gamma = (cfg.end_lr / cfg.start_lr) ** (1.0 / cfg.lr_decay_epochs)
+
+    def schedule(step) -> torch.Tensor:
+        epoch = int(step) // steps_per_epoch
+        lr = (torch.tensor(cfg.start_lr, dtype=torch.float32)
+              * torch.tensor(gamma, dtype=torch.float32) ** epoch)
+        return torch.clamp(lr, min=cfg.lr_floor)
+
+    return schedule
+
+
+def adam_init(params: Params) -> Dict[str, Any]:
+    """Zero moments in the parameter tree's layout and a zero count."""
+    zeros = lambda t: torch.zeros_like(t, dtype=torch.float32)  # noqa: E731
+    return {"count": 0, "mu": map_params(zeros, params), "nu": map_params(zeros, params)}
+
+
+@torch.no_grad()
+def adam_update(params: Params, grads: Params, state: Dict[str, Any], lr: torch.Tensor,
+                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Dict[str, Any]:
+    """One ``optax.adam`` step: moments updated, bias-corrected at the
+    incremented count, ``p -= lr * mu_hat / (sqrt(nu_hat) + eps)``. The LR is
+    the schedule's value at the count before the increment (the caller's
+    ``lr``). ``params`` and the moments are updated in place; returns the
+    new state."""
+    count = state["count"] + 1
+    # fp32 scalars as optax computes them; as Python floats they are exact
+    # and need no host-to-device copy
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    bc1, bc2 = float(1 - f32(b1) ** count), float(1 - f32(b2) ** count)
+    step_size = -float(lr)
+    for p, g, m, v in zip(flatten_tree(params), flatten_tree(grads),
+                          flatten_tree(state["mu"]), flatten_tree(state["nu"])):
+        m.copy_((1 - b1) * g + b1 * m)
+        v.copy_((1 - b2) * (g * g) + b2 * v)
+        p.add_(step_size * ((m / bc1) / (torch.sqrt(v / bc2) + eps)))
+    return dict(state, count=count)
+
+
+def global_norm(grads: Params) -> torch.Tensor:
+    """``sqrt(sum of squares)`` over every leaf (``optax.global_norm``)."""
+    return torch.sqrt(sum(torch.sum(g * g) for g in flatten_tree(grads)))
+
+
+def finalize_metrics(metrics: Dict[str, torch.Tensor], grads: Params) -> Dict[str, torch.Tensor]:
+    """The reference's logged names: the losses plus ``grad_2.0_norm_total``
+    (the fused path has no density statistics, as in JAX)."""
+    return dict(metrics, **{"grad_2.0_norm_total": global_norm(grads)})
+
+
+def nerf_loss(params: Params, nerf_cfg: NeRFConfig, o_rays, d_rays, rgb,
+              generator: Optional[torch.Generator] = None, compute_dtype=None,
+              render_fn=None, uniforms=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``MSE(coarse, gt) + MSE(fine, gt)`` (reference ``nerf_model.py:158-161``).
+
+    ``render_fn`` is the hierarchical render (signature of
+    ``models.nerf.render_rays``; default the fused kernels'
+    ``render_rays_fused``); ``uniforms`` replaces its draws.
+    """
+    from minimal_nerf_torch.kernels.fused_raymarch import render_rays_fused
+
+    render = render_fn or render_rays_fused
+    out = render(params, nerf_cfg, o_rays, d_rays, generator, compute_dtype=compute_dtype,
+                 uniforms=uniforms)
+    coarse_loss = torch.mean((out["coarse_rgb_rays"] - rgb) ** 2)
+    fine_loss = torch.mean((out["fine_rgb_rays"] - rgb) ** 2)
+    loss = coarse_loss + fine_loss
+    return loss, {"train_loss": loss, "train_coarse_loss": coarse_loss,
+                  "train_fine_loss": fine_loss}
+
+
+def step_generator(seed: int, step: int, stream: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded from ``(seed, step, stream)``."""
+    mixed = (seed * 0x9E3779B97F4A7C15 + step * 0xBF58476D1CE4E5B9
+             + stream * 0x94D049BB133111EB) % (1 << 63)
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
+def epoch_permutation(seed: int, epoch: int, num_frames: int) -> torch.Tensor:
+    """The frame order of one epoch (CPU int64), the same for all its steps."""
+    return torch.randperm(num_frames, generator=step_generator(seed, epoch, _PERM_STREAM, "cpu"))
+
+
+def sample_train_batch(step: int, images: torch.Tensor, poses: torch.Tensor,
+                       static: SceneStatic, num_rays: int, steps_per_epoch: int,
+                       cropping_epochs: int, seed: int,
+                       generator: Optional[torch.Generator] = None,
+                       coords=None) -> Dict[str, Any]:
+    """Pick this step's frame from the epoch's permutation, sample pixels
+    (center crop while ``epoch < cropping_epochs``) and build their rays.
+
+    ``coords = (xs, ys)`` replaces the pixel draws. Returns ``origin``,
+    ``direc``, ``rgb`` ``[N, 3]``, ``xs``, ``ys`` and the ``frame`` index.
+    """
+    epoch = step // steps_per_epoch
+    perm = epoch_permutation(seed, epoch, static.num_frames)
+    frame = int(perm[step % steps_per_epoch % static.num_frames])
+    batch = ray_batch_from_arrays(frame, num_rays, static.height, static.width, static.focal,
+                                  images, poses, cropping=epoch < cropping_epochs,
+                                  generator=generator, coords=coords)
+    return dict(batch, frame=frame)
+
+
+def loss_and_grads(params: Params, nerf_cfg: NeRFConfig, batch: Dict[str, Any],
+                   compute_dtype=None, render_fn=None, generator=None, uniforms=None):
+    """``(metrics, grads)`` of ``nerf_loss`` on one batch; the parameters'
+    leaves are made to require gradients, and no ``.grad`` is written."""
+    leaves = flatten_tree(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    loss, metrics = nerf_loss(params, nerf_cfg, batch["origin"], batch["direc"], batch["rgb"],
+                              generator, compute_dtype, render_fn, uniforms)
+    grads = torch.autograd.grad(loss, leaves)
+    return ({k: v.detach() for k, v in metrics.items()},
+            unflatten_tree(params, list(grads)))
+
+
+def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
+                    render_fn=None, device="cuda") -> Callable:
+    """The train step ``step_fn(params, opt_state, images, poses, step, seed)
+    -> (params, opt_state, metrics)``.
+
+    ``render_fn`` defaults to the fused kernels' hierarchical render with its
+    packing cache (``make_fused_render_fn``). The parameters and Adam moments
+    are updated IN PLACE (the returned ``params`` is the same tree). Metrics
+    are device scalars under the JAX names plus ``lr`` (no host sync).
+    """
+    from minimal_nerf_torch import resolve_device
+    from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
+
+    dev = resolve_device(device)
+    steps_per_epoch = train_cfg.steps_per_epoch or static.num_frames
+    lr_sched = make_lr_schedule(train_cfg, steps_per_epoch)
+    render = render_fn or make_fused_render_fn()
+
+    def step_fn(params, opt_state, images, poses, step: int, seed: int):
+        batch = sample_train_batch(step, images, poses, static, train_cfg.num_rays,
+                                   steps_per_epoch, train_cfg.cropping_epochs, seed,
+                                   generator=step_generator(seed, step, _BATCH_STREAM, dev))
+        metrics, grads = loss_and_grads(
+            params, nerf_cfg, batch, train_cfg.compute_dtype, render,
+            generator=step_generator(seed, step, _RENDER_STREAM, dev))
+        opt_state = adam_update(params, grads, opt_state, lr_sched(opt_state["count"]))
+        return params, opt_state, dict(finalize_metrics(metrics, grads), lr=lr_sched(step))
+
+    return step_fn

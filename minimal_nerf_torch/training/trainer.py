@@ -1,9 +1,11 @@
 """Loading a trained model for inference.
 
 Counterpart of ``load_state_for_inference`` in
-``minimal_nerf_tpu/training/trainer.py`` (the trainer itself is ported with
-training). Only full coarse + fine checkpoints without an occupancy grid load
-here; any other layout raises rather than being guessed at.
+``minimal_nerf_tpu/training/trainer.py``. The trainer itself (epochs,
+validation, save and resume) is not ported yet; the train step is
+``training/loop.py``. Only full coarse + fine checkpoints without an
+occupancy grid load here; any other layout raises rather than being guessed
+at.
 """
 
 from __future__ import annotations

@@ -193,3 +193,152 @@ def test_unsupported_device_raises():
     o, d, ts = _inputs(1, 4, 4)
     with pytest.raises(ValueError):
         t_fused.fused_forward(fm, T(o).to("meta"), T(d).to("meta"), T(ts).to("meta"))
+
+
+# ---------------------------------------------------------------- backward
+
+# Gradients are compared per leaf relative to the leaf's max |g|, as JAX's own
+# tests do (tests/test_fused_raymarch.py:84-87).
+# fp32, at position_dim 4 / direction_dim 2: both sides run the same math
+# with no rounding point; the sum orders differ (<= 1e-5 measured). At the
+# default 10 octaves XLA's and torch's fp32 sin at angles up to 512*pi differ
+# by a few ulp, which the He weights amplify to ~2e-3 in the trunk grads.
+BWD_FP32_RTOL = 5e-5
+# bf16, default dims: the encodings and every activation are rounded to bf16
+# on both sides, so they agree to <= 1.5e-4 (measured over 4 seeds); a pass
+# that skips the bf16 rounding of the gradient activations (``gact``) is off
+# by >= 4.6e-3, which the test asserts fails the bound.
+BWD_BF16_RTOL = 1e-3
+
+
+def _leaf_errors(ref, got):
+    return [float(np.abs(np.asarray(a) - np.asarray(b)).max() / (np.abs(np.asarray(a)).max()
+                                                                  + 1e-12))
+            for a, b in zip(ref, got)]
+
+
+def _jax_backward(jp, o, d, ts, dc, dw, dtype, pd, dd):
+    from minimal_nerf_tpu.kernels.raymarch import flatten_mlp_params
+
+    ws, bs = flatten_mlp_params(jax.tree_util.tree_map(jnp.asarray, jp), dtype)
+    gws, gbs = j_fused._fused_backward(
+        (ws, bs), *map(jnp.asarray, (o, d, ts, dc, dw)), position_dim=pd, direction_dim=dd,
+        compute_dtype=dtype, ray_tile=8, interpret=True)
+    return list(gws) + list(gbs)
+
+
+def _bwd_case(seed, n, s, pd, dd, with_dweights):
+    jp = _scaled(j_mlp.init_nerf_mlp(jax.random.PRNGKey(seed), position_dim=pd,
+                                     direction_dim=dd, width=64, rgb_width=32), HE_GAIN)
+    o, d, ts = _inputs(seed + 1, n, s)
+    rng = np.random.default_rng(seed + 2)
+    dc = rng.normal(size=(n, 3)).astype(np.float32)
+    dw = (rng.normal(size=(n, s)) if with_dweights else np.zeros((n, s))).astype(np.float32)
+    return jp, (o, d, ts, dc, dw)
+
+
+@pytest.mark.parametrize("with_dweights", [False, True])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_plain_backward_matches_jax(monkeypatch, precision, with_dweights):
+    pd, dd = (4, 2) if precision == "fp32" else (10, 4)
+    jdtype, tdtype = (None, None) if precision == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    rtol = BWD_FP32_RTOL if precision == "fp32" else BWD_BF16_RTOL
+    jp, (o, d, ts, dc, dw) = _bwd_case(0, 8, 16, pd, dd, with_dweights)
+    ref = _jax_backward(jp, o, d, ts, dc, dw, jdtype, pd, dd)
+    fm = t_fused.prepare_fused_mlp(t_mlp.params_from_jax(jp, "cpu"), tdtype)
+    args = (fm, T(o), T(d), T(ts), T(dc), T(dw) if with_dweights else None, pd, dd)
+    gws, gbs = t_fused.fused_backward(*args)
+    assert [tuple(g.shape) for g in gws + gbs] == [tuple(np.shape(r)) for r in ref]
+    assert min(np.abs(np.asarray(r)).max() for r in ref) > 1e-2  # every leaf has signal
+    assert max(_leaf_errors(ref, gws + gbs)) < rtol
+    assert t_fused.bwd_launches == 0
+    if precision == "bf16":
+        monkeypatch.setattr(t_fused, "_grad_act", lambda v, mask, dtype: v * mask)
+        gws, gbs = t_fused.fused_backward(*args)
+        assert max(_leaf_errors(ref, gws + gbs)) > rtol
+
+
+def test_plain_backward_matches_autograd():
+    """fp32: the hand-derived backward equals autograd through the plain
+    forward (same torch ops; measured <= 7e-7 relative to the leaf max)."""
+    jp, (o, d, ts, dc, dw) = _bwd_case(3, 8, 16, 10, 4, True)
+    fm = t_fused.prepare_fused_mlp(t_mlp.params_from_jax(jp, "cpu"))
+    ws = [w.clone().requires_grad_() for w in fm.ws]
+    bs = [b.clone().requires_grad_() for b in fm.bs]
+    color, weights = t_fused.fused_forward_plain(fm._replace(ws=ws, bs=bs), T(o), T(d), T(ts))
+    ref = torch.autograd.grad((color * T(dc)).sum() + (weights * T(dw)).sum(), ws + bs)
+    gws, gbs = t_fused.fused_backward_plain(fm, T(o), T(d), T(ts), T(dc), T(dw))
+    assert max(_leaf_errors([r.numpy() for r in ref], gws + gbs)) < 1e-5
+
+
+def test_plain_backward_faults_fail_the_bound(monkeypatch):
+    """An inclusive suffix sum, or a dropped skip-concat encoding term,
+    moves the gradients far beyond the 1e-5 that separates the plain
+    backward from autograd."""
+    jp, (o, d, ts, dc, dw) = _bwd_case(3, 8, 16, 10, 4, True)
+    fm = t_fused.prepare_fused_mlp(t_mlp.params_from_jax(jp, "cpu"))
+    args = (T(o), T(d), T(ts), T(dc), T(dw))
+    good = t_fused.fused_backward_plain(fm, *args)
+    ws = list(fm.ws)
+    ws[5] = torch.zeros_like(ws[5])
+    bad_skip = t_fused.fused_backward_plain(fm._replace(ws=ws), *args)
+    orig = t_fused._suffix_sum
+    monkeypatch.setattr(t_fused, "_suffix_sum", lambda x: orig(x) + x)
+    bad_suffix = t_fused.fused_backward_plain(fm, *args)
+    for bad in (bad_skip, bad_suffix):
+        assert max(_leaf_errors(good[0] + good[1], bad[0] + bad[1])) > 1e-2
+
+
+def _grad_case(fine_sampling="reference"):
+    jcfg = j_nerf.NeRFConfig(position_dim=4, direction_dim=2, coarse_samples=8,
+                             fine_samples=8, fine_sampling=fine_sampling)
+    k_c, k_f = jax.random.split(jax.random.PRNGKey(5))
+    jp = {k: _scaled(j_mlp.init_nerf_mlp(key, 4, 2, width=64, rgb_width=32), HE_GAIN)
+          for k, key in (("coarse", k_c), ("fine", k_f))}
+    return jcfg, t_nerf.NeRFConfig(**jcfg.to_dict()), jp
+
+
+def test_render_rays_fused_grad_matches_jax():
+    """Gradients of the hierarchical loss through both fused passes, shared
+    draws (mirrors tests/test_fused_raymarch.py:109-137), fp32."""
+    jcfg, tcfg, jp = _grad_case()
+    o, d, _ = _inputs(9, 8, 1)
+    rgb = np.full((8, 3), 0.5, np.float32)
+    key = jax.random.PRNGKey(11)
+
+    def loss(p):
+        out = j_fused.render_rays_fused(p, jcfg, jnp.asarray(o), jnp.asarray(d), key,
+                                        ray_tile=8, interpret=True)
+        return (jnp.mean((out["fine_rgb_rays"] - rgb) ** 2)
+                + jnp.mean((out["coarse_rgb_rays"] - rgb) ** 2))
+
+    ref = jax.grad(loss)(jax.tree_util.tree_map(jnp.asarray, jp))
+    tp = t_mlp.params_from_jax(jp, "cpu")
+    for leaf in t_fused.flatten_tree(tp):
+        leaf.requires_grad_()
+    out = t_fused.render_rays_fused(tp, tcfg, T(o), T(d), uniforms=_jax_draws(key, 8, jcfg))
+    torch.stack([((out[k] - T(rgb)) ** 2).mean()
+                 for k in ("fine_rgb_rays", "coarse_rgb_rays")]).sum().backward()
+    got = [t.grad.numpy() for t in t_fused.flatten_tree(tp)]
+    assert max(_leaf_errors(t_fused.flatten_tree(jax.device_get(ref)), got)) < BWD_FP32_RTOL
+
+
+def test_render_fn_cache_follows_in_place_updates():
+    """The hook's packed weights follow an optimizer's in-place update."""
+    cfg = t_nerf.NeRFConfig(coarse_samples=4, fine_samples=4)
+    _, tp = _network(cfg)
+    o, d, _ = _inputs(1, 5, 1)
+    fn = t_fused.make_fused_render_fn()
+
+    def draws():
+        return {"coarse": torch.full((5, 4), 0.5), "eps": torch.full((5, 1), 0.5),
+                "jitter": torch.full((5, 4, 1), 0.5)}
+
+    before = fn(tp, cfg, T(o), T(d), uniforms=draws())["fine_rgb_rays"]
+    with torch.no_grad():
+        for mlp in tp.values():
+            mlp["rgb"][1]["b"] += 1.0
+    after = fn(tp, cfg, T(o), T(d), uniforms=draws())["fine_rgb_rays"]
+    fresh = t_fused.render_rays_fused(tp, cfg, T(o), T(d), uniforms=draws())["fine_rgb_rays"]
+    assert not torch.equal(before, after)
+    assert torch.equal(after, fresh)

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels (the fused ray-march forward and backward)
+against their plain PyTorch versions, on a card.
 
 Marked ``cuda``: they skip without a card. This file imports neither JAX nor
 the JAX package, so it also runs where only PyTorch is installed:
@@ -28,7 +29,7 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the fused kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    fr.launches = 0
+    fr.launches = fr.bwd_launches = fr.wgrad_launches = 0
     return torch.device("cuda")
 
 
@@ -90,3 +91,103 @@ def test_fused_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         fr.fused_forward(fm, o, d, torch.zeros(4, 2000, device=cuda_device))
     assert fr.launches == 0
+
+
+# ---------------------------------------------------------------- backward
+
+# the backward kernel against fused_backward_plain, per gradient leaf:
+# max |k - p| <= max_rtol * max |p| and mean |k - p| <= mean_rtol * mean |p|.
+# fp32: same rounding points, other sum orders (per-CTA chains, point
+#   slices, then a fixed-order sum of the slices);
+# bf16: a different fp32 sum order flips the bf16 rounding of an activation
+#   now and then; downstream, the compositing's fp32 values differ by ~1e-4
+#   and 5-10% of the bf16 gradient activations round to the other neighbour
+#   (a 2^-8 step each). Measured on an H100 at these sizes: worst leaf
+#   max 2.4e-2, mean 8.3e-3 (the gradients sum many such flips with mixed
+#   signs). The bounds sit 2.5x above that; each faulty plain version fails.
+BWD_TOL = {None: (1e-4, 1e-5), torch.bfloat16: (6e-2, 2e-2)}
+
+
+def _bwd_errors(k, p):
+    """Per leaf (max |k - p| / max |p|, mean |k - p| / mean |p|)."""
+    return [((a - b).abs().max().item() / (b.abs().max().item() + 1e-30),
+             (a - b).abs().mean().item() / (b.abs().mean().item() + 1e-30))
+            for a, b in zip(k, p)]
+
+
+def _bwd_ok(errs, tol):
+    return all(mx <= tol[0] and mn <= tol[1] for mx, mn in errs)
+
+
+def _bwd_case(dev, dtype, n, s, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fm = fr.prepare_fused_mlp(init_nerf_mlp(g, device=dev, gain=HE_GAIN), dtype)
+    o, d, ts = _inputs(seed + 5, n, s, dev)
+    rng = np.random.default_rng(seed + 6)
+    dc = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    dw = torch.from_numpy(rng.normal(size=(n, s)).astype(np.float32) * 0.1).to(dev)
+    return fm, o, d, ts, dc, dw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("n,s,with_dw", [(37, 64, True), (63, 192, False), (64, 192, True),
+                                         (5, 250, True), (3, 1, False)])
+def test_backward_kernel_matches_plain(cuda_device, dtype, n, s, with_dw):
+    fm, o, d, ts, dc, dw = _bwd_case(cuda_device, dtype, n, s)
+    dw = dw if with_dw else None
+    kw, kb = fr.fused_backward(fm, o, d, ts, dc, dw)
+    pw, pb = fr.fused_backward_plain(fm, o, d, ts, dc, dw)
+    torch.cuda.synchronize()
+    assert [k.shape for k in kw + kb] == [p.shape for p in pw + pb]
+    errs = _bwd_errors(kw + kb, pw + pb)
+    print(f"bwd {dtype} n={n} s={s}: worst max {max(e[0] for e in errs):.3e} "
+          f"worst mean {max(e[1] for e in errs):.3e}")
+    assert _bwd_ok(errs, BWD_TOL[dtype]), errs
+    assert fr.bwd_launches == 1 and fr.wgrad_launches == 1 and fr.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_backward_kernel_is_deterministic(cuda_device, dtype):
+    fm, o, d, ts, dc, dw = _bwd_case(cuda_device, dtype, 300, 192, seed=1)
+    a = fr.fused_backward(fm, o, d, ts, dc, dw)
+    b = fr.fused_backward(fm, o, d, ts, dc, dw)
+    assert all(torch.equal(x, y) for x, y in zip(a[0] + a[1], b[0] + b[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_backward_bounds_reject_faults(cuda_device, dtype, monkeypatch):
+    """Plain backwards with one fault each (an inclusive suffix sum, the
+    skip concat's encoding term dropped) fail the bounds the kernel meets."""
+    fm, o, d, ts, dc, dw = _bwd_case(cuda_device, dtype, 64, 192)
+    good = fr.fused_backward_plain(fm, o, d, ts, dc, dw)
+    orig = fr._suffix_sum
+    monkeypatch.setattr(fr, "_suffix_sum", lambda x: orig(x) + x)
+    bad_suffix = fr.fused_backward_plain(fm, o, d, ts, dc, dw)
+    monkeypatch.setattr(fr, "_suffix_sum", orig)
+    ws = list(fm.ws)
+    ws[5] = torch.zeros_like(ws[5])
+    bad_skip = fr.fused_backward_plain(fm._replace(ws=ws), o, d, ts, dc, dw)
+    for bad in (bad_suffix, bad_skip):
+        assert not _bwd_ok(_bwd_errors(bad[0] + bad[1], good[0] + good[1]), BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_fused_pass_gradients_on_the_card(cuda_device):
+    """``_FusedPass`` on the card gives the plain backward's gradients to the
+    parameter tensors."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    params = init_nerf_mlp(g, device=cuda_device, gain=HE_GAIN)
+    for leaf in fr.flatten_tree(params):
+        leaf.requires_grad_(True)
+    o, d, ts = _inputs(3, 50, 64, cuda_device)
+    color, weights = fr.fused_render_pass(params, o, d, ts, compute_dtype=torch.bfloat16)
+    (color.square().sum() + weights.sum()).backward()
+    fm = fr.prepare_fused_mlp(params, torch.bfloat16)
+    pw, pb = fr.fused_backward_plain(fm, o, d, ts, 2 * color.detach(), torch.ones_like(ts))
+    want = fr.flatten_tree(fr.unflatten_mlp_grads(pw, pb))
+    got = [t.grad for t in fr.flatten_tree(params)]
+    assert _bwd_ok(_bwd_errors(got, want), BWD_TOL[torch.bfloat16])
+    assert fr.launches == 1 and fr.bwd_launches == 1

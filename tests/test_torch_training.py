@@ -1,0 +1,249 @@
+"""The port's train step and data modules against the JAX package.
+
+Same weights (``params_from_jax``), same ray batch and the same draws on
+both sides; the JAX render runs its Pallas kernels in interpret mode. On
+the CPU the port runs its kernels' plain versions.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from minimal_nerf_torch.data import procedural as t_proc
+from minimal_nerf_torch.kernels import fused_raymarch as t_fused
+from minimal_nerf_torch.models import mlp as t_mlp
+from minimal_nerf_torch.models import nerf as t_nerf
+from minimal_nerf_torch.ops import cameras as t_cam
+from minimal_nerf_torch.training import config as t_config
+from minimal_nerf_torch.training import loop as t_loop
+from minimal_nerf_torch.training.checkpoint import flatten_tree
+from minimal_nerf_tpu.data import procedural as j_proc
+from minimal_nerf_tpu.kernels import fused_raymarch as j_fused
+from minimal_nerf_tpu.models import mlp as j_mlp
+from minimal_nerf_tpu.models import nerf as j_nerf
+from minimal_nerf_tpu.ops import cameras as j_cam
+from minimal_nerf_tpu.training import config as j_config
+from minimal_nerf_tpu.training import loop as j_loop
+
+HE_GAIN = np.sqrt(6.0)
+
+
+def T(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _he(jp):
+    return jax.tree_util.tree_map_with_path(
+        lambda path, a: np.asarray(a, np.float32) * (HE_GAIN if path[-1].key == "w" else 1.0),
+        jax.device_get(jp))
+
+
+@pytest.mark.parametrize("floor", [0.0, 2e-4])
+def test_lr_schedule_matches_jax(floor):
+    kw = dict(start_lr=5e-4, end_lr=5e-5, lr_decay_epochs=30, lr_floor=floor)
+    j_sched = j_loop.make_lr_schedule(j_config.TrainConfig(**kw), 20)
+    t_sched = t_loop.make_lr_schedule(t_config.TrainConfig(**kw), 20)
+    for step in (0, 1, 19, 20, 21, 399, 400, 1000, 100_000):
+        want = np.float32(jax.jit(j_sched)(jnp.int32(step)))
+        got = t_sched(step)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(float(got), want, rtol=2e-7, atol=0)
+
+
+def test_adam_matches_optax():
+    """Three updates from the same gradients under a decaying LR: optax's
+    Adam and the port's agree to within 1e-5 of a step (XLA may contract the
+    moment updates into FMAs, which moves a few updates by an ulp)."""
+    jp = jax.device_get(j_mlp.init_nerf_mlp(jax.random.PRNGKey(0), width=16, rgb_width=8))
+    cfg = dict(start_lr=5e-4, end_lr=5e-5, lr_decay_epochs=4)
+    tx = optax.adam(learning_rate=j_loop.make_lr_schedule(j_config.TrainConfig(**cfg), 1))
+    t_sched = t_loop.make_lr_schedule(t_config.TrainConfig(**cfg), 1)
+    j_params = jax.tree_util.tree_map(jnp.asarray, jp)
+    j_state = tx.init(j_params)
+    tp = t_mlp.params_from_jax(jp, "cpu")
+    t_state = t_loop.adam_init(tp)
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        g = jax.tree_util.tree_map(
+            lambda a: rng.normal(size=a.shape).astype(np.float32) * 1e-3, jp)
+        updates, j_state = tx.update(jax.tree_util.tree_map(jnp.asarray, g), j_state, j_params)
+        j_params = optax.apply_updates(j_params, updates)
+        t_state = t_loop.adam_update(tp, t_mlp.params_from_jax(g, "cpu"), t_state,
+                                     t_sched(t_state["count"]))
+        for a, b in zip(flatten_tree(jax.device_get(j_params)), flatten_tree(tp)):
+            np.testing.assert_allclose(b.numpy(), a, rtol=1e-6, atol=5e-9)
+    assert t_state["count"] == 3 and int(j_state[0].count) == 3
+    for a, b in zip(flatten_tree(jax.device_get(j_state[0].nu)), flatten_tree(t_state["nu"])):
+        np.testing.assert_allclose(b.numpy(), a, rtol=1e-6, atol=0)
+
+
+def _jax_draws(key, n, cfg):
+    """The uniforms JAX ``render_rays_fused`` draws from ``key``."""
+    k_coarse, k_cdf = jax.random.split(key)
+    k_eps, k_jit = jax.random.split(k_cdf)
+    u = lambda k, shape: T(jax.random.uniform(k, shape, dtype=jnp.float32))  # noqa: E731
+    return {"coarse": u(k_coarse, (n, cfg.coarse_samples)), "eps": u(k_eps, (n, 1)),
+            "jitter": u(k_jit, (n, cfg.fine_samples, 1))}
+
+
+def test_train_step_matches_jax():
+    """Loss, gradients, the parameters after Adam and the LR of one step on
+    a shared batch and shared draws, fp32 (position_dim 4: see
+    tests/test_torch_fused_raymarch.py for why the fp32 comparison keeps the
+    encoding's angles small)."""
+    jcfg = j_nerf.NeRFConfig(position_dim=4, direction_dim=2, coarse_samples=8, fine_samples=8)
+    tcfg = t_nerf.NeRFConfig(**jcfg.to_dict())
+    keys = jax.random.split(jax.random.PRNGKey(3))
+    jp = {k: _he(j_mlp.init_nerf_mlp(key, 4, 2, width=64, rgb_width=32))
+          for k, key in zip(("coarse", "fine"), keys)}
+    n = 8
+    rng = np.random.default_rng(4)
+    o = (rng.normal(size=(n, 3)) * 0.3).astype(np.float32)
+    d = (rng.normal(size=(n, 3)) - [0.0, 0.0, 2.0]).astype(np.float32)
+    rgb = rng.uniform(size=(n, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(5)
+    train = dict(start_lr=5e-4, end_lr=5e-5, lr_decay_epochs=10)
+
+    j_params = jax.tree_util.tree_map(jnp.asarray, jp)
+    render_fn = j_fused.make_fused_render_fn(ray_tile=8, interpret=True)
+    (j_loss, _), j_grads = jax.value_and_grad(j_loop.nerf_loss, has_aux=True)(
+        j_params, jcfg, jnp.asarray(o), jnp.asarray(d), jnp.asarray(rgb), key,
+        render_fn=render_fn)
+    tx = j_loop.make_optimizer(j_config.TrainConfig(**train), 1)
+    updates, _ = tx.update(j_grads, tx.init(j_params), j_params)
+    j_after = optax.apply_updates(j_params, updates)
+
+    tp = t_mlp.params_from_jax(jp, "cpu")
+    batch = {"origin": T(o), "direc": T(d), "rgb": T(rgb)}
+    metrics, grads = t_loop.loss_and_grads(tp, tcfg, batch,
+                                           render_fn=t_fused.make_fused_render_fn(),
+                                           uniforms=_jax_draws(key, n, jcfg))
+    t_sched = t_loop.make_lr_schedule(t_config.TrainConfig(**train), 1)
+    t_loop.adam_update(tp, grads, t_loop.adam_init(tp), t_sched(0))
+    metrics = t_loop.finalize_metrics(metrics, grads)
+
+    np.testing.assert_allclose(float(metrics["train_loss"]), float(j_loss), rtol=1e-5)
+    # gradients per leaf relative to the leaf's max (fp32 sum orders differ)
+    for a, b in zip(flatten_tree(jax.device_get(j_grads)), flatten_tree(grads)):
+        assert np.abs(b.numpy() - a).max() <= 5e-5 * np.abs(a).max()
+    np.testing.assert_allclose(float(metrics["grad_2.0_norm_total"]),
+                               float(optax.global_norm(j_grads)), rtol=1e-5)
+    # the first Adam step moves each weight by lr * g / (|g| + eps): ~lr *
+    # sign(g), where a 5e-5 gradient difference moves it by < 1e-3 * lr. Only
+    # where |g| is within a few eps of 0 can the two steps differ by up to
+    # 2 * lr (one element of the 4096 of trunk[1] here; the many exact zeros
+    # of dead ReLU units move neither side).
+    lr = 5e-4
+    for a, b, g in zip(flatten_tree(jax.device_get(j_after)), flatten_tree(tp),
+                       flatten_tree(jax.device_get(j_grads))):
+        diff = np.abs(b.detach().numpy() - a)
+        near_zero = np.abs(g) < 1e-6
+        assert diff[~near_zero].max(initial=0) <= 1e-3 * lr
+        assert diff[near_zero].max(initial=0) <= 2 * lr
+
+
+def _tiny_scene(frames=5, hw=12):
+    rng = np.random.default_rng(6)
+    images = rng.integers(0, 256, size=(frames, hw, hw, 3), dtype=np.uint8)
+    poses = np.stack([t_cam.pose_spherical(-180 + 72 * i, -30.0, 4.0)
+                      for i in range(frames)]).astype(np.float32)
+    focal = t_cam.focal_from_angle(hw, 0.6911112070083618)
+    return images, poses, focal
+
+
+def test_sample_train_batch_frames_crop_and_rays():
+    images, poses, focal = _tiny_scene()
+    static = t_loop.SceneStatic(height=12, width=12, focal=focal, num_frames=5)
+    ti, tpz = torch.from_numpy(images), torch.from_numpy(poses)
+    gen = torch.Generator().manual_seed(0)
+    for epoch in range(3):
+        frames = [t_loop.sample_train_batch(epoch * 5 + k, ti, tpz, static, 64, 5, 1, seed=7,
+                                            generator=gen)["frame"] for k in range(5)]
+        assert sorted(frames) == list(range(5))  # each frame once per epoch
+    crop = t_loop.sample_train_batch(0, ti, tpz, static, 512, 5, 1, seed=7, generator=gen)
+    full = t_loop.sample_train_batch(5, ti, tpz, static, 512, 5, 1, seed=7, generator=gen)
+    for b, lo, hi in ((crop, 3, 9), (full, 0, 12)):
+        for c in (b["xs"], b["ys"]):
+            assert int(c.min()) == lo and int(c.max()) == hi - 1
+    # the pixels and rays of given coordinates against JAX
+    xs, ys = np.array([0, 11, 5, 3]), np.array([2, 0, 11, 7])
+    b = t_loop.sample_train_batch(7, ti, tpz, static, 4, 5, 1, seed=7, coords=(xs, ys))
+    jo, jd = j_cam.rays_for_pixels(jnp.asarray(xs), jnp.asarray(ys), 12, 12, focal,
+                                   jnp.asarray(poses[b["frame"]]))
+    np.testing.assert_allclose(b["origin"].numpy(), np.asarray(jo), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(b["direc"].numpy(), np.asarray(jd), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(b["rgb"].numpy(),
+                                  images[b["frame"], ys, xs].astype(np.float32) / 255.0)
+
+
+@pytest.mark.parametrize("render", ["fused", "plain"])
+def test_make_train_step_runs_and_learns(render):
+    """Five steps on a tiny procedural scene: finite metrics under the JAX
+    names, parameters and moments updated in place, the loss on a fixed
+    batch with fixed draws lower after the steps."""
+    cfg = t_nerf.NeRFConfig(position_dim=4, direction_dim=2, coarse_samples=8, fine_samples=8)
+    scenes, _ = t_proc.make_procedural_scene((("train", 3),), height=10, width=10,
+                                             gt_samples=16, scene="object", device="cpu")
+    scene = scenes["train"]
+    static = t_loop.scene_static(scene)
+    tcfg = t_config.TrainConfig(num_rays=32, precision="fp32", cropping_epochs=0,
+                                start_lr=5e-3)
+    params = t_nerf.init_nerf_network(torch.Generator().manual_seed(0), cfg, device="cpu")
+    for mlp in params.values():
+        mlp["density"]["b"] += 0.5
+    render_fn = None if render == "fused" else t_nerf.render_rays
+    step_fn = t_loop.make_train_step(cfg, tcfg, static, render_fn=render_fn, device="cpu")
+    batch = t_loop.sample_train_batch(0, scene.images, scene.poses, static, 32, 3, 0, seed=0,
+                                      generator=torch.Generator().manual_seed(1))
+    u = torch.Generator().manual_seed(2)
+    draws = {"coarse": torch.rand((32, 8), generator=u), "eps": torch.rand((32, 1), generator=u),
+             "jitter": torch.rand((32, 8, 1), generator=u)}
+
+    def fixed_loss():
+        with torch.no_grad():
+            return float(t_loop.nerf_loss(params, cfg, batch["origin"], batch["direc"],
+                                          batch["rgb"], render_fn=render_fn, uniforms=draws)[0])
+
+    before = fixed_loss()
+    state = t_loop.adam_init(params)
+    first = flatten_tree(params)[0].detach().clone()
+    for step in range(5):
+        out, state, metrics = step_fn(params, state, scene.images, scene.poses, step, 0)
+        assert out is params
+    assert set(metrics) == {"train_loss", "train_coarse_loss", "train_fine_loss",
+                            "grad_2.0_norm_total", "lr"}
+    assert all(np.isfinite(v.item()) for v in metrics.values())
+    assert state["count"] == 5 and not torch.equal(first, flatten_tree(params)[0])
+    assert fixed_loss() < before
+    assert t_fused.launches == 0 and t_fused.bwd_launches == 0
+
+
+@pytest.mark.parametrize("maker", ["random", "random_object"])
+def test_sphere_field_matches_jax(maker):
+    jf, tf = getattr(j_proc.SphereField, maker)(3), getattr(t_proc.SphereField, maker)(3)
+    for k in ("centers", "radii", "colors", "densities"):
+        np.testing.assert_array_equal(getattr(tf, k), getattr(jf, k))
+    pts = np.random.default_rng(0).uniform(-1.2, 1.2, size=(64, 5, 3)).astype(np.float32)
+    js, jr = jf.field(jnp.asarray(pts))
+    ts_, tr = tf.field(T(pts))
+    np.testing.assert_allclose(ts_.numpy(), np.asarray(js), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-5, atol=1e-5)
+
+
+def test_analytic_view_matches_jax():
+    field = j_proc.SphereField.random_object(1)
+    pose = t_cam.pose_spherical(30.0, -30.0, 4.0)
+    h = w = 12
+    focal = t_cam.focal_from_angle(w, 0.6911112070083618)
+    ref = j_proc.render_analytic_view(field, pose, h, w, focal, num_samples=32, chunk=h * w)
+    key = jax.random.fold_in(jax.random.PRNGKey(0), 0)  # the JAX chunk's jitter key
+    u = T(jax.random.uniform(key, (h * w, 32), dtype=jnp.float32))
+    got = t_proc.render_analytic_view(t_proc.SphereField.random_object(1), pose, h, w, focal,
+                                      num_samples=32, uniforms=u, device="cpu")
+    assert got.dtype == torch.uint8 and got.shape == (h, w, 3)
+    assert ref.std() > 10  # the view shows the object
+    # uint8 truncation: an ulp of difference can move a channel by one level
+    assert np.abs(got.numpy().astype(int) - ref.astype(int)).max() <= 1
