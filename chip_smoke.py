@@ -3,10 +3,11 @@
     python3 chip_smoke.py
 
 Builds every kernel of the serving and training paths from the sources in
-the checkout (the fused ray-march forward and backward), holds each against
-its plain PyTorch version at the main paths' shapes (on weights whose
-outputs depend on the input, with bounds shown to reject faulty versions),
-then:
+the checkout (the fused ray-march forward and backward, and the point-level
+MLP forward and backward of the ``--kernel pallas`` path), holds each
+against its plain PyTorch version at the main paths' shapes (on weights
+whose outputs depend on the input, with bounds shown to reject faulty
+versions), then:
 
 - ``[main]`` renders two 800x800 orbit frames from a full-width checkpoint
   written by the port and checks that the forward kernel carried the render;
@@ -16,8 +17,15 @@ then:
   checkpoint and renders a frame from it;
 - ``[train-reference]`` holds one train step on the card against the same
   step on the CPU;
-- ``[profile]`` profiles one frame and one train step for the kernels' and
-  the idle shares.
+- ``[train-pallas]`` trains 100 full-width steps through the point kernels
+  (``TrainConfig(kernel="pallas")``) on the same scene, checks the loss and
+  the launch counts (no fused launch), saves a checkpoint and renders two
+  frames from it through ``--kernel auto``, which must pick the point
+  kernel;
+- ``[pallas-reference]`` holds a small render and one train step of that
+  path on the card against the CPU;
+- ``[profile]`` profiles one frame, one train step and one pallas train step
+  for the kernels' and the idle shares.
 
 Prints one line per phase, the card's name and power limit, a JSON line of
 kernel timings, and as its last line ``{"ok": true, "device": {...}}``.
@@ -37,7 +45,7 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ["fused_raymarch_fwd", "fused_raymarch_bwd"]
+KERNELS = ["fused_raymarch_fwd", "fused_raymarch_bwd", "raymarch_mlp_fwd", "raymarch_mlp_bwd"]
 RAYS = 4096
 SAMPLES = (64, 192)       # coarse pass, then the 64 + 128 sorted union
 HW = 800                  # frame height and width
@@ -60,6 +68,15 @@ HE_GAIN = math.sqrt(6.0)
 #   outputs by up to ~0.3% (max |k - p| 1.6e-3 on an H100). The element
 #   bound admits those rare flips; the mean bound holds the rest tight.
 TOL = {"fp32": (1e-5, 1e-4, 1e-5), "bf16": (3e-3, 3e-3, 1e-3)}
+# the point kernel, per output (sigma, rgb): fp32 as above; bf16 outputs are
+# per point, with no compositing to average a flipped rounding away, and
+# sigma = relu(h . dw + db) is linear in the 256 bf16-rounded h values (an
+# h near 8 moves by 2^-5 when its rounding flips). H100 readings over
+# 4096 x 64 and 4096 x 192 points: max |k - p| sigma 2.6e-2, rgb 7.3e-3,
+# mean |k - p| 6.4e-5 and 1.6e-5. The element bounds sit 2.3x / 2.7x above
+# the worst flip; the mean bounds (~30x above) keep flips rare.
+POINT_TOL = {"fp32": (TOL["fp32"], TOL["fp32"]),
+             "bf16": ((6e-2, 1e-2, 1e-3), (2e-2, 3e-3, 1e-3))}
 # the element bound (at the outputs' median) must sit SEP_MAX times and the
 # mean bound SEP_MEAN times below the outputs' spread (std), or the
 # comparison could not see a fault
@@ -70,12 +87,28 @@ SEP_MAX, SEP_MEAN = 3, 100
 def uncounted():
     """Launches inside do not count: the kernels' counts are restored after."""
     from minimal_nerf_torch.kernels import fused_raymarch as fr
+    from minimal_nerf_torch.kernels import raymarch as rm
 
-    before = (fr.launches, fr.bwd_launches, fr.wgrad_launches)
+    before = (fr.launches, fr.bwd_launches, fr.wgrad_launches, rm.launches, rm.bwd_launches)
     try:
         yield
     finally:
-        fr.launches, fr.bwd_launches, fr.wgrad_launches = before
+        fr.launches, fr.bwd_launches, fr.wgrad_launches, rm.launches, rm.bwd_launches = before
+
+
+def counts():
+    """(fused forward, fused backward, point forward, point backward) launches."""
+    from minimal_nerf_torch.kernels import fused_raymarch as fr
+    from minimal_nerf_torch.kernels import raymarch as rm
+
+    return fr.launches, fr.bwd_launches, rm.launches, rm.bwd_launches
+
+
+def reset_counts():
+    from minimal_nerf_torch.kernels import fused_raymarch as fr
+    from minimal_nerf_torch.kernels import raymarch as rm
+
+    fr.launches = fr.bwd_launches = fr.wgrad_launches = rm.launches = rm.bwd_launches = 0
 
 
 def card_line() -> str:
@@ -249,6 +282,13 @@ def phase_kernels(dev, report):
 # such flips (H100 readings: max 1.2e-2, mean 7.7e-3). The bounds sit 2.4x
 # to 3.7x above the readings; every faulty plain version fails them.
 BWD_TOL = {"fp32": (3e-3, 5e-4), "bf16": (3e-2, 2e-2)}
+# the point backward, per leaf: bf16 as the fused backward (H100 readings
+# max 1.4e-2, mean 8.7e-3); fp32 is wider because its check draws dsig and
+# drgb N(0, 1) at every point, so each gradient sums 786k products of mixed
+# sign and the cancellation magnifies the sum-order differences (readings
+# max 1.7e-3, mean 7.1e-4 of the leaf's max / mean; the bounds sit 2.8x
+# above them and >= 12x below every leaf's spread)
+POINT_BWD_TOL = {"fp32": (5e-3, 2e-3), "bf16": BWD_TOL["bf16"]}
 
 
 def bwd_errors(k, p):
@@ -376,6 +416,135 @@ def phase_kernel_bwd(dev, report):
         raise AssertionError("backward kernel disagrees with its plain version")
 
 
+def point_inputs(n: int, s: int, gen, dev):
+    """The point kernels' inputs for n rays x s samples of an orbit view:
+    positions / pi and unit directions ``[n*s, 3]``, made by the hook's own
+    prologue (``raymarch.point_inputs``)."""
+    from minimal_nerf_torch.kernels import raymarch as rm
+
+    o, d, ts = sample_rays(n, s, gen, dev)
+    return rm.point_inputs(o[:, None, :] + ts[..., None] * d[:, None, :], d)
+
+
+def phase_kernel_mlp(dev, report):
+    """The point forward kernel against ``points_forward_plain`` at full
+    width, P = 4096 x 64 and 4096 x 192, fp32 and bf16, on He-uniform
+    weights, with the forward kernel's bounds (same MLP, same rounding
+    points, other sum orders); mutants; times."""
+    from minimal_nerf_torch.kernels import fused_raymarch as fr
+    from minimal_nerf_torch.kernels import raymarch as rm
+    from minimal_nerf_torch.models.mlp import init_nerf_mlp
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = init_nerf_mlp(gen, device=dev, gain=HE_GAIN)
+    ok_all = True
+    for prec, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        fm = fr.prepare_fused_mlp(params, dtype)
+        for s in SAMPLES:
+            x, d = point_inputs(RAYS, s, gen, dev)
+            ks, kr = rm.points_forward(fm, x, d)
+            ps, pr = rm.points_forward_plain(fm, x, d)
+            torch.cuda.synchronize()
+            tols = POINT_TOL[prec]
+            sa, sm, sok = errors(ks, ps, tols[0])
+            ra, rmean, rok = errors(kr, pr, tols[1])
+            spread = [q.std().item() for q in (ps, pr)]
+            max_at = [t[0] + t[1] * q.abs().median().item() for t, q in zip(tols, (ps, pr))]
+            mean_at = [t[2] * q.abs().mean().item() for t, q in zip(tols, (ps, pr))]
+            sep_ok = all(SEP_MAX * a <= sp and SEP_MEAN * m <= sp
+                         for a, m, sp in zip(max_at, mean_at, spread))
+            missed = [name for name, bad in mutants(fm).items()
+                      if all(errors(b, q, t)[2] for b, q, t in
+                             zip(rm.points_forward_plain(bad, x, d), (ps, pr), tols))]
+            ms = cuda_ms(lambda: rm.points_forward(fm, x, d))
+            plain_ms = cuda_ms(lambda: rm.points_forward_plain(fm, x, d))
+            lib_ms = cuda_ms(library_chain(fm, RAYS, s, dev))
+            # bytes: x and d in, sigma and rgb out, 10 floats per point
+            b_ms, b_by = bound_ms(fm, RAYS, s, PEAK_BF16 if dtype else PEAK_FP32,
+                                  io_floats=10 * RAYS * s)
+            ok = sok and rok and sep_ok and not missed
+            ok_all &= ok
+            print(f"[kernel-mlp] {prec} P={RAYS}x{s}: sigma max_abs={sa:.3e} mean_abs={sm:.3e} "
+                  f"(tol atol/rtol/mean_rtol {tols[0]}) rgb max_abs={ra:.3e} mean_abs="
+                  f"{rmean:.3e} (tol {tols[1]}); spread (std) sigma={spread[0]:.3e} rgb="
+                  f"{spread[1]:.3e}, element bound at the median sigma={max_at[0]:.3e} rgb="
+                  f"{max_at[1]:.3e} (need {SEP_MAX}x below), mean bound sigma={mean_at[0]:.3e} "
+                  f"rgb={mean_at[1]:.3e} (need {SEP_MEAN}x below); faulty plain versions "
+                  f"passed: {missed or 'none'}; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"{'PASS' if ok else 'FAIL'}", flush=True)
+            report[("mlp", prec, s)] = dict(err=max(sa, ra), ms=ms, plain_ms=plain_ms,
+                                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            del ks, kr, ps, pr
+            torch.cuda.empty_cache()
+    if not ok_all:
+        raise AssertionError("point forward kernel disagrees with its plain version")
+
+
+def phase_kernel_mlp_bwd(dev, report):
+    """The point backward kernel against ``points_backward_plain`` per leaf,
+    at full width, P = 4096 x 64 and 4096 x 192, fp32 and bf16, within
+    POINT_BWD_TOL; mutants; bitwise determinism; times."""
+    from minimal_nerf_torch.kernels import fused_raymarch as fr
+    from minimal_nerf_torch.kernels import raymarch as rm
+    from minimal_nerf_torch.models.mlp import init_nerf_mlp
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    params = init_nerf_mlp(gen, device=dev, gain=HE_GAIN)
+    ok_all = True
+    for prec, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        fm = fr.prepare_fused_mlp(params, dtype)
+        tol = POINT_BWD_TOL[prec]
+        for s in SAMPLES:
+            x, d = point_inputs(RAYS, s, gen, dev)
+            dsig = torch.randn((RAYS * s, 1), generator=gen, device=dev)
+            drgb = torch.randn((RAYS * s, 3), generator=gen, device=dev)
+            args = (fm, x, d, dsig, drgb)
+            kw, kb = rm.points_backward(*args)
+            again = rm.points_backward(*args)
+            plain = rm.points_backward_plain(*args)
+            torch.cuda.synchronize()
+            same = all(torch.equal(u, v) for u, v in zip(kw + kb, again[0] + again[1]))
+            errs = bwd_errors(kw + kb, plain[0] + plain[1])
+            within = bwd_within(errs, tol)
+            seps = [(q.std().item() / (tol[0] * q.abs().max().item()),
+                     q.std().item() / (tol[1] * q.abs().mean().item()))
+                    for q in plain[0] + plain[1] if q.numel() > 1]
+            ws = list(fm.ws)
+            ws[5] = torch.zeros_like(ws[5])
+            missed = [name for name, bad in (
+                ("skip concat's encoding term dropped",
+                 rm.points_backward_plain(fm._replace(ws=ws), x, d, dsig, drgb)),
+                ("dsigma ignored", rm.points_backward_plain(fm, x, d, torch.zeros_like(dsig),
+                                                            drgb)))
+                if bwd_within(bwd_errors(bad[0] + bad[1], plain[0] + plain[1]), tol)]
+            ms = cuda_ms(lambda: rm.points_backward(*args), warmup=1, reps=3)
+            plain_ms = cuda_ms(lambda: rm.points_backward_plain(*args), warmup=1, reps=3)
+            lib_ms = cuda_ms(library_bwd_chain(fm, RAYS, s, dev), warmup=1, reps=3)
+            # bytes: x, d, dsig, drgb in, the 22 gradients out
+            io = RAYS * s * 10 + sum(w.numel() for w in fm.ws + fm.bs)
+            b_ms, b_by = bound_ms(fm, RAYS, s, PEAK_BF16 if dtype else PEAK_FP32,
+                                  macs=bwd_macs_per_point(), io_floats=io)
+            ok = within and same and not missed
+            ok_all &= ok
+            print(f"[kernel-mlp-bwd] {prec} P={RAYS}x{s}: 22 leaves, worst over the leaves "
+                  f"max_rel={max(e[0] for e in errs):.3e} mean_rel={max(e[1] for e in errs):.3e} "
+                  f"(bounds {tol[0]} / {tol[1]}); max_abs={max(e[2] for e in errs):.3e}; biases "
+                  f"worst max_rel={max(e[0] for e in errs[12:]):.3e}; leaf spread (std) over the "
+                  f"element bound >= {min(a for a, _ in seps):.2f}x, over the mean bound >= "
+                  f"{min(b for _, b in seps):.1f}x; two launches bit-identical: {same}; faulty "
+                  f"plain versions passed: {missed or 'none'}; ms={ms:.4f} plain_ms="
+                  f"{plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"{'PASS' if ok else 'FAIL'}", flush=True)
+            report[("mlp-bwd", prec, s)] = dict(err=max(e[2] for e in errs), ms=ms,
+                                                plain_ms=plain_ms, library_ms=lib_ms,
+                                                bound_ms=b_ms, bound_by=b_by)
+            del kw, kb, again, plain
+            torch.cuda.empty_cache()
+    if not ok_all:
+        raise AssertionError("point backward kernel disagrees with its plain version")
+
+
 def phase_main_path(dev, tmp: Path):
     from minimal_nerf_torch.kernels import fused_raymarch as fr
     from minimal_nerf_torch.models.nerf import NeRFConfig, init_nerf_network
@@ -394,7 +563,7 @@ def phase_main_path(dev, tmp: Path):
                            TrainConfig(precision="bf16", kernel="fused").to_dict())
     frames_iter = render_views(str(ckpt), rays=RAYS, num_poses=POSES, height=HW, width=HW,
                                device=dev)
-    fr.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     frames = list(frames_iter)
@@ -519,7 +688,7 @@ def phase_train(dev, tmp: Path, scene):
     step_fn(params, loop.adam_init(params), scene.images, scene.poses, 0, 0)  # warm-up
     params = init_train_params(dev, cfg, bias)
     state = loop.adam_init(params)
-    fr.launches = fr.bwd_launches = fr.wgrad_launches = 0
+    reset_counts()
     losses, times = [], []
     for step in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -560,18 +729,17 @@ def phase_train(dev, tmp: Path, scene):
     return dict(ms=ms, losses=losses, counts=counts, bias=bias), step_fn, params, state
 
 
-def phase_train_reference(dev, scene, bias: float):
+def phase_train_reference(dev, scene, bias: float, kernel: str = "fused"):
     """One train step on the card (kernels) against the same step on the
     CPU (plain versions): shared weights, a 256-ray batch and shared draws,
-    full width, bf16."""
-    from minimal_nerf_torch.kernels import fused_raymarch as fr
+    full width, bf16, through the render hooks of ``kernel``."""
     from minimal_nerf_torch.models.mlp import map_params
     from minimal_nerf_torch.models.nerf import NeRFConfig
     from minimal_nerf_torch.training import loop
     from minimal_nerf_torch.training.checkpoint import flatten_tree
     from minimal_nerf_torch.training.config import TrainConfig
 
-    cfg, tcfg = NeRFConfig(), TrainConfig()
+    cfg, tcfg = NeRFConfig(), TrainConfig(kernel=kernel)
     n = 256
     gen = torch.Generator(device=dev).manual_seed(4)
     batch = loop.sample_train_batch(0, scene.images, scene.poses, loop.scene_static(scene), n,
@@ -582,13 +750,16 @@ def phase_train_reference(dev, scene, bias: float):
                 "jitter": torch.rand((n, cfg.fine_samples, 1), generator=gen, device=dev)}
     to_cpu = lambda tree: map_params(lambda t: t.detach().cpu(), tree)  # noqa: E731
     lr = loop.make_lr_schedule(tcfg, TRAIN_FRAMES)(0)
-    results = []
-    for params, b, u in ((init_train_params(dev, cfg, bias), batch, uniforms),
-                         (to_cpu(init_train_params(dev, cfg, bias)), to_cpu(batch),
-                          to_cpu(uniforms))):
+    results, ran = [], []
+    for device, params, b, u in (
+            (dev, init_train_params(dev, cfg, bias), batch, uniforms),
+            ("cpu", to_cpu(init_train_params(dev, cfg, bias)), to_cpu(batch), to_cpu(uniforms))):
+        mlp_apply, render_fn = loop.kernel_hooks(kernel, device)
         with uncounted():
-            metrics, grads = loop.loss_and_grads(params, cfg, b, tcfg.compute_dtype,
-                                                 fr.make_fused_render_fn(), uniforms=u)
+            before = counts()
+            metrics, grads = loop.loss_and_grads(params, cfg, b, tcfg.compute_dtype, render_fn,
+                                                 uniforms=u, mlp_apply=mlp_apply)
+            ran.append(tuple(a - c for a, c in zip(counts(), before)))
         loop.adam_update(params, grads, loop.adam_init(params), lr)
         results.append((metrics["train_loss"].item(), flatten_tree(to_cpu(grads)),
                         flatten_tree(to_cpu(params))))
@@ -603,24 +774,152 @@ def phase_train_reference(dev, scene, bias: float):
     # gradients: the backward kernel's bf16 bounds; Adam's first step moves
     # each weight by lr * g / (|g| + eps), so a gradient near 0 may move the
     # two sides by up to 2 lr, while on average they agree far closer
+    # the card's step went through this path's kernels (2 passes each way),
+    # the CPU's through none
+    want = (2, 2, 0, 0) if kernel == "fused" else (0, 0, 2, 2)
     ok = (loss_rel <= 1e-3 and bwd_within(errs, BWD_TOL["bf16"])
-          and p_max <= 2.0 * lr * 1.001 and p_mean <= 0.05 * lr)
-    print(f"[train-reference] one step, {n} rays, bf16, card (kernels) vs CPU (plain), shared "
-          f"weights, batch and draws: loss card {card_loss:.6f} cpu {cpu_loss:.6f} "
-          f"(rel {loss_rel:.2e}, tol 1e-3); gradients worst over the leaves max_rel="
-          f"{max(e[0] for e in errs):.3e} mean_rel={max(e[1] for e in errs):.3e} (bounds "
+          and p_max <= 2.0 * lr * 1.001 and p_mean <= 0.05 * lr and ran == [want, (0,) * 4])
+    tag = "train-reference" if kernel == "fused" else f"{kernel}-reference"
+    print(f"[{tag}] one step, {n} rays, bf16, --kernel {kernel}, card (kernels) vs CPU "
+          f"(plain), shared weights, batch and draws: launches (fused fwd, bwd, point fwd, "
+          f"bwd) card {ran[0]} cpu {ran[1]} (want {want}, none); loss card {card_loss:.6f} cpu "
+          f"{cpu_loss:.6f} (rel {loss_rel:.2e}, tol 1e-3); gradients worst over the leaves "
+          f"max_rel={max(e[0] for e in errs):.3e} mean_rel={max(e[1] for e in errs):.3e} (bounds "
           f"{BWD_TOL['bf16'][0]} / {BWD_TOL['bf16'][1]}); params after Adam max |d|="
           f"{p_max:.3e} (tol 2 lr = {2 * lr:.1e}) mean |d|={p_mean:.3e} (tol 0.05 lr) "
           f"{'PASS' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise AssertionError("train step on the card disagrees with the CPU reference")
+        raise AssertionError(f"{kernel} train step on the card disagrees with the CPU reference")
 
 
-def profile_shares(label: str, fn):
-    """Run ``fn`` under ``torch.profiler``: print the forward kernel's and the
-    backward kernels' time and share of the wall time, other device work and
-    the device's idle share (wall time covered by no device activity). Fails
-    when the profiler records no device activity."""
+def phase_train_pallas(dev, tmp: Path, scene, bias: float):
+    """100 full-width steps of the ``--kernel pallas`` path
+    (``kernel_hooks("pallas")``: the point kernels under the plain render)
+    at ``TrainConfig(kernel="pallas")``, otherwise the defaults; a
+    checkpoint of the result rendered through ``--kernel auto``."""
+    from minimal_nerf_torch import views
+    from minimal_nerf_torch.kernels import fused_raymarch as fr
+    from minimal_nerf_torch.kernels import raymarch as rm
+    from minimal_nerf_torch.models.nerf import NeRFConfig
+    from minimal_nerf_torch.render import render_views
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.checkpoint import checkpoint_name, save_checkpoint
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    cfg, tcfg = NeRFConfig(), TrainConfig(kernel="pallas")
+    mlp_apply, render_fn = loop.kernel_hooks(tcfg.kernel, dev)
+    step_fn = loop.make_train_step(cfg, tcfg, loop.scene_static(scene), render_fn=render_fn,
+                                   device=dev, mlp_apply=mlp_apply)
+    params = init_train_params(dev, cfg, bias)
+    with uncounted():
+        step_fn(params, loop.adam_init(params), scene.images, scene.poses, 0, 0)  # warm-up
+    params = init_train_params(dev, cfg, bias)
+    state = loop.adam_init(params)
+    reset_counts()
+    losses, times, metrics = [], [], {}
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, scene.images, scene.poses, step, 0)
+        losses.append(metrics["train_loss"].item())
+        times.append(time.perf_counter() - t0)
+    counts = dict(fwd=rm.launches, bwd=rm.bwd_launches, fused=fr.launches + fr.bwd_launches)
+    ms = 1e3 * sorted(times)[len(times) // 2]
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    want = 2 * TRAIN_STEPS
+    density = {k: round(v.item(), 2) for k, v in metrics.items() if k.endswith(
+        ("_density_norms", "_density_non_zeros"))}
+    ok = (all(math.isfinite(x) for x in losses) and last < first and len(density) == 4
+          and counts == dict(fwd=want, bwd=want, fused=0))
+    print(f"[train-pallas] {TRAIN_STEPS} steps, {tcfg.num_rays} rays, {tcfg.precision}, "
+          f"{cfg.coarse_samples}+{cfg.fine_samples} samples, width 256/128, --kernel pallas: "
+          f"median ms/step={ms:.2f} rays/s={tcfg.num_rays / (ms / 1e3):.0f}; loss first "
+          f"{losses[0]:.5f} last {losses[-1]:.5f}, mean of first 10 {first:.5f} > last 10 "
+          f"{last:.5f}: {last < first}; last step's density metrics {density}; launches point "
+          f"fwd={counts['fwd']} bwd={counts['bwd']} (want {want} each = 2 passes x "
+          f"{TRAIN_STEPS} steps), fused={counts['fused']} (want 0) {'PASS' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("pallas training did not run through the point kernels as expected")
+    ckpt = save_checkpoint(tmp / checkpoint_name("pallas", TRAIN_STEPS // TRAIN_FRAMES,
+                                                 TRAIN_STEPS),
+                           params, TRAIN_STEPS, cfg.to_dict(), tcfg.to_dict())
+    resolved = views.resolve_inference_kernel("auto", tcfg, dev)
+    # two orbit frames; the second is timed (the first includes loading the
+    # checkpoint and packing the weights)
+    frames_iter = iter(render_views(str(ckpt), rays=RAYS, num_poses=2, height=HW, width=HW,
+                                    kernel="auto", device=dev))
+    reset_counts()
+    next(frames_iter)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame = next(frames_iter)
+    torch.cuda.synchronize()
+    ms_frame = 1e3 * (time.perf_counter() - t0)
+    renders, fused = rm.launches, fr.launches
+    want_r = 2 * 2 * math.ceil(HW * HW / RAYS)
+    ok = (resolved == "pallas" and frame.shape == (HW, HW, 3) and str(frame.dtype) == "uint8"
+          and renders == want_r and fused == 0)
+    print(f"[train-pallas] checkpoint {ckpt.name} (trained under --kernel pallas) rendered "
+          f"through --kernel auto -> {resolved!r}: 2 frames {frame.shape} {frame.dtype}, mean "
+          f"{float(frame.mean()):.2f}, ms/frame={ms_frame:.1f} (the second) rays/s="
+          f"{HW * HW / (ms_frame / 1e3):.0f}, point forward launches {renders} (want {want_r} "
+          f"= 2 frames x 157 chunks x 2 passes), fused launches {fused} (want 0) "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("render from the pallas-trained checkpoint failed")
+    return dict(ms=ms, ms_frame=ms_frame, counts=counts, frame_launches=renders), step_fn, \
+        params, state
+
+
+def phase_pallas_reference(dev, scene, bias: float):
+    """The ``--kernel pallas`` path on the card against the CPU: a 256-ray
+    render (shared weights and draws), then one 256-ray train step."""
+    from minimal_nerf_torch.kernels import raymarch as rm
+    from minimal_nerf_torch.models.mlp import map_params
+    from minimal_nerf_torch.models.nerf import NeRFConfig, render_rays
+
+    cfg, n = NeRFConfig(), 256
+    gen = torch.Generator(device=dev).manual_seed(7)
+    o, d, _ = sample_rays(n, 1, gen, dev)
+    uniforms = {"coarse": torch.rand((n, cfg.coarse_samples), generator=gen, device=dev),
+                "eps": torch.rand((n, 1), generator=gen, device=dev),
+                "jitter": torch.rand((n, cfg.fine_samples, 1), generator=gen, device=dev)}
+    params = init_train_params(dev, cfg, bias)
+    to_cpu = lambda tree: map_params(lambda t: t.cpu(), tree)  # noqa: E731
+    with torch.no_grad(), uncounted():
+        before = counts()
+        card = render_rays(params, cfg, o, d, compute_dtype=torch.bfloat16,
+                           mlp_apply=rm.make_mlp_kernel_apply(), uniforms=uniforms)
+        ran = tuple(a - c for a, c in zip(counts(), before))
+        ref = render_rays(to_cpu(params), cfg, o.cpu(), d.cpu(), compute_dtype=torch.bfloat16,
+                          mlp_apply=rm.make_mlp_kernel_apply(), uniforms=to_cpu(uniforms))
+    # same weights, draws and rounding points: the kernel and the plain
+    # version differ only in the order of fp32 sums (see TOL)
+    ok, msg = ran == (0, 0, 2, 0), [f"card launches (fused fwd, bwd, point fwd, bwd) {ran}"]
+    for k in ("coarse_rgb_rays", "fine_rgb_rays"):
+        diff = (card[k].cpu() - ref[k]).abs()
+        ok &= bool(torch.isfinite(card[k]).all()) and diff.max().item() <= 1e-3
+        msg.append(f"{k} max_abs={diff.max().item():.3e} mean_abs={diff.mean().item():.3e}")
+    print(f"[pallas-reference] {n} rays, bf16, card (point kernel) vs CPU (plain), shared "
+          f"weights and draws: {'; '.join(msg)} (tol 1e-3) {'PASS' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("pallas render on the card disagrees with the CPU reference")
+    phase_train_reference(dev, scene, bias, kernel="pallas")
+
+
+FUSED_GROUPS = {"forward kernel": ("fused_fwd_kernel",),
+                "backward kernels": ("fused_bwd_kernel", "wgrad_", "reduce_slices")}
+POINT_GROUPS = {"point forward kernel": ("points_fwd_kernel",),
+                "point backward kernels": ("points_bwd_kernel", "wgrad_", "reduce_slices")}
+
+
+def profile_shares(label: str, fn, groups=FUSED_GROUPS):
+    """Run ``fn`` under ``torch.profiler``: print each group of kernels'
+    time and share of the wall time (the backward's split by kernel), other
+    device work and the device's idle share (wall time covered by no device
+    activity). Fails when the profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -634,32 +933,35 @@ def profile_shares(label: str, fn):
     if not spans:
         raise AssertionError(f"[profile] {label}: the profiler recorded no device activity")
     kernel_us = lambda key: sum(b - a for a, b, name in spans if key in name)  # noqa: E731
-    fwd_us = kernel_us("fused_fwd_kernel")
-    parts = {k: kernel_us(k) for k in ("fused_bwd_kernel", "wgrad_", "reduce_slices")}
-    bwd_us = sum(parts.values())
+    parts, kernels_us = [], 0.0
+    for group, keys in groups.items():
+        each = [kernel_us(k) for k in keys]
+        kernels_us += sum(each)
+        split = (" (" + ", ".join(f"{k.strip('_')} {u / 1e3:.2f}" for k, u in zip(keys, each))
+                 + ")") if len(keys) > 1 else ""
+        parts.append(f"{group}={sum(each) / 1e3:.1f} ms ({100 * sum(each) / wall_us:.1f}% of "
+                     f"wall){split}")
     busy_us, end = 0.0, -math.inf
     for a, b, _ in spans:  # union of the device intervals
         if b > end:
             busy_us += b - max(a, end)
             end = b
     print(f"[profile] {label} under torch.profiler: wall={wall_us / 1e3:.1f} ms, device "
-          f"busy={busy_us / 1e3:.1f} ms, forward kernel={fwd_us / 1e3:.1f} ms "
-          f"({100 * fwd_us / wall_us:.1f}% of wall), backward kernels={bwd_us / 1e3:.1f} ms "
-          f"({100 * bwd_us / wall_us:.1f}%: per-ray {parts['fused_bwd_kernel'] / 1e3:.1f}, "
-          f"weight gradients {parts['wgrad_'] / 1e3:.1f}, reduction "
-          f"{parts['reduce_slices'] / 1e3:.2f}), other device work="
-          f"{(busy_us - fwd_us - bwd_us) / 1e3:.1f} ms, device idle share="
+          f"busy={busy_us / 1e3:.1f} ms, {', '.join(parts)}, other device work="
+          f"{(busy_us - kernels_us) / 1e3:.1f} ms, device idle share="
           f"{100 * (1 - busy_us / wall_us):.1f}%", flush=True)
 
 
-def phase_profile(ckpt: Path, dev, train_step):
-    """One more frame of the render path and one more train step."""
+def phase_profile(ckpt: Path, dev, train_step, pallas_step):
+    """One more frame of the render path, one more train step, and one more
+    step of the pallas path."""
     from minimal_nerf_torch.render import render_views
 
     frames_iter = render_views(str(ckpt), rays=RAYS, num_poses=1, height=HW, width=HW,
                                device=dev)
     profile_shares(f"1 frame {HW}x{HW}", lambda: list(frames_iter))
     profile_shares(f"1 train step ({RAYS} rays)", train_step)
+    profile_shares(f"1 pallas train step ({RAYS} rays)", pallas_step, POINT_GROUPS)
 
 
 def main() -> int:
@@ -688,17 +990,24 @@ def main() -> int:
     report = {}
     phase_kernels(dev, report)
     phase_kernel_bwd(dev, report)
+    phase_kernel_mlp(dev, report)
+    phase_kernel_mlp_bwd(dev, report)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = phase_main_path(dev, Path(tmp))
         phase_reference(dev, ckpt)
         scene = make_train_scene(dev)
         train, step_fn, params, state = phase_train(dev, Path(tmp), scene)
         phase_train_reference(dev, scene, train["bias"])
-        phase_profile(ckpt, dev, lambda: step_fn(params, state, scene.images, scene.poses,
-                                                 TRAIN_STEPS, 0))
+        pallas, p_step_fn, p_params, p_state = phase_train_pallas(dev, Path(tmp), scene,
+                                                                  train["bias"])
+        phase_pallas_reference(dev, scene, train["bias"])
+        phase_profile(ckpt, dev,
+                      lambda: step_fn(params, state, scene.images, scene.poses, TRAIN_STEPS, 0),
+                      lambda: p_step_fn(p_params, p_state, scene.images, scene.poses,
+                                        TRAIN_STEPS, 0))
 
     def entry(name, replaces, shapes, launches):
-        # one 4096-ray chunk or step of the main path: S=64 and S=192, bf16
+        # one 4096-ray chunk or step of the main paths: S=64 and S=192, bf16
         return {"name": name, "route": "cuda",
                 "source": f"minimal_nerf_torch/kernels/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches,
@@ -714,6 +1023,10 @@ def main() -> int:
               [report[("bf16", s)] for s in SAMPLES], launches),
         entry("fused_raymarch_bwd", "minimal_nerf_tpu/kernels/fused_raymarch.py:191",
               [report[("bwd", "bf16", s)] for s in SAMPLES], train["counts"]["bwd"]),
+        entry("raymarch_mlp_fwd", "minimal_nerf_tpu/kernels/raymarch.py:73",
+              [report[("mlp", "bf16", s)] for s in SAMPLES], pallas["counts"]["fwd"]),
+        entry("raymarch_mlp_bwd", "minimal_nerf_tpu/kernels/raymarch.py:277",
+              [report[("mlp-bwd", "bf16", s)] for s in SAMPLES], pallas["counts"]["bwd"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

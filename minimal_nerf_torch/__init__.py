@@ -10,7 +10,10 @@ Ported so far: serving (rendering views from a checkpoint through the fused
 ray-march forward kernel, ``kernels/fused_raymarch.py``) and the train step
 (``training/loop.py``: batch sampling, the hierarchical loss through the
 fused forward and backward kernels, Adam, the LR schedule) on in-memory and
-procedural scenes (``data/``).
+procedural scenes (``data/``); and the point-level path (``--kernel
+pallas``, ``kernels/raymarch.py``): the same render and train step with the
+plain render around hand-written point-level MLP forward and backward
+kernels (``training.loop.kernel_hooks``).
 """
 
 from __future__ import annotations

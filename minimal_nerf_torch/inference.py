@@ -42,11 +42,16 @@ def build_render_chunk(ckpt: str, rays: int, kernel: str = "auto",
             fine_samples=fine or nerf_cfg.fine_samples,
         )
     kernel = views.resolve_inference_kernel(kernel, train_cfg, device)
-    render_fn = None
+    render_fn = mlp_apply = None
     if kernel == "fused":
         from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
 
         render_fn = make_fused_render_fn()
+    elif kernel == "pallas":
+        from minimal_nerf_torch.kernels.raymarch import make_mlp_kernel_apply
+
+        mlp_apply = make_mlp_kernel_apply()
     render_chunk = views.make_fine_render_chunk(
-        params, nerf_cfg, compute_dtype=train_cfg.compute_dtype, render_fn=render_fn)
+        params, nerf_cfg, compute_dtype=train_cfg.compute_dtype, mlp_apply=mlp_apply,
+        render_fn=render_fn)
     return render_chunk, nerf_cfg, train_cfg

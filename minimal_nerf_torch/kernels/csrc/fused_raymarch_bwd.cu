@@ -30,13 +30,14 @@
 //      block). Both go to a device scratch buffer in the compute dtype,
 //      feature-major [channel, point]: 3,944 channels, 7.9 KB per point in
 //      bf16.
-//   B  `wgrad_*_kernel`: for every layer, out[k, n] = sum_p X[k, p] G[n, p]
-//      over a fixed slice of the points, one warp per 32 x 64 output tile,
-//      mma.sync bf16 with fp32 accumulation (FMA in fp32), fragments loaded
-//      straight from the feature-major scratch (both operands are
-//      contiguous along the point axis). A row of ones in place of X gives
-//      the bias gradients. Each slice writes its own partial sums.
-//   R  `reduce_slices`: adds the slices' partial sums in a fixed order.
+//   B  `wgrad_*_kernel` (mlp_wgrad.cuh): for every layer, out[k, n] =
+//      sum_p X[k, p] G[n, p] over a fixed slice of the points, one warp per
+//      32 x 64 output tile, mma.sync bf16 with fp32 accumulation (FMA in
+//      fp32), fragments loaded straight from the feature-major scratch. A
+//      row of ones in place of X gives the bias gradients. Each slice writes
+//      its own partial sums.
+//   R  `reduce_slices` (mlp_wgrad.cuh): adds the slices' partial sums in a
+//      fixed order.
 //
 // What bounds it: tensor-core operations, 1,347,456 multiply-adds per point
 // (forward recomputed, activation gradients, weight gradients), against
@@ -48,37 +49,9 @@
 // rows past a CTA's last sample are never stored; points past the end are
 // read as zeros.
 
-#include "fused_raymarch_common.cuh"
+#include "mlp_wgrad.cuh"
 
 namespace {
-
-// scratch channel blocks ([channel][point]): layer inputs, then layer
-// output gradients (the order of SCRATCH_CHANNELS in fused_raymarch.py)
-enum : int {
-  C_E = 0,
-  C_ED = C_E + KE,
-  C_A0 = C_ED + KD,
-  C_A1 = C_A0 + WIDTH,
-  C_A2 = C_A1 + WIDTH,
-  C_A3 = C_A2 + WIDTH,
-  C_A4 = C_A3 + WIDTH,
-  C_A5 = C_A4 + WIDTH,
-  C_H = C_A5 + WIDTH,
-  C_R0 = C_H + WIDTH,
-  C_GA0 = C_R0 + RGB_WIDTH,
-  C_GA1 = C_GA0 + WIDTH,
-  C_GA2 = C_GA1 + WIDTH,
-  C_GA3 = C_GA2 + WIDTH,
-  C_GA4 = C_GA3 + WIDTH,
-  C_GA5 = C_GA4 + WIDTH,
-  C_GH = C_GA5 + WIDTH,
-  C_GR0 = C_GH + WIDTH,
-  C_HEAD = C_GR0 + RGB_WIDTH,  // g_sigpre, g_rgbpre[3], 4 zeros
-  CHANNELS = C_HEAD + 8,
-};
-
-// the transposed weights of the reverse sweep
-enum { T1T, T2T, T3T, F0HT, F1T, F2T, R0HT };
 
 struct BwdArgs : RayArgs {
   const float* dcolor;
@@ -97,40 +70,6 @@ constexpr size_t smem_bytes() {
          sizeof(float) * 6 * MAX_RAY_ROWS + sizeof(T) * MAX_RAYS * (KD + PAD) +
          sizeof(float) * M * 4;
 }
-
-// rows [0, rows) of a tile [M, ld] -> scratch channels [ch][p0 + row]
-template <class T>
-__device__ void store_cols(const T* src, int ld, int ch, T* dst, long long pal, long long p0,
-                           int rows) {
-  constexpr int M = Tile<T>::M;
-  for (int idx = threadIdx.x; idx < M * ch; idx += THREADS) {
-    const int c = idx / M, r = idx % M;
-    if (r < rows) dst[c * pal + p0 + r] = src[r * ld + c];
-  }
-}
-
-// a ReLU layer's input gradient: the product where the layer's stored
-// activation is > 0, else 0
-template <class T>
-struct MaskAct {
-  const T* act;
-  long long pal, p0;
-  int rows;
-  __device__ __forceinline__ float operator()(int row, int col, float v) const {
-    return row < rows && tof(act[col * pal + p0 + row]) > 0.f ? v : 0.f;
-  }
-};
-
-// g_h = g_r0 @ R0H^T + g_sigpre * dw (no activation)
-template <class T>
-struct HeadGrad {
-  const float* gsig;
-  const T* dw;
-  int rows;
-  __device__ __forceinline__ float operator()(int row, int col, float v) const {
-    return row < rows ? __fadd_rn(v, __fmul_rn(gsig[row], tof(dw[col]))) : 0.f;
-  }
-};
 
 // compositing backward of one ray (one warp). sig/rgb hold the ray's sigma
 // and rgb and receive g_sigpre and g_rgbpre (rounded to T); wg, aa are
@@ -206,54 +145,18 @@ __global__ void __launch_bounds__(THREADS) fused_bwd_kernel(BwdArgs a) {
 
   T* sc = static_cast<T*>(a.scratch);
   const long long pal = a.pal;
-  auto chan = [&](int c) { return sc + (long long)c * pal; };
   const int ray0 = blockIdx.x * a.rays_per_cta;
   const int rows_total = a.rays_per_cta * a.s;
   const long long cta_p0 = (long long)blockIdx.x * rows_total;
 
-  // 1. the forward, keeping every layer's input (see fused_raymarch_fwd.cu;
-  // each store reads a buffer that the next layer only reads)
+  // 1. the forward, keeping every layer's input
   encode_dirs<T>(a, ray0, dray, LDD);
   __syncthreads();
   for (int row_base = 0; row_base < rows_total; row_base += M) {
-    const long long p0 = cta_p0 + row_base;
-    const int rows = min(M, rows_total - row_base);
     encode_tile<T>(a, ray0, row_base, E, LDE, D, dray, LDD, xs, rayl);
     __syncthreads();
-    store_cols<T>(E, LDE, KE, chan(C_E), pal, p0, rows);
-    store_cols<T>(D, LDD, KD, chan(C_ED), pal, p0, rows);
-    dense<WIDTH, T>(E, LDE, KE, a.w[T0], nullptr, 0, 0, nullptr,
-                    BiasAct<true>{a.b[T0B]}, P, LDW);
-    __syncthreads();
-    store_cols<T>(P, LDW, WIDTH, chan(C_A0), pal, p0, rows);
-    dense<WIDTH, T>(P, LDW, WIDTH, a.w[T1], nullptr, 0, 0, nullptr,
-                    BiasAct<true>{a.b[T1B]}, Q, LDW);
-    __syncthreads();
-    store_cols<T>(Q, LDW, WIDTH, chan(C_A1), pal, p0, rows);
-    dense<WIDTH, T>(Q, LDW, WIDTH, a.w[T2], nullptr, 0, 0, nullptr,
-                    BiasAct<true>{a.b[T2B]}, P, LDW);
-    __syncthreads();
-    store_cols<T>(P, LDW, WIDTH, chan(C_A2), pal, p0, rows);
-    dense<WIDTH, T>(P, LDW, WIDTH, a.w[T3], nullptr, 0, 0, nullptr,
-                    BiasAct<true>{a.b[T3B]}, Q, LDW);
-    __syncthreads();
-    store_cols<T>(Q, LDW, WIDTH, chan(C_A3), pal, p0, rows);
-    dense<WIDTH, T>(Q, LDW, WIDTH, a.w[F0H], E, LDE, KE, a.w[F0E],
-                    BiasAct<true>{a.b[F0B]}, P, LDW);
-    __syncthreads();
-    store_cols<T>(P, LDW, WIDTH, chan(C_A4), pal, p0, rows);
-    dense<WIDTH, T>(P, LDW, WIDTH, a.w[F1], nullptr, 0, 0, nullptr,
-                    BiasAct<true>{a.b[F1B]}, Q, LDW);
-    __syncthreads();
-    store_cols<T>(Q, LDW, WIDTH, chan(C_A5), pal, p0, rows);
-    dense<WIDTH, T>(Q, LDW, WIDTH, a.w[F2], nullptr, 0, 0, nullptr,
-                    BiasAct<false>{a.b[F2B]}, P, LDW);
-    __syncthreads();
-    store_cols<T>(P, LDW, WIDTH, chan(C_H), pal, p0, rows);
-    dense<RGB_WIDTH, T>(P, LDW, WIDTH, a.w[R0H], D, LDD, KD, a.w[R0D],
-                        BiasAct<true>{a.b[R0B]}, Q, LDW);
-    __syncthreads();
-    store_cols<T>(Q, LDW, RGB_WIDTH, chan(C_R0), pal, p0, rows);
+    mlp_forward<T, true>(a, E, D, P, Q, sc, pal, cta_p0 + row_base,
+                         min(M, rows_total - row_base));
     heads<T>(a, P, Q, LDW, row_base, rows_total, sig, rgb);
   }
   __syncthreads();
@@ -274,256 +177,16 @@ __global__ void __launch_bounds__(THREADS) fused_bwd_kernel(BwdArgs a) {
   __syncthreads();
 
   // 3. the reverse sweep, tile by tile, keeping every layer's output gradient
-  const T* r1w = static_cast<const T*>(a.w[R1]);  // [3, RGB_WIDTH]
-  for (int row_base = 0; row_base < rows_total; row_base += M) {
-    const long long p0 = cta_p0 + row_base;
-    const int rows = min(M, rows_total - row_base);
-    for (int idx = threadIdx.x; idx < M * 8; idx += THREADS) {
-      const int c = idx / M, r = idx % M, row = row_base + r;
-      if (r < rows)
-        chan(C_HEAD + c)[p0 + r] =
-            fromf<T>(c == 0 ? sig[row] : (c < 4 ? rgb[row * 3 + c - 1] : 0.f));
-    }
-    // g_r0 = (g_rgbpre @ r1w^T) masked by r0 > 0
-    for (int idx = threadIdx.x; idx < M * RGB_WIDTH; idx += THREADS) {
-      const int r = idx / RGB_WIDTH, j = idx % RGB_WIDTH;
-      float v = 0.f;
-      if (r < rows && tof(chan(C_R0 + j)[p0 + r]) > 0.f) {
-        const float* g = rgb + (row_base + r) * 3;
-        v = __fadd_rn(__fadd_rn(__fmul_rn(g[0], tof(r1w[j])),
-                                __fmul_rn(g[1], tof(r1w[RGB_WIDTH + j]))),
-                      __fmul_rn(g[2], tof(r1w[2 * RGB_WIDTH + j])));
-      }
-      P[r * LDW + j] = fromf<T>(v);
-    }
-    __syncthreads();
-    store_cols<T>(P, LDW, RGB_WIDTH, chan(C_GR0), pal, p0, rows);
-    dense<WIDTH, T>(P, LDW, RGB_WIDTH, a.wt[R0HT], nullptr, 0, 0, nullptr,
-                    HeadGrad<T>{sig + row_base, static_cast<const T*>(a.w[DW]), rows}, Q, LDW);
-    __syncthreads();
-    store_cols<T>(Q, LDW, WIDTH, chan(C_GH), pal, p0, rows);
-    dense<WIDTH, T>(Q, LDW, WIDTH, a.wt[F2T], nullptr, 0, 0, nullptr,
-                    MaskAct<T>{chan(C_A5), pal, p0, rows}, P, LDW);
-    __syncthreads();
-    store_cols<T>(P, LDW, WIDTH, chan(C_GA5), pal, p0, rows);
-    dense<WIDTH, T>(P, LDW, WIDTH, a.wt[F1T], nullptr, 0, 0, nullptr,
-                    MaskAct<T>{chan(C_A4), pal, p0, rows}, Q, LDW);
-    __syncthreads();
-    store_cols<T>(Q, LDW, WIDTH, chan(C_GA4), pal, p0, rows);
-    dense<WIDTH, T>(Q, LDW, WIDTH, a.wt[F0HT], nullptr, 0, 0, nullptr,
-                    MaskAct<T>{chan(C_A3), pal, p0, rows}, P, LDW);
-    __syncthreads();
-    store_cols<T>(P, LDW, WIDTH, chan(C_GA3), pal, p0, rows);
-    dense<WIDTH, T>(P, LDW, WIDTH, a.wt[T3T], nullptr, 0, 0, nullptr,
-                    MaskAct<T>{chan(C_A2), pal, p0, rows}, Q, LDW);
-    __syncthreads();
-    store_cols<T>(Q, LDW, WIDTH, chan(C_GA2), pal, p0, rows);
-    dense<WIDTH, T>(Q, LDW, WIDTH, a.wt[T2T], nullptr, 0, 0, nullptr,
-                    MaskAct<T>{chan(C_A1), pal, p0, rows}, P, LDW);
-    __syncthreads();
-    store_cols<T>(P, LDW, WIDTH, chan(C_GA1), pal, p0, rows);
-    dense<WIDTH, T>(P, LDW, WIDTH, a.wt[T1T], nullptr, 0, 0, nullptr,
-                    MaskAct<T>{chan(C_A0), pal, p0, rows}, Q, LDW);
-    __syncthreads();
-    store_cols<T>(Q, LDW, WIDTH, chan(C_GA0), pal, p0, rows);
-  }
+  for (int row_base = 0; row_base < rows_total; row_base += M)
+    reverse_sweep<T>(a, a.wt, P, Q, sc, pal, cta_p0 + row_base, min(M, rows_total - row_base),
+                     sig + row_base, rgb + row_base * 3);
 }
 
-// ----------------------------------------------------- weight gradients
-
-// one product out[k, n] = sum_p X[x + k, p] * G[g + n, p]; x < 0: a row of
-// ones (the column sums of G)
-struct Job {
-  int x, k, g, n;
-  long long out;
-};
-constexpr int JOBS = 21;
-constexpr int WG_WARPS = 4;  // warps per CTA, one 32 x 64 output tile each
-
-// in flatten_mlp_params order, then the bias sums (GRAD_BLOCKS in
-// fused_raymarch.py)
-constexpr Job JOB_TABLE[JOBS] = {
-    {C_E, KE, C_GA0, WIDTH, 0},      {C_A0, WIDTH, C_GA1, WIDTH, 0},
-    {C_A1, WIDTH, C_GA2, WIDTH, 0},  {C_A2, WIDTH, C_GA3, WIDTH, 0},
-    {C_A3, WIDTH, C_GA4, WIDTH, 0},  {C_E, KE, C_GA4, WIDTH, 0},
-    {C_A4, WIDTH, C_GA5, WIDTH, 0},  {C_A5, WIDTH, C_GH, WIDTH, 0},
-    {C_H, WIDTH, C_HEAD, 8, 0},      {C_H, WIDTH, C_GR0, RGB_WIDTH, 0},
-    {C_ED, KD, C_GR0, RGB_WIDTH, 0}, {C_R0, RGB_WIDTH, C_HEAD, 8, 0},
-    {-1, 32, C_GA0, WIDTH, 0},       {-1, 32, C_GA1, WIDTH, 0},
-    {-1, 32, C_GA2, WIDTH, 0},       {-1, 32, C_GA3, WIDTH, 0},
-    {-1, 32, C_GA4, WIDTH, 0},       {-1, 32, C_GA5, WIDTH, 0},
-    {-1, 32, C_GH, WIDTH, 0},        {-1, 32, C_GR0, RGB_WIDTH, 0},
-    {-1, 32, C_HEAD, 8, 0},
-};
-
-struct WgradArgs {
-  const void* scratch;
-  long long pal, p;  // padded and real points per channel
-  int chunk;         // points per slice, a multiple of 16
-  int tiles[JOBS + 1];
-  Job jobs[JOBS];
-  float* partial;    // [slices][total]
-  long long total;
-};
-
-// this warp's job and its output tile (m0, n0)
-__device__ __forceinline__ int warp_tile(const WgradArgs& a, int tile, int& m0, int& n0) {
-  int j = 0;
-  while (j + 1 < JOBS && tile >= a.tiles[j + 1]) ++j;
-  const int local = tile - a.tiles[j], ntn = (a.jobs[j].n + 63) / 64;
-  m0 = (local / ntn) * 32;
-  n0 = (local % ntn) * 64;
-  return j;
-}
-
-// elements p, p+1 of a bf16 row as one mma operand register; zeros past n
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* row, long long p, long long n) {
-  if (p + 1 < n) return __ldg(reinterpret_cast<const unsigned int*>(row + p));
-  if (p < n) return (uint32_t)__bfloat16_as_ushort(row[p]);
-  return 0u;
-}
-
-__global__ void __launch_bounds__(WG_WARPS * 32) wgrad_mma_kernel(WgradArgs a) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int tile = blockIdx.x * WG_WARPS + warp;
-  if (tile >= a.tiles[JOBS]) return;
-  int m0, n0;
-  const Job jb = a.jobs[warp_tile(a, tile, m0, n0)];
-  const int nt = min(8, (jb.n - n0) / 8);
-  const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(a.scratch);
-  const __nv_bfloat16* xr[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-    xr[r] = jb.x < 0 ? sc : sc + (jb.x + m0 + (r >> 1) * 16 + (r & 1) * 8 + g) * a.pal;
-  const __nv_bfloat16* gr[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) gr[j] = sc + (jb.g + n0 + min(j, nt - 1) * 8 + g) * a.pal;
-  float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-  const long long pb = (long long)blockIdx.y * a.chunk, pe = min(a.p, pb + a.chunk);
-  for (long long p = pb; p < pe; p += 16) {
-    const long long pa = p + t * 2, pc = pa + 8;
-    uint32_t af[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      if (jb.x < 0) {
-        af[mt][0] = af[mt][1] = af[mt][2] = af[mt][3] = 0x3F803F80u;  // bf16 1.0 pairs
-      } else {
-        af[mt][0] = ld_pair(xr[mt * 2], pa, a.p);
-        af[mt][1] = ld_pair(xr[mt * 2 + 1], pa, a.p);
-        af[mt][2] = ld_pair(xr[mt * 2], pc, a.p);
-        af[mt][3] = ld_pair(xr[mt * 2 + 1], pc, a.p);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (j < nt) {
-        const uint2 b = make_uint2(ld_pair(gr[j], pa, a.p), ld_pair(gr[j], pc, a.p));
-        mma_bf16(acc[0][j], af[0], b);
-        mma_bf16(acc[1][j], af[1], b);
-      }
-    }
-  }
-  float* out = a.partial + (long long)blockIdx.y * a.total + jb.out;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (j < nt) {
-        const int row = m0 + mt * 16 + g, col = n0 + j * 8 + t * 2;
-        out[row * jb.n + col] = acc[mt][j][0];
-        out[row * jb.n + col + 1] = acc[mt][j][1];
-        out[(row + 8) * jb.n + col] = acc[mt][j][2];
-        out[(row + 8) * jb.n + col + 1] = acc[mt][j][3];
-      }
-    }
-}
-
-// four consecutive points of an fp32 row; zeros past n
-__device__ __forceinline__ float4 ld_quad(const float* row, long long p, long long n) {
-  if (p + 4 <= n) return __ldg(reinterpret_cast<const float4*>(row + p));
-  return make_float4(p < n ? row[p] : 0.f, p + 1 < n ? row[p + 1] : 0.f,
-                     p + 2 < n ? row[p + 2] : 0.f, p + 3 < n ? row[p + 3] : 0.f);
-}
-
-// fp32: lane owns columns n0 + lane and n0 + 32 + lane of the 32 rows
-__global__ void __launch_bounds__(WG_WARPS * 32) wgrad_fma_kernel(WgradArgs a) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tile = blockIdx.x * WG_WARPS + warp;
-  if (tile >= a.tiles[JOBS]) return;
-  int m0, n0;
-  const Job jb = a.jobs[warp_tile(a, tile, m0, n0)];
-  const float* sc = static_cast<const float*>(a.scratch);
-  const int c0 = n0 + lane, c1 = n0 + 32 + lane;
-  const bool v0 = c0 < jb.n, v1 = c1 < jb.n;
-  const float* g0 = sc + (jb.g + (v0 ? c0 : 0)) * a.pal;
-  const float* g1 = sc + (jb.g + (v1 ? c1 : 0)) * a.pal;
-  float acc[32][2];
-#pragma unroll
-  for (int r = 0; r < 32; ++r) acc[r][0] = acc[r][1] = 0.f;
-  const long long pb = (long long)blockIdx.y * a.chunk, pe = min(a.p, pb + a.chunk);
-  for (long long p = pb; p < pe; p += 4) {
-    const float4 ga = ld_quad(g0, p, a.p), gb = ld_quad(g1, p, a.p);
-#pragma unroll
-    for (int r = 0; r < 32; ++r) {
-      const float4 x = jb.x < 0 ? make_float4(1.f, 1.f, 1.f, 1.f)
-                                : ld_quad(sc + (jb.x + m0 + r) * a.pal, p, a.p);
-      acc[r][0] = fmaf(x.w, ga.w, fmaf(x.z, ga.z, fmaf(x.y, ga.y, fmaf(x.x, ga.x, acc[r][0]))));
-      acc[r][1] = fmaf(x.w, gb.w, fmaf(x.z, gb.z, fmaf(x.y, gb.y, fmaf(x.x, gb.x, acc[r][1]))));
-    }
-  }
-  float* out = a.partial + (long long)blockIdx.y * a.total + jb.out;
-#pragma unroll
-  for (int r = 0; r < 32; ++r) {
-    if (v0) out[(m0 + r) * jb.n + c0] = acc[r][0];
-    if (v1) out[(m0 + r) * jb.n + c1] = acc[r][1];
-  }
-}
-
-// out[i] = sum over slices of partial[slice][i], in slice order
-__global__ void reduce_slices(const float* partial, int slices, long long total, float* out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int k = 0; k < slices; ++k) s += partial[k * total + i];
-  out[i] = s;
-}
-
-// the sizes of one backward: points, scratch columns, slices, tiles, jobs
-struct Plan {
-  long long p, pal, total;
-  int rays, grid, slices, chunk;
-  int tiles[JOBS + 1];
-  Job jobs[JOBS];
-};
-
-Plan make_plan(int n, int s) {
-  Plan pl;
-  pl.rays = rays_per_cta(s);
-  pl.grid = (n + pl.rays - 1) / pl.rays;
-  pl.p = (long long)pl.grid * pl.rays * s;
-  pl.pal = (pl.p + 15) / 16 * 16;
-  // a fixed function of the point count: the sums' order never depends on
-  // the card or the run
-  long long slices = (pl.p + 4095) / 4096;
-  slices = slices < 1 ? 1 : (slices > 64 ? 64 : slices);
-  pl.chunk = (int)(((pl.p + slices - 1) / slices + 15) / 16 * 16);
-  pl.slices = (int)((pl.p + pl.chunk - 1) / pl.chunk);
-  long long off = 0;
-  pl.tiles[0] = 0;
-  for (int j = 0; j < JOBS; ++j) {
-    pl.jobs[j] = JOB_TABLE[j];
-    pl.jobs[j].out = off;
-    off += (long long)pl.jobs[j].k * pl.jobs[j].n;
-    pl.tiles[j + 1] = pl.tiles[j] + (pl.jobs[j].k / 32) * ((pl.jobs[j].n + 63) / 64);
-  }
-  pl.total = off;
-  return pl;
+// the plan of one backward: every product and bias sum of JOB_TABLE over
+// the points of whole CTAs (rays past N give zero rows)
+Plan ray_plan(int n, int s) {
+  const int rays = rays_per_cta(s), grid = (n + rays - 1) / rays;
+  return make_plan((long long)grid * rays * s, JOBS);
 }
 
 int check_sizes(int n, int s, int position_dim, int direction_dim) {
@@ -540,28 +203,10 @@ int launch(const BwdArgs& a, const Plan& pl, float* partial, float* grads, cudaS
   cudaError_t err = cudaFuncSetAttribute(
       fused_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  fused_bwd_kernel<T><<<pl.grid, THREADS, bytes, stream>>>(a);
+  const int grid = (a.n + a.rays_per_cta - 1) / a.rays_per_cta;
+  fused_bwd_kernel<T><<<grid, THREADS, bytes, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  WgradArgs w;
-  w.scratch = a.scratch;
-  w.pal = pl.pal;
-  w.p = pl.p;
-  w.chunk = pl.chunk;
-  for (int j = 0; j <= JOBS; ++j) w.tiles[j] = pl.tiles[j];
-  for (int j = 0; j < JOBS; ++j) w.jobs[j] = pl.jobs[j];
-  w.partial = partial;
-  w.total = pl.total;
-  const dim3 grid((pl.tiles[JOBS] + WG_WARPS - 1) / WG_WARPS, pl.slices);
-  if (std::is_same<T, float>::value)
-    wgrad_fma_kernel<<<grid, WG_WARPS * 32, 0, stream>>>(w);
-  else
-    wgrad_mma_kernel<<<grid, WG_WARPS * 32, 0, stream>>>(w);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  reduce_slices<<<(unsigned)((pl.total + 255) / 256), 256, 0, stream>>>(partial, pl.slices,
-                                                                         pl.total, grads);
-  return (int)cudaGetLastError();
+  return launch_wgrad<T>(pl, a.scratch, partial, grads, stream);
 }
 
 }  // namespace
@@ -573,7 +218,7 @@ int launch(const BwdArgs& a, const Plan& pl, float* partial, float* grads, cudaS
 extern "C" int fused_raymarch_bwd_sizes(int n, int s, long long* out) {
   const int rc = check_sizes(n, s, 1, 1);
   if (rc != 0) return rc;
-  const Plan pl = make_plan(n, s);
+  const Plan pl = ray_plan(n, s);
   out[0] = pl.p;
   out[1] = pl.pal;
   out[2] = pl.slices;
@@ -592,14 +237,14 @@ extern "C" int fused_raymarch_bwd(const void* o, const void* d, const void* ts,
                                   void* partial, void* grads, void* stream) {
   const int rc = check_sizes(n, s, position_dim, direction_dim);
   if (rc != 0) return rc;
-  const Plan pl = make_plan(n, s);
+  const Plan pl = ray_plan(n, s);
   BwdArgs a;
   a.o = static_cast<const float*>(o);
   a.d = static_cast<const float*>(d);
   a.ts = static_cast<const float*>(ts);
   a.n = n;
   a.s = s;
-  a.rays_per_cta = pl.rays;
+  a.rays_per_cta = rays_per_cta(s);
   a.pos_ch = 6 * position_dim;
   a.dir_ch = 6 * direction_dim;
   const void* const* wp = static_cast<const void* const*>(ws);

@@ -126,33 +126,7 @@ __global__ void __launch_bounds__(THREADS) fused_fwd_kernel(FwdArgs a) {
   for (int row_base = 0; row_base < rows_total; row_base += M) {
     encode_tile<T>(a, ray0, row_base, E, LDE, D, dray, LDD, xs, rayl);
     __syncthreads();
-    dense<WIDTH, T>(E, LDE, KE, a.w[T0], nullptr, 0, 0, nullptr,
-                    BiasAct<true>{a.b[T0B]}, P, LDW);
-    __syncthreads();
-    dense<WIDTH, T>(P, LDW, WIDTH, a.w[T1], nullptr, 0, 0, nullptr,
-                    BiasAct<true>{a.b[T1B]}, Q, LDW);
-    __syncthreads();
-    dense<WIDTH, T>(Q, LDW, WIDTH, a.w[T2], nullptr, 0, 0, nullptr,
-                    BiasAct<true>{a.b[T2B]}, P, LDW);
-    __syncthreads();
-    dense<WIDTH, T>(P, LDW, WIDTH, a.w[T3], nullptr, 0, 0, nullptr,
-                    BiasAct<true>{a.b[T3B]}, Q, LDW);
-    __syncthreads();
-    // skip: concat(a3, e) @ W == a3 @ W_h + e @ W_e
-    dense<WIDTH, T>(Q, LDW, WIDTH, a.w[F0H], E, LDE, KE, a.w[F0E],
-                    BiasAct<true>{a.b[F0B]}, P, LDW);
-    __syncthreads();
-    dense<WIDTH, T>(P, LDW, WIDTH, a.w[F1], nullptr, 0, 0, nullptr,
-                    BiasAct<true>{a.b[F1B]}, Q, LDW);
-    __syncthreads();
-    // h: no activation
-    dense<WIDTH, T>(Q, LDW, WIDTH, a.w[F2], nullptr, 0, 0, nullptr,
-                    BiasAct<false>{a.b[F2B]}, P, LDW);
-    __syncthreads();
-    // rgb hidden: concat(h, ed) @ W == h @ W_h + ed @ W_d
-    dense<RGB_WIDTH, T>(P, LDW, WIDTH, a.w[R0H], D, LDD, KD, a.w[R0D],
-                        BiasAct<true>{a.b[R0B]}, Q, LDW);
-    __syncthreads();
+    mlp_forward<T>(a, E, D, P, Q);
     heads<T>(a, P, Q, LDW, row_base, rows_total, sig, rgb);
     // the next tile's encode writes only E and D; the barrier after it
     // orders these reads of P and Q before the next tile's first layer

@@ -57,44 +57,6 @@ SCRATCH_CHANNELS = (POS_SLOT + DIR_SLOT + 7 * WIDTH + RGB_WIDTH
                     + 7 * WIDTH + RGB_WIDTH + 8)  # 3944
 
 
-def flatten_mlp_params(params: Params, compute_dtype=None
-                       ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-    """Split one MLP into the kernel's 12 weights and 10 biases.
-
-    The two concat layers are split row-wise into (h-part, enc-part);
-    weights are cast to the compute dtype; biases stay fp32 as ``[1, out]``
-    (``minimal_nerf_tpu/kernels/raymarch.py:104-133``).
-    """
-    wt = (lambda w: w.to(compute_dtype)) if compute_dtype else (lambda w: w)
-    tr, fe, de, rg = params["trunk"], params["feature"], params["density"], params["rgb"]
-    width = tr[0]["w"].shape[1]
-    ws = [
-        wt(tr[0]["w"]), wt(tr[1]["w"]), wt(tr[2]["w"]), wt(tr[3]["w"]),
-        wt(fe[0]["w"][:width]), wt(fe[0]["w"][width:]),
-        wt(fe[1]["w"]), wt(fe[2]["w"]),
-        wt(de["w"]),
-        wt(rg[0]["w"][:width]), wt(rg[0]["w"][width:]),
-        wt(rg[1]["w"]),
-    ]
-    bs = [tr[0]["b"], tr[1]["b"], tr[2]["b"], tr[3]["b"],
-          fe[0]["b"], fe[1]["b"], fe[2]["b"], de["b"], rg[0]["b"], rg[1]["b"]]
-    return ws, [b.float().reshape(1, -1) for b in bs]
-
-
-def unflatten_mlp_grads(gws: List[torch.Tensor], gbs: List[torch.Tensor]) -> Params:
-    """Inverse of ``flatten_mlp_params`` for the 12 + 10 fp32 gradients
-    (``minimal_nerf_tpu/kernels/raymarch.py:398-421``): the split halves of
-    ``feature[0]`` and ``rgb[0]`` are concatenated back."""
-    lin = lambda w, b: {"w": w, "b": b.reshape(-1)}  # noqa: E731
-    return {
-        "trunk": [lin(gws[i], gbs[i]) for i in range(4)],
-        "feature": [lin(torch.cat([gws[4], gws[5]], dim=0), gbs[4]),
-                    lin(gws[6], gbs[5]), lin(gws[7], gbs[6])],
-        "density": lin(gws[8], gbs[7]),
-        "rgb": [lin(torch.cat([gws[9], gws[10]], dim=0), gbs[8]), lin(gws[11], gbs[9])],
-    }
-
-
 class FusedMLP(NamedTuple):
     """One MLP prepared for the fused pass (see ``prepare_fused_mlp``)."""
 
@@ -176,6 +138,9 @@ def prepare_fused_mlp(params: Params, compute_dtype=None) -> FusedMLP:
     """
     if compute_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype {compute_dtype} not supported")
+    # imported here: raymarch imports this module at its top
+    from minimal_nerf_torch.kernels.raymarch import flatten_mlp_params
+
     dtype = None if compute_dtype == torch.float32 else compute_dtype
     with torch.no_grad():
         ws, bs = flatten_mlp_params(params, dtype)
@@ -312,8 +277,9 @@ def _check(name, t: torch.Tensor, shape, dtype=torch.float32):
                          f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
 
 
-def _check_launch(fm: FusedMLP, tensors, s, position_dim, direction_dim):
-    """Device, dtype, shape and contiguity checks shared by both kernels."""
+def _check_launch(fm: FusedMLP, tensors, position_dim, direction_dim):
+    """Device, dtype, shape and contiguity checks shared by the kernels (the
+    fused ones here and the point kernels of ``raymarch``)."""
     dev = tensors[0][1].device
     for name, t, shape in tensors:
         _check(name, t, shape)
@@ -324,12 +290,15 @@ def _check_launch(fm: FusedMLP, tensors, s, position_dim, direction_dim):
     wdtype = fm.dtype or torch.float32
     if any(w.dtype != wdtype or not w.is_contiguous() for w in fm.kernel_ws):
         raise ValueError(f"kernel weights must be contiguous {wdtype}")
-    if not 1 <= s <= MAX_SAMPLES:
-        raise ValueError(f"the fused kernel takes 1..{MAX_SAMPLES} samples per ray, got {s}")
     if not (1 <= 6 * position_dim <= POS_SLOT and 1 <= 6 * direction_dim <= DIR_SLOT):
         raise ValueError(f"encoding dims {position_dim}/{direction_dim} exceed the "
                          f"kernel's {POS_SLOT}/{DIR_SLOT} channel slots")
     return dev
+
+
+def _check_samples(s: int):
+    if not 1 <= s <= MAX_SAMPLES:
+        raise ValueError(f"the fused kernel takes 1..{MAX_SAMPLES} samples per ray, got {s}")
 
 
 def _ptrs(ts_list):
@@ -345,7 +314,8 @@ def _launch(fm: FusedMLP, o, d, ts, position_dim, direction_dim):
 
     n, s = ts.shape
     dev = _check_launch(fm, [("o", o, (n, 3)), ("d", d, (n, 3)), ("ts", ts, (n, s))],
-                        s, position_dim, direction_dim)
+                        position_dim, direction_dim)
+    _check_samples(s)
     color = torch.empty((n, 3), dtype=torch.float32, device=dev)
     weights = torch.empty((n, s), dtype=torch.float32, device=dev)
     if n == 0:
@@ -403,7 +373,8 @@ def _launch_bwd(fm: FusedMLP, o, d, ts, dcolor, dweights, position_dim, directio
                ("dcolor", dcolor, (n, 3))]
     if dweights is not None:
         tensors.append(("dweights", dweights, (n, s)))
-    dev = _check_launch(fm, tensors, s, position_dim, direction_dim)
+    dev = _check_launch(fm, tensors, position_dim, direction_dim)
+    _check_samples(s)
     if fm.kernel_wts is None or any(w.device != dev for w in fm.kernel_wts):
         raise ValueError(f"transposed weights are not prepared on {dev}")
     if n == 0:
@@ -448,17 +419,27 @@ GRAD_BLOCKS = ([(POS_SLOT, WIDTH)] + [(WIDTH, WIDTH)] * 4 + [(POS_SLOT, WIDTH)]
                + [(32, WIDTH)] * 7 + [(32, RGB_WIDTH), (32, 8)])
 
 
-def _split_grads(flat: torch.Tensor, fm: FusedMLP):
-    """The kernel's flat fp32 output as 12 weight and 10 bias gradients."""
-    blocks, off = [], 0
-    for rows, cols in GRAD_BLOCKS:
-        blocks.append(flat[off: off + rows * cols].view(rows, cols))
+def _weight_grads(flat: torch.Tensor, fm: FusedMLP):
+    """The 12 weight gradients at the head of a backward kernel's flat fp32
+    output (the first 12 blocks of ``GRAD_BLOCKS``), and the offset past
+    them."""
+    gws, off = [], 0
+    for rows, cols in GRAD_BLOCKS[:12]:
+        gws.append(flat[off: off + rows * cols].view(rows, cols))
         off += rows * cols
     pe, de = fm.ws[0].shape[0], fm.ws[10].shape[0]
-    gws = blocks[:12]
     gws[0], gws[5], gws[10] = gws[0][:pe], gws[5][:pe], gws[10][:de]
     gws[8], gws[11] = gws[8][:, :1], gws[11][:, 1:4]
-    rows0 = [b[:1] for b in blocks[12:]]
+    return gws, off
+
+
+def _split_grads(flat: torch.Tensor, fm: FusedMLP):
+    """The kernel's flat fp32 output as 12 weight and 10 bias gradients."""
+    gws, off = _weight_grads(flat, fm)
+    rows0 = []
+    for rows, cols in GRAD_BLOCKS[12:]:
+        rows0.append(flat[off: off + cols].view(1, cols))
+        off += rows * cols
     gbs = rows0[:7] + [rows0[8][:, :1], rows0[7], rows0[8][:, 1:4]]
     return gws, gbs
 
@@ -496,6 +477,8 @@ class _FusedPass(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dcolor, dweights):
+        from minimal_nerf_torch.kernels.raymarch import unflatten_mlp_grads
+
         o, d, ts = ctx.saved_tensors
         fm = ctx.fm
         if dcolor is None:
@@ -529,14 +512,16 @@ def fused_render_pass(params, o_rays, d_rays, ts, position_dim: int = 10,
 def render_rays_fused(params: Params, config, o_rays, d_rays,
                       generator: Optional[torch.Generator] = None,
                       compute_dtype=None, mlp_apply=None, coarse_sampler=None,
-                      uniforms: Optional[Dict[str, torch.Tensor]] = None):
+                      uniforms: Optional[Dict[str, torch.Tensor]] = None,
+                      return_stats: bool = False):
     """Hierarchical render with both passes through the fused pass.
 
     Same draws and math as ``models.nerf.render_rays``; sampling and the
     sorted union run in PyTorch between the two passes, and the fine pass's
     times carry no gradient (``sg(all_ts)`` in JAX). ``params`` holds
-    ``"coarse"`` and ``"fine"`` MLP trees or ``FusedMLP``s. ``mlp_apply`` is
-    accepted for interface parity and ignored.
+    ``"coarse"`` and ``"fine"`` MLP trees or ``FusedMLP``s. ``mlp_apply`` and
+    ``return_stats`` are accepted for interface parity and ignored: the
+    fused pass never materializes the densities (as in JAX).
     """
     from minimal_nerf_torch.models.nerf import fine_times
 
@@ -565,7 +550,7 @@ def make_fused_render_fn():
     cache: Dict[str, Any] = {}
 
     def render_fn(params, config, o_rays, d_rays, generator=None, compute_dtype=None,
-                  mlp_apply=None, coarse_sampler=None, uniforms=None):
+                  mlp_apply=None, coarse_sampler=None, uniforms=None, return_stats=False):
         key = (id(params), compute_dtype,
                tuple((id(t), t._version) for t in flatten_tree(params)))
         if cache.get("key") != key:

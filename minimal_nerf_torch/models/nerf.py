@@ -87,21 +87,32 @@ def render_rays(
     mlp_apply=None,
     coarse_sampler=None,
     uniforms: Optional[Dict[str, torch.Tensor]] = None,
+    return_stats: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Hierarchical volume render of a ray batch (the plain path).
 
-    ``mlp_apply`` overrides the MLP (signature of ``nerf_mlp_apply``);
-    ``coarse_sampler`` overrides coarse placement (signature of
+    ``mlp_apply`` overrides the MLP (signature of ``nerf_mlp_apply``, e.g.
+    the point kernels' ``make_mlp_kernel_apply()``); ``coarse_sampler``
+    overrides coarse placement (signature of
     ``rendering.generate_coarse_samples``). Returns ``fine_rgb_rays [N, 3]``
-    and ``coarse_rgb_rays [N, 3]``.
+    and ``coarse_rgb_rays [N, 3]``; with ``return_stats`` also the
+    reference's density diagnostics from the detached densities,
+    ``{coarse,fine}_density_sumsq`` (the caller takes the square root) and
+    ``{coarse,fine}_density_non_zeros``.
     """
     apply_fn = mlp_apply or nerf_mlp_apply
     sample_coarse = coarse_sampler or rendering.generate_coarse_samples
     uniforms = uniforms or {}
 
-    def composite(mlp, samples, ts):
+    out = {}
+
+    def composite(name, mlp, samples, ts):
         density, rgb = apply_fn(mlp, samples, d_rays, config.position_dim,
                                 config.direction_dim, compute_dtype=compute_dtype)
+        if return_stats:
+            d32 = density.detach().float()
+            out[f"{name}_density_sumsq"] = torch.sum(d32 * d32)
+            out[f"{name}_density_non_zeros"] = torch.sum(d32 != 0).float()
         weights = rendering.calculate_unnormalized_weights(
             density, rendering.generate_deltas(ts))
         return rendering.estimate_ray_color(weights, rgb), weights
@@ -110,9 +121,10 @@ def render_rays(
         o_rays, d_rays, config.coarse_samples, config.near, config.far,
         generator=generator, uniforms=uniforms.get("coarse"),
     )
-    coarse_rgb, coarse_weights = composite(params["coarse"], coarse_samples, coarse_ts)
+    coarse_rgb, coarse_weights = composite("coarse", params["coarse"], coarse_samples,
+                                           coarse_ts)
     all_ts = fine_times(config, o_rays, d_rays, coarse_weights, coarse_ts,
                         generator, uniforms)
     all_samples = o_rays[:, None, :] + all_ts * d_rays[:, None, :]
-    fine_rgb, _ = composite(params["fine"], all_samples, all_ts)
-    return {"fine_rgb_rays": fine_rgb, "coarse_rgb_rays": coarse_rgb}
+    fine_rgb, _ = composite("fine", params["fine"], all_samples, all_ts)
+    return dict(out, fine_rgb_rays=fine_rgb, coarse_rgb_rays=coarse_rgb)

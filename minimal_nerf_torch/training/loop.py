@@ -3,9 +3,10 @@
 Counterpart of ``minimal_nerf_tpu/training/loop.py`` (single device; the
 multi-step scan, occupancy and data parallelism are not ported yet). PyTorch
 runs eagerly, so there is no ``jit``: ``make_train_step`` returns a plain
-function that samples a batch, renders it through the fused kernels (or a
-given ``render_fn``), takes the gradients with autograd and applies Adam with
-optax's semantics IN PLACE on the parameter tensors.
+function that samples a batch, renders it through the fused kernels (or the
+hooks of another ``--kernel``, ``kernel_hooks``), takes the gradients with
+autograd and applies Adam with optax's semantics IN PLACE on the parameter
+tensors.
 
 Adam is written as plain functions over ``{"count", "mu", "nu"}`` with ``mu``
 and ``nu`` in the parameter tree's layout, the state optax keeps, so the
@@ -98,31 +99,50 @@ def global_norm(grads: Params) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g * g) for g in flatten_tree(grads)))
 
 
+_DENSITY_STAT_KEYS = ("coarse_density_sumsq", "coarse_density_non_zeros",
+                      "fine_density_sumsq", "fine_density_non_zeros")
+
+
 def finalize_metrics(metrics: Dict[str, torch.Tensor], grads: Params) -> Dict[str, torch.Tensor]:
-    """The reference's logged names: the losses plus ``grad_2.0_norm_total``
-    (the fused path has no density statistics, as in JAX)."""
-    return dict(metrics, **{"grad_2.0_norm_total": global_norm(grads)})
+    """The reference's logged names (``minimal_nerf_tpu/training/loop.py:86-106``
+    on one device): the density sums of squares become
+    ``{coarse,fine}_density_norms`` (their square roots), the non-zero counts
+    stay, and ``grad_2.0_norm_total`` is the gradients' global norm. The
+    fused render has no density statistics, as in JAX."""
+    m = dict(metrics)
+    for name in ("coarse", "fine"):
+        k = f"{name}_density_sumsq"
+        if k in m:
+            m[f"{name}_density_norms"] = torch.sqrt(m.pop(k))
+    m["grad_2.0_norm_total"] = global_norm(grads)
+    return m
 
 
 def nerf_loss(params: Params, nerf_cfg: NeRFConfig, o_rays, d_rays, rgb,
               generator: Optional[torch.Generator] = None, compute_dtype=None,
-              render_fn=None, uniforms=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+              render_fn=None, uniforms=None,
+              mlp_apply=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``MSE(coarse, gt) + MSE(fine, gt)`` (reference ``nerf_model.py:158-161``).
 
     ``render_fn`` is the hierarchical render (signature of
-    ``models.nerf.render_rays``; default the fused kernels'
-    ``render_rays_fused``); ``uniforms`` replaces its draws.
+    ``models.nerf.render_rays``); ``mlp_apply`` is its MLP hook. With
+    neither, the fused kernels' ``render_rays_fused``; with ``mlp_apply``
+    alone, ``models.nerf.render_rays``. ``uniforms`` replaces the draws. The
+    render's density statistics, where it has them, join the metrics.
     """
     from minimal_nerf_torch.kernels.fused_raymarch import render_rays_fused
+    from minimal_nerf_torch.models.nerf import render_rays
 
-    render = render_fn or render_rays_fused
+    render = render_fn or (render_rays if mlp_apply is not None else render_rays_fused)
     out = render(params, nerf_cfg, o_rays, d_rays, generator, compute_dtype=compute_dtype,
-                 uniforms=uniforms)
+                 mlp_apply=mlp_apply, return_stats=True, uniforms=uniforms)
     coarse_loss = torch.mean((out["coarse_rgb_rays"] - rgb) ** 2)
     fine_loss = torch.mean((out["fine_rgb_rays"] - rgb) ** 2)
     loss = coarse_loss + fine_loss
-    return loss, {"train_loss": loss, "train_coarse_loss": coarse_loss,
-                  "train_fine_loss": fine_loss}
+    metrics = {"train_loss": loss, "train_coarse_loss": coarse_loss,
+               "train_fine_loss": fine_loss}
+    metrics.update({k: out[k] for k in _DENSITY_STAT_KEYS if k in out})
+    return loss, metrics
 
 
 def step_generator(seed: int, step: int, stream: int, device) -> torch.Generator:
@@ -158,36 +178,66 @@ def sample_train_batch(step: int, images: torch.Tensor, poses: torch.Tensor,
 
 
 def loss_and_grads(params: Params, nerf_cfg: NeRFConfig, batch: Dict[str, Any],
-                   compute_dtype=None, render_fn=None, generator=None, uniforms=None):
+                   compute_dtype=None, render_fn=None, generator=None, uniforms=None,
+                   mlp_apply=None):
     """``(metrics, grads)`` of ``nerf_loss`` on one batch; the parameters'
     leaves are made to require gradients, and no ``.grad`` is written."""
     leaves = flatten_tree(params)
     for leaf in leaves:
         leaf.requires_grad_(True)
     loss, metrics = nerf_loss(params, nerf_cfg, batch["origin"], batch["direc"], batch["rgb"],
-                              generator, compute_dtype, render_fn, uniforms)
+                              generator, compute_dtype, render_fn, uniforms, mlp_apply)
     grads = torch.autograd.grad(loss, leaves)
     return ({k: v.detach() for k, v in metrics.items()},
             unflatten_tree(params, list(grads)))
 
 
+def kernel_hooks(kernel: str, device="cuda") -> Tuple[Optional[Callable], Callable]:
+    """``(mlp_apply, render_fn)`` of a ``--kernel`` choice for the train step
+    (``train_nerf.py:261-282``: ``resolve_kernel``, ``make_mlp_apply``,
+    ``make_render_fn``).
+
+    ``"fused"``, and ``"auto"`` on a CUDA device, give the fused kernels'
+    render; ``"pallas"`` the point kernels' MLP hook under the plain render;
+    ``"xla"``, and ``"auto"`` elsewhere, the plain render with the plain MLP
+    (PyTorch matmuls, which the JAX package leaves to XLA).
+    """
+    from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
+    from minimal_nerf_torch.kernels.raymarch import make_mlp_kernel_apply
+    from minimal_nerf_torch.models.nerf import render_rays
+
+    if kernel == "auto":
+        kernel = "fused" if torch.device(device).type == "cuda" else "xla"
+    if kernel == "fused":
+        return None, make_fused_render_fn()
+    if kernel == "pallas":
+        return make_mlp_kernel_apply(), render_rays
+    if kernel == "xla":
+        return None, render_rays
+    raise ValueError(f"unknown kernel {kernel!r}")
+
+
 def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
-                    render_fn=None, device="cuda") -> Callable:
+                    render_fn=None, device="cuda", mlp_apply=None) -> Callable:
     """The train step ``step_fn(params, opt_state, images, poses, step, seed)
     -> (params, opt_state, metrics)``.
 
-    ``render_fn`` defaults to the fused kernels' hierarchical render with its
-    packing cache (``make_fused_render_fn``). The parameters and Adam moments
-    are updated IN PLACE (the returned ``params`` is the same tree). Metrics
-    are device scalars under the JAX names plus ``lr`` (no host sync).
+    ``render_fn`` and ``mlp_apply`` are the render hooks (``kernel_hooks``).
+    With neither, the fused kernels' hierarchical render with its packing
+    cache (``make_fused_render_fn``); with ``mlp_apply`` alone, the plain
+    render ``models.nerf.render_rays`` around it. The parameters and Adam
+    moments are updated IN PLACE (the returned ``params`` is the same tree).
+    Metrics are device scalars under the JAX names plus ``lr`` (no host
+    sync).
     """
     from minimal_nerf_torch import resolve_device
     from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
+    from minimal_nerf_torch.models.nerf import render_rays
 
     dev = resolve_device(device)
     steps_per_epoch = train_cfg.steps_per_epoch or static.num_frames
     lr_sched = make_lr_schedule(train_cfg, steps_per_epoch)
-    render = render_fn or make_fused_render_fn()
+    render = render_fn or (render_rays if mlp_apply is not None else make_fused_render_fn())
 
     def step_fn(params, opt_state, images, poses, step: int, seed: int):
         batch = sample_train_batch(step, images, poses, static, train_cfg.num_rays,
@@ -195,7 +245,7 @@ def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
                                    generator=step_generator(seed, step, _BATCH_STREAM, dev))
         metrics, grads = loss_and_grads(
             params, nerf_cfg, batch, train_cfg.compute_dtype, render,
-            generator=step_generator(seed, step, _RENDER_STREAM, dev))
+            generator=step_generator(seed, step, _RENDER_STREAM, dev), mlp_apply=mlp_apply)
         opt_state = adam_update(params, grads, opt_state, lr_sched(opt_state["count"]))
         return params, opt_state, dict(finalize_metrics(metrics, grads), lr=lr_sched(step))
 

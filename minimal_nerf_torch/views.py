@@ -37,14 +37,17 @@ def chunk_generator(frame_seed: int, chunk_index: int, device) -> torch.Generato
 
 
 def resolve_inference_kernel(kernel: str, train_cfg=None, device="cuda") -> str:
-    """Resolve an inference ``--kernel`` choice to ``"fused"`` or ``"xla"``.
+    """Resolve an inference ``--kernel`` choice to ``"fused"``, ``"pallas"``
+    or ``"xla"``.
 
-    ``"xla"`` names the plain path (``models.nerf.render_rays``), as in the JAX
-    package. ``"auto"`` prefers the kernel the checkpoint trained under: on a
-    CUDA device a fused- or auto-trained checkpoint renders through
-    ``"fused"``; on the CPU ``"auto"`` takes the plain path and says so when
-    the checkpoint trained under a kernel. ``"pallas"`` (the point-level MLP
-    kernel) is not ported yet and raises.
+    ``"xla"`` names the plain path (``models.nerf.render_rays``) and
+    ``"pallas"`` the plain render around the point-level MLP kernels, as in
+    the JAX package. ``"auto"`` prefers the kernel the checkpoint trained
+    under: on a CUDA device a fused- or auto-trained checkpoint renders
+    through ``"fused"`` and a pallas-trained one through ``"pallas"``; on the
+    CPU ``"auto"`` takes the plain path and says so when the checkpoint
+    trained under a kernel. An explicit choice is kept (on the CPU a kernel
+    runs its plain version).
     """
     trained = getattr(train_cfg, "kernel", "auto") if train_cfg is not None else "auto"
     choice = kernel if kernel != "auto" else None
@@ -57,11 +60,7 @@ def resolve_inference_kernel(kernel: str, train_cfg=None, device="cuda") -> str:
                       "rendered through the plain path on the CPU; expect a "
                       "train/inference numerics mismatch", file=sys.stderr)
             choice = "xla"
-    if choice == "pallas":
-        raise NotImplementedError(
-            "the point-level MLP kernel (--kernel pallas) is not ported yet "
-            "(ROADMAP Queue 1 item 5, point-level MLP kernel)")
-    if choice not in ("xla", "fused"):
+    if choice not in ("xla", "fused", "pallas"):
         raise ValueError(f"unknown kernel {kernel!r}")
     return choice
 

@@ -14,6 +14,7 @@ from minimal_nerf_torch import inference as t_inf
 from minimal_nerf_torch import render as t_render
 from minimal_nerf_torch import views as t_views
 from minimal_nerf_torch.kernels import fused_raymarch as t_fused
+from minimal_nerf_torch.kernels import raymarch as t_rm
 from minimal_nerf_torch.models import nerf as t_nerf
 from minimal_nerf_torch.ops import cameras as t_cam
 from minimal_nerf_torch.training import checkpoint as t_ckpt
@@ -140,8 +141,8 @@ def test_inference_options_not_ported_raise(tmp_path):
         t_inf.build_render_chunk(str(path), 64, data_parallel=2, device="cpu")
     with pytest.raises(NotImplementedError, match="occupancy"):
         t_inf.build_render_chunk(str(path), 64, bake_occupancy=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="point-level"):
-        t_inf.build_render_chunk(str(path), 64, kernel="pallas", device="cpu")
+    with pytest.raises(ValueError, match="unknown kernel"):
+        t_inf.build_render_chunk(str(path), 64, kernel="triton", device="cpu")
 
 
 def test_resolve_inference_kernel():
@@ -151,6 +152,12 @@ def test_resolve_inference_kernel():
     assert t_views.resolve_inference_kernel("auto", xla, "cuda") == "xla"
     assert t_views.resolve_inference_kernel("auto", fused, "cpu") == "xla"
     assert t_views.resolve_inference_kernel("fused", xla, "cpu") == "fused"
+    # the point-level kernel path: chosen by a pallas-trained checkpoint on
+    # a card, kept when asked for explicitly (on the CPU: its plain version)
+    pallas = TTrainConfig(kernel="pallas")
+    assert t_views.resolve_inference_kernel("auto", pallas, "cuda") == "pallas"
+    assert t_views.resolve_inference_kernel("auto", pallas, "cpu") == "xla"
+    assert t_views.resolve_inference_kernel("pallas", fused, "cpu") == "pallas"
 
 
 def test_default_device_is_cuda_and_raises_without_card(tmp_path):
@@ -179,6 +186,35 @@ def test_render_cli_writes_gif(tmp_path):
                                         width=10, device="cpu"))
     assert len(frames) == 2 and frames[0].shape == (12, 10, 3)
     assert t_fused.launches == 0
+
+
+def test_pallas_checkpoint_renders_through_the_point_kernel(tmp_path, monkeypatch):
+    """A checkpoint trained under ``--kernel pallas``: an explicit
+    ``--kernel pallas`` on the CPU renders through the point kernels' plain
+    version (the render CLI writes a gif), and its pixels are those of the
+    plain render around ``nerf_mlp_kernel_apply``."""
+    path = tmp_path / "model=p-epoch=1-step=7.ckpt"
+    _jax_ckpt(path, TrainConfig(kernel="pallas"))
+    applied = []
+    orig = t_rm.nerf_mlp_kernel_apply
+    monkeypatch.setattr(t_rm, "nerf_mlp_kernel_apply",
+                        lambda *a, **k: applied.append(1) or orig(*a, **k))
+    focal = t_cam.focal_from_angle(12, t_views.DEFAULT_CAM_ANGLE_X)
+    o, d = t_cam.get_rays(12, 12, focal, t_cam.pose_spherical(30.0, -30.0, 4.0), device="cpu")
+    chunk, _, tcfg = t_inf.build_render_chunk(str(path), 64, kernel="pallas", device="cpu")
+    assert tcfg.kernel == "pallas" and tcfg.compute_dtype == torch.bfloat16
+    im = t_views.view_reconstruction(chunk, o, d, chunk=64, seed=1)
+    assert len(applied) == 2 * 3  # coarse and fine pass of each of 3 chunks
+    params, ncfg, *_ = t_trainer.load_state_for_inference(path, device="cpu")
+    plain = t_views.make_fine_render_chunk(params, ncfg, compute_dtype=torch.bfloat16,
+                                           mlp_apply=orig)
+    np.testing.assert_array_equal(im, t_views.view_reconstruction(plain, o, d, chunk=64, seed=1))
+    assert im.shape == (12, 12, 3) and im.std() > 0
+    out = t_render.main(["-c", str(path), "-r", "100", "-p", "1", "-s", str(tmp_path / "o"),
+                         "--height", "8", "--width", "8", "--kernel", "pallas",
+                         "--device", "cpu"])
+    assert out == tmp_path / "o" / "epoch=1-360.gif" and out.stat().st_size > 0
+    assert t_rm.launches == 0
 
 
 def _imports(path):

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (the fused ray-march forward and backward)
-against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels (the fused ray-march forward and backward, the
+point-level MLP forward and backward) against their plain PyTorch versions,
+on a card.
 
 Marked ``cuda``: they skip without a card. This file imports neither JAX nor
 the JAX package, so it also runs where only PyTorch is installed:
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from minimal_nerf_torch.kernels import fused_raymarch as fr
+from minimal_nerf_torch.kernels import raymarch as rm
 from minimal_nerf_torch.models.mlp import init_nerf_mlp
 
 # the bounds of chip_smoke.py: every element |k - p| <= atol + rtol * |p|,
@@ -20,6 +22,12 @@ from minimal_nerf_torch.models.mlp import init_nerf_mlp
 # rounding of an activation (relative step 2^-8), which the element bound
 # admits and the mean bound keeps rare
 TOL = {None: (1e-5, 1e-4, 1e-5), torch.bfloat16: (3e-3, 3e-3, 1e-3)}
+# the point kernel, per output (sigma, rgb): chip_smoke.py's POINT_TOL. bf16
+# outputs are per point, with no compositing to average a flipped rounding
+# away, and sigma is linear in the 256 bf16-rounded h values (H100 readings
+# over 786k points: max 2.6e-2 sigma, 7.3e-3 rgb; here 9.6e-3 sigma)
+POINT_TOL = {None: (TOL[None], TOL[None]),
+             torch.bfloat16: ((6e-2, 1e-2, 1e-3), (2e-2, 3e-3, 1e-3))}
 # He-uniform weights: the outputs depend on the input, so a wrong layer shows
 HE_GAIN = np.sqrt(6.0)
 
@@ -27,9 +35,10 @@ HE_GAIN = np.sqrt(6.0)
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the fused kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     fr.launches = fr.bwd_launches = fr.wgrad_launches = 0
+    rm.launches = rm.bwd_launches = 0
     return torch.device("cuda")
 
 
@@ -187,7 +196,159 @@ def test_fused_pass_gradients_on_the_card(cuda_device):
     (color.square().sum() + weights.sum()).backward()
     fm = fr.prepare_fused_mlp(params, torch.bfloat16)
     pw, pb = fr.fused_backward_plain(fm, o, d, ts, 2 * color.detach(), torch.ones_like(ts))
-    want = fr.flatten_tree(fr.unflatten_mlp_grads(pw, pb))
+    want = fr.flatten_tree(rm.unflatten_mlp_grads(pw, pb))
     got = [t.grad for t in fr.flatten_tree(params)]
     assert _bwd_ok(_bwd_errors(got, want), BWD_TOL[torch.bfloat16])
     assert fr.launches == 1 and fr.bwd_launches == 1
+
+
+# ------------------------------------------------ point-level MLP kernels
+
+# P values: a multiple of neither tile (37*64 = 2368 is 18.5 bf16 tiles),
+# a few tiles and a ragged rest, one point
+POINT_SIZES = [37 * 64, 5 * 250, 1]
+
+
+def _points(seed, p, dev):
+    """Positions / pi of samples in the orbit's range (|x| < 4) and unit
+    directions, as nerf_mlp_kernel_apply hands them to the kernels."""
+    rng = np.random.default_rng(seed)
+    x = (rng.uniform(-4.0, 4.0, size=(p, 3)) / np.pi).astype(np.float32)
+    d = rng.normal(size=(p, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (x, d)]
+
+
+def _point_case(dev, dtype, p, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fm = fr.prepare_fused_mlp(init_nerf_mlp(g, device=dev, gain=HE_GAIN), dtype)
+    x, d = _points(seed + 5, p, dev)
+    rng = np.random.default_rng(seed + 6)
+    dsig = torch.from_numpy(rng.normal(size=(p, 1)).astype(np.float32)).to(dev)
+    drgb = torch.from_numpy(rng.normal(size=(p, 3)).astype(np.float32)).to(dev)
+    return fm, x, d, dsig, drgb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("p", POINT_SIZES)
+def test_point_kernel_matches_plain(cuda_device, dtype, p):
+    """The point forward kernel against ``points_forward_plain`` within
+    POINT_TOL (same MLP, same rounding points, other sum order)."""
+    fm, x, d, _, _ = _point_case(cuda_device, dtype, p)
+    rm.launches = 0
+    ks, kr = rm.points_forward(fm, x, d)
+    ps, pr = rm.points_forward_plain(fm, x, d)
+    torch.cuda.synchronize()
+    assert ks.shape == (p, 1) and kr.shape == (p, 3)
+    _assert_close(ks, ps, POINT_TOL[dtype][0])
+    _assert_close(kr, pr, POINT_TOL[dtype][1])
+    assert rm.launches == 1 and fr.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("layer", [2, 5, 10])  # trunk[2], skip concat, direction part
+def test_point_tolerance_rejects_a_faulty_layer(cuda_device, dtype, layer):
+    fm, x, d, _, _ = _point_case(cuda_device, dtype, 4096)
+    ps, pr = rm.points_forward_plain(fm, x, d)
+    ws = list(fm.ws)
+    ws[layer] = torch.zeros_like(ws[layer])
+    bs, br = rm.points_forward_plain(fm._replace(ws=ws), x, d)
+    pairs = [(bs, ps, POINT_TOL[dtype][0]), (br, pr, POINT_TOL[dtype][1])]
+    for bad, good, tol in pairs[1:] if layer == 10 else pairs:  # sigma ignores d
+        with pytest.raises(AssertionError):
+            _assert_close(bad, good, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("p", POINT_SIZES)
+def test_point_backward_kernel_matches_plain(cuda_device, dtype, p):
+    """The point backward kernel against ``points_backward_plain`` per leaf,
+    within the fused backward's bounds (BWD_TOL): the same reverse sweep and
+    weight products; the bias sums of the fp32 gradients are formed per tile
+    in the kernel and per column in the plain version."""
+    fm, x, d, dsig, drgb = _point_case(cuda_device, dtype, p)
+    rm.bwd_launches = 0
+    kw, kb = rm.points_backward(fm, x, d, dsig, drgb)
+    pw, pb = rm.points_backward_plain(fm, x, d, dsig, drgb)
+    torch.cuda.synchronize()
+    assert [k.shape for k in kw + kb] == [q.shape for q in pw + pb]
+    errs = _bwd_errors(kw + kb, pw + pb)
+    print(f"point bwd {dtype} p={p}: worst max {max(e[0] for e in errs):.3e} "
+          f"worst mean {max(e[1] for e in errs):.3e}")
+    assert _bwd_ok(errs, BWD_TOL[dtype]), errs
+    assert rm.bwd_launches == 1 and fr.bwd_launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_point_backward_kernel_is_deterministic(cuda_device, dtype):
+    fm, x, d, dsig, drgb = _point_case(cuda_device, dtype, 300 * 192 + 5, seed=1)
+    a = rm.points_backward(fm, x, d, dsig, drgb)
+    b = rm.points_backward(fm, x, d, dsig, drgb)
+    assert all(torch.equal(u, v) for u, v in zip(a[0] + a[1], b[0] + b[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_point_backward_bounds_reject_faults(cuda_device, dtype):
+    """Plain backwards with one fault each (the skip concat's encoding term
+    dropped, dsigma ignored) fail the bounds the kernel meets."""
+    fm, x, d, dsig, drgb = _point_case(cuda_device, dtype, 64 * 192)
+    good = rm.points_backward_plain(fm, x, d, dsig, drgb)
+    ws = list(fm.ws)
+    ws[5] = torch.zeros_like(ws[5])
+    bad_skip = rm.points_backward_plain(fm._replace(ws=ws), x, d, dsig, drgb)
+    bad_dsig = rm.points_backward_plain(fm, x, d, torch.zeros_like(dsig), drgb)
+    for bad in (bad_skip, bad_dsig):
+        assert not _bwd_ok(_bwd_errors(bad[0] + bad[1], good[0] + good[1]), BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_point_kernels_reject_bad_inputs(cuda_device):
+    fm, x, d, dsig, drgb = _point_case(cuda_device, torch.bfloat16, 64)
+    rm.launches = rm.bwd_launches = 0
+    with pytest.raises(ValueError):
+        rm.points_forward(fm, x.double(), d)
+    with pytest.raises(ValueError):
+        rm.points_forward(fm, x, d.t().contiguous().t())
+    with pytest.raises(ValueError):
+        rm.points_forward(fm, x, d[:10])
+    with pytest.raises(ValueError):
+        rm.points_forward(fm, x, d, 11, 4)  # 66 position channels > 64
+    with pytest.raises(ValueError):
+        rm.points_backward(fm, x, d, dsig[:10], drgb)
+    with pytest.raises(ValueError):
+        rm.points_backward(fm, x, d, dsig, drgb.t().contiguous().t())
+    cpu = fr.prepare_fused_mlp(init_nerf_mlp(torch.Generator().manual_seed(0), device="cpu"))
+    with pytest.raises(ValueError):
+        rm.points_forward(cpu, x, d)  # weights not packed on the card
+    assert rm.launches == 0 and rm.bwd_launches == 0
+
+
+@pytest.mark.cuda
+def test_point_mlp_gradients_on_the_card(cuda_device):
+    """``_PointsMLP`` on the card (through ``nerf_mlp_kernel_apply``) gives
+    the plain backward's gradients to the parameter tensors."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    params = init_nerf_mlp(g, device=cuda_device, gain=HE_GAIN)
+    for leaf in fr.flatten_tree(params):
+        leaf.requires_grad_(True)
+    x, d = _points(3, 50 * 64, cuda_device)
+    samples = (x * np.pi).reshape(50, 64, 3)
+    direc = d.reshape(50, 64, 3)[:, 0]
+    rm.launches = rm.bwd_launches = 0
+    sig, rgb = rm.nerf_mlp_kernel_apply(params, samples, direc, compute_dtype=torch.bfloat16)
+    (sig.square().sum() + rgb.sum()).backward()
+    fm = fr.prepare_fused_mlp(params, torch.bfloat16)
+    xp = (samples / np.pi).reshape(-1, 3)
+    dp = (direc / torch.linalg.norm(direc, dim=-1, keepdim=True))[:, None].expand(
+        50, 64, 3).reshape(-1, 3)
+    pw, pb = rm.points_backward_plain(fm, xp, dp, 2 * sig.detach().reshape(-1, 1),
+                                      torch.ones_like(rgb).reshape(-1, 3))
+    want = fr.flatten_tree(rm.unflatten_mlp_grads(pw, pb))
+    got = [t.grad for t in fr.flatten_tree(params)]
+    assert _bwd_ok(_bwd_errors(got, want), BWD_TOL[torch.bfloat16])
+    assert rm.launches == 1 and rm.bwd_launches == 1 and fr.launches == 0

@@ -14,6 +14,7 @@ import torch
 
 from minimal_nerf_torch.data import procedural as t_proc
 from minimal_nerf_torch.kernels import fused_raymarch as t_fused
+from minimal_nerf_torch.kernels import raymarch as t_rm
 from minimal_nerf_torch.models import mlp as t_mlp
 from minimal_nerf_torch.models import nerf as t_nerf
 from minimal_nerf_torch.ops import cameras as t_cam
@@ -22,6 +23,7 @@ from minimal_nerf_torch.training import loop as t_loop
 from minimal_nerf_torch.training.checkpoint import flatten_tree
 from minimal_nerf_tpu.data import procedural as j_proc
 from minimal_nerf_tpu.kernels import fused_raymarch as j_fused
+from minimal_nerf_tpu.kernels import raymarch as j_rm
 from minimal_nerf_tpu.models import mlp as j_mlp
 from minimal_nerf_tpu.models import nerf as j_nerf
 from minimal_nerf_tpu.ops import cameras as j_cam
@@ -145,6 +147,80 @@ def test_train_step_matches_jax():
         assert diff[near_zero].max(initial=0) <= 2 * lr
 
 
+def test_pallas_train_step_matches_jax():
+    """One step of the ``--kernel pallas`` path (the point kernels' MLP hook
+    under the plain render, ``kernel_hooks("pallas", "cpu")``) against JAX
+    ``nerf_loss`` + ``jax.value_and_grad`` + optax with
+    ``make_pallas_mlp_apply(interpret=True, differentiable=True)``: loss,
+    gradients, density metrics and the parameters after Adam on a shared
+    batch and shared draws, fp32 at position_dim 4 (as above)."""
+    jcfg = j_nerf.NeRFConfig(position_dim=4, direction_dim=2, coarse_samples=8, fine_samples=8)
+    tcfg = t_nerf.NeRFConfig(**jcfg.to_dict())
+    keys = jax.random.split(jax.random.PRNGKey(13))
+    jp = {k: _he(j_mlp.init_nerf_mlp(key, 4, 2, width=64, rgb_width=32))
+          for k, key in zip(("coarse", "fine"), keys)}
+    n = 8
+    rng = np.random.default_rng(14)
+    o = (rng.normal(size=(n, 3)) * 0.3).astype(np.float32)
+    d = (rng.normal(size=(n, 3)) - [0.0, 0.0, 2.0]).astype(np.float32)
+    rgb = rng.uniform(size=(n, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(15)
+    train = dict(start_lr=5e-4, end_lr=5e-5, lr_decay_epochs=10)
+
+    j_params = jax.tree_util.tree_map(jnp.asarray, jp)
+    mlp_apply = j_rm.make_pallas_mlp_apply(tile=64, interpret=True, differentiable=True)
+    (j_loss, j_metrics), j_grads = jax.value_and_grad(j_loop.nerf_loss, has_aux=True)(
+        j_params, jcfg, jnp.asarray(o), jnp.asarray(d), jnp.asarray(rgb), key,
+        mlp_apply=mlp_apply)
+    j_metrics = j_loop.finalize_metrics(j_metrics, j_grads, 1)
+    tx = j_loop.make_optimizer(j_config.TrainConfig(**train), 1)
+    updates, _ = tx.update(j_grads, tx.init(j_params), j_params)
+    j_after = optax.apply_updates(j_params, updates)
+
+    tp = t_mlp.params_from_jax(jp, "cpu")
+    mlp_hook, render_fn = t_loop.kernel_hooks("pallas", "cpu")
+    assert render_fn is t_nerf.render_rays
+    batch = {"origin": T(o), "direc": T(d), "rgb": T(rgb)}
+    metrics, grads = t_loop.loss_and_grads(tp, tcfg, batch, render_fn=render_fn,
+                                           uniforms=_jax_draws(key, n, jcfg), mlp_apply=mlp_hook)
+    t_loop.adam_update(tp, grads, t_loop.adam_init(tp),
+                       t_loop.make_lr_schedule(t_config.TrainConfig(**train), 1)(0))
+    metrics = t_loop.finalize_metrics(metrics, grads)
+
+    assert set(metrics) == set(j_metrics)
+    np.testing.assert_allclose(float(metrics["train_loss"]), float(j_loss), rtol=1e-5)
+    for name in ("coarse", "fine"):
+        # the norms of 64 / 128 fp32 densities, and the counts of non-zero ones
+        np.testing.assert_allclose(float(metrics[f"{name}_density_norms"]),
+                                   float(j_metrics[f"{name}_density_norms"]), rtol=1e-5)
+        assert float(metrics[f"{name}_density_non_zeros"]) == float(
+            j_metrics[f"{name}_density_non_zeros"]) > 0
+    # gradients per leaf relative to the leaf's max (fp32 sum orders differ)
+    for a, b in zip(flatten_tree(jax.device_get(j_grads)), flatten_tree(grads)):
+        assert np.abs(b.numpy() - a).max() <= 5e-5 * np.abs(a).max()
+    np.testing.assert_allclose(float(metrics["grad_2.0_norm_total"]),
+                               float(j_metrics["grad_2.0_norm_total"]), rtol=1e-5)
+    # Adam's first step: ~lr * sign(g); see test_train_step_matches_jax
+    lr = 5e-4
+    for a, b, g in zip(flatten_tree(jax.device_get(j_after)), flatten_tree(tp),
+                       flatten_tree(jax.device_get(j_grads))):
+        diff = np.abs(b.detach().numpy() - a)
+        near_zero = np.abs(g) < 1e-6
+        assert diff[~near_zero].max(initial=0) <= 1e-3 * lr
+        assert diff[near_zero].max(initial=0) <= 2 * lr
+
+
+def test_kernel_hooks():
+    mlp_apply, render_fn = t_loop.kernel_hooks("fused", "cpu")
+    assert mlp_apply is None and render_fn is not t_nerf.render_rays
+    for kernel, device in (("xla", "cuda"), ("auto", "cpu")):
+        assert t_loop.kernel_hooks(kernel, device) == (None, t_nerf.render_rays)
+    mlp_apply, render_fn = t_loop.kernel_hooks("auto", "cuda")
+    assert mlp_apply is None and render_fn is not t_nerf.render_rays
+    with pytest.raises(ValueError):
+        t_loop.kernel_hooks("triton", "cpu")
+
+
 def _tiny_scene(frames=5, hw=12):
     rng = np.random.default_rng(6)
     images = rng.integers(0, 256, size=(frames, hw, hw, 3), dtype=np.uint8)
@@ -179,11 +255,13 @@ def test_sample_train_batch_frames_crop_and_rays():
                                   images[b["frame"], ys, xs].astype(np.float32) / 255.0)
 
 
-@pytest.mark.parametrize("render", ["fused", "plain"])
+@pytest.mark.parametrize("render", ["fused", "plain", "pallas"])
 def test_make_train_step_runs_and_learns(render):
     """Five steps on a tiny procedural scene: finite metrics under the JAX
-    names, parameters and moments updated in place, the loss on a fixed
-    batch with fixed draws lower after the steps."""
+    names (the plain render, with or without the point kernels' hook,
+    reports the density metrics; the fused render has none, as in JAX),
+    parameters and moments updated in place, the loss on a fixed batch with
+    fixed draws lower after the steps."""
     cfg = t_nerf.NeRFConfig(position_dim=4, direction_dim=2, coarse_samples=8, fine_samples=8)
     scenes, _ = t_proc.make_procedural_scene((("train", 3),), height=10, width=10,
                                              gt_samples=16, scene="object", device="cpu")
@@ -195,7 +273,9 @@ def test_make_train_step_runs_and_learns(render):
     for mlp in params.values():
         mlp["density"]["b"] += 0.5
     render_fn = None if render == "fused" else t_nerf.render_rays
-    step_fn = t_loop.make_train_step(cfg, tcfg, static, render_fn=render_fn, device="cpu")
+    mlp_apply = t_rm.make_mlp_kernel_apply() if render == "pallas" else None
+    step_fn = t_loop.make_train_step(cfg, tcfg, static, render_fn=render_fn, device="cpu",
+                                     mlp_apply=mlp_apply)
     batch = t_loop.sample_train_batch(0, scene.images, scene.poses, static, 32, 3, 0, seed=0,
                                       generator=torch.Generator().manual_seed(1))
     u = torch.Generator().manual_seed(2)
@@ -205,7 +285,8 @@ def test_make_train_step_runs_and_learns(render):
     def fixed_loss():
         with torch.no_grad():
             return float(t_loop.nerf_loss(params, cfg, batch["origin"], batch["direc"],
-                                          batch["rgb"], render_fn=render_fn, uniforms=draws)[0])
+                                          batch["rgb"], render_fn=render_fn, uniforms=draws,
+                                          mlp_apply=mlp_apply)[0])
 
     before = fixed_loss()
     state = t_loop.adam_init(params)
@@ -213,12 +294,14 @@ def test_make_train_step_runs_and_learns(render):
     for step in range(5):
         out, state, metrics = step_fn(params, state, scene.images, scene.poses, step, 0)
         assert out is params
+    density = {f"{k}_density_{m}" for k in ("coarse", "fine") for m in ("norms", "non_zeros")}
     assert set(metrics) == {"train_loss", "train_coarse_loss", "train_fine_loss",
-                            "grad_2.0_norm_total", "lr"}
+                            "grad_2.0_norm_total", "lr"} | (set() if render == "fused" else density)
     assert all(np.isfinite(v.item()) for v in metrics.values())
     assert state["count"] == 5 and not torch.equal(first, flatten_tree(params)[0])
     assert fixed_loss() < before
     assert t_fused.launches == 0 and t_fused.bwd_launches == 0
+    assert t_rm.launches == 0 and t_rm.bwd_launches == 0
 
 
 @pytest.mark.parametrize("maker", ["random", "random_object"])
