@@ -3,11 +3,11 @@
     python3 chip_smoke.py
 
 Builds every kernel of the serving and training paths from the sources in
-the checkout (the fused ray-march forward and backward, and the point-level
-MLP forward and backward of the ``--kernel pallas`` path), holds each
-against its plain PyTorch version at the main paths' shapes (on weights
-whose outputs depend on the input, with bounds shown to reject faulty
-versions), then:
+the checkout (the fused ray-march forward and backward, the point-level MLP
+forward and backward of the ``--kernel pallas`` path, and the occupancy
+grid's probe), holds each against its plain PyTorch version at the main
+paths' shapes (on weights whose outputs depend on the input, with bounds
+shown to reject faulty versions; the probe's bits must be identical), then:
 
 - ``[main]`` renders two 800x800 orbit frames from a full-width checkpoint
   written by the port and checks that the forward kernel carried the render;
@@ -24,8 +24,17 @@ versions), then:
   kernel;
 - ``[pallas-reference]`` holds a small render and one train step of that
   path on the card against the CPU;
-- ``[profile]`` profiles one frame, one train step and one pallas train step
-  for the kernels' and the idle shares.
+- ``[train-occ]`` trains 100 full-width steps of the fast recipe
+  (occupancy-guided coarse sampling, 16 + 48 samples, the fused kernels and
+  the probe kernel) on from the ``[train]`` weights, checks the loss, the
+  grid updates, the occupied fraction and the launch counts, saves a
+  checkpoint with its grid and Adam state and renders two frames from it
+  through the grid, one with ``--ignore-occupancy``, and one through a grid
+  baked from the ``[train]`` checkpoint;
+- ``[occ-reference]`` holds one occupancy step on the card (grid update,
+  packed words, loss, gradients, Adam) against the same step on the CPU;
+- ``[profile]`` profiles one frame, one train step, one pallas train step
+  and one occupancy train step for the kernels' and the idle shares.
 
 Prints one line per phase, the card's name and power limit, a JSON line of
 kernel timings, and as its last line ``{"ok": true, "device": {...}}``.
@@ -45,7 +54,8 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ["fused_raymarch_fwd", "fused_raymarch_bwd", "raymarch_mlp_fwd", "raymarch_mlp_bwd"]
+KERNELS = ["fused_raymarch_fwd", "fused_raymarch_bwd", "raymarch_mlp_fwd", "raymarch_mlp_bwd",
+           "occupancy_probe"]
 RAYS = 4096
 SAMPLES = (64, 192)       # coarse pass, then the 64 + 128 sorted union
 HW = 800                  # frame height and width
@@ -87,28 +97,46 @@ SEP_MAX, SEP_MEAN = 3, 100
 def uncounted():
     """Launches inside do not count: the kernels' counts are restored after."""
     from minimal_nerf_torch.kernels import fused_raymarch as fr
+    from minimal_nerf_torch.kernels import occupancy_probe as op
     from minimal_nerf_torch.kernels import raymarch as rm
 
-    before = (fr.launches, fr.bwd_launches, fr.wgrad_launches, rm.launches, rm.bwd_launches)
+    before = (fr.launches, fr.bwd_launches, fr.wgrad_launches, rm.launches, rm.bwd_launches,
+              op.launches)
     try:
         yield
     finally:
-        fr.launches, fr.bwd_launches, fr.wgrad_launches, rm.launches, rm.bwd_launches = before
+        (fr.launches, fr.bwd_launches, fr.wgrad_launches, rm.launches, rm.bwd_launches,
+         op.launches) = before
 
 
 def counts():
-    """(fused forward, fused backward, point forward, point backward) launches."""
+    """(fused forward, fused backward, point forward, point backward, probe)
+    launches."""
     from minimal_nerf_torch.kernels import fused_raymarch as fr
+    from minimal_nerf_torch.kernels import occupancy_probe as op
     from minimal_nerf_torch.kernels import raymarch as rm
 
-    return fr.launches, fr.bwd_launches, rm.launches, rm.bwd_launches
+    return fr.launches, fr.bwd_launches, rm.launches, rm.bwd_launches, op.launches
 
 
 def reset_counts():
     from minimal_nerf_torch.kernels import fused_raymarch as fr
+    from minimal_nerf_torch.kernels import occupancy_probe as op
     from minimal_nerf_torch.kernels import raymarch as rm
 
     fr.launches = fr.bwd_launches = fr.wgrad_launches = rm.launches = rm.bwd_launches = 0
+    op.launches = 0
+
+
+@contextlib.contextmanager
+def wrapped(module, name: str, around):
+    """``module.name`` replaced by ``around(original)`` inside."""
+    orig = getattr(module, name)
+    setattr(module, name, around(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
 
 
 def card_line() -> str:
@@ -128,6 +156,26 @@ def cuda_ms(fn, warmup: int = 2, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 50) -> float:
+    """The device time of one call of ``fn``: the summed durations of the
+    device activity (kernels, copies, fills) that ``reps`` calls record
+    under ``torch.profiler``, over ``reps``. For calls so short that CUDA
+    events around back-to-back calls time the host's launch rate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with uncounted(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        raise AssertionError("the profiler recorded no device activity")
+    return sum(spans) / 1e3 / reps
 
 
 def macs_per_point(pd: int = 10, dd: int = 4, width: int = 256, rgb: int = 128) -> int:
@@ -289,6 +337,17 @@ BWD_TOL = {"fp32": (3e-3, 5e-4), "bf16": (3e-2, 2e-2)}
 # max 1.7e-3, mean 7.1e-4 of the leaf's max / mean; the bounds sit 2.8x
 # above them and >= 12x below every leaf's spread)
 POINT_BWD_TOL = {"fp32": (5e-3, 2e-3), "bf16": BWD_TOL["bf16"]}
+# the grid update, card vs CPU in bf16 (max |d|, mean |d|) as shares of the
+# grid's largest density, and the share of packed words that may differ
+# (cells whose density lies within a bf16 rounding flip of the threshold).
+# Another fp32 sum order flips the bf16 rounding of a few activations, which
+# moves a few cells' densities (H100 readings on the trained weights at
+# G=64: max 4.3e-4, mean 2.6e-8, 0 of 8,192 words, the same in every run).
+# The max bound is one bf16 step (2^-8) of the largest density, 9x above its
+# reading; the mean's admits ~600 such cells, 38x above; the words' admits
+# 8 words. An update in fp32 or with decay 1.0 fails them (checked).
+OCC_GRID_TOL = (4e-3, 1e-6)
+OCC_WORDS_TOL = 1e-3
 
 
 def bwd_errors(k, p):
@@ -545,6 +604,83 @@ def phase_kernel_mlp_bwd(dev, report):
         raise AssertionError("point backward kernel disagrees with its plain version")
 
 
+# the plain probe with one fault each; the kernel's bits must differ from
+# every one of them
+PROBE_FAULTS = {
+    "lin & 15 as the bit": lambda w, lin: (w[(lin >> 5).long()] >> (lin & 15)) & 1,
+    "lin >> 4 as the word": lambda w, lin: (w[(lin >> 4).long() % w.numel()] >> (lin & 31)) & 1,
+    "bits reversed in the word": lambda w, lin: (w[(lin >> 5).long()] >> (31 - (lin & 31))) & 1,
+}
+OCC_BINS = 64  # the occupancy config's num_bins: 4096 x 64 = 262,144 probes per chunk
+
+
+def random_words(n: int, gen, dev) -> torch.Tensor:
+    """``n`` int32 words with each bit set with probability 1/2."""
+    w = torch.randint(0, 2 ** 32, (n,), generator=gen, device=dev, dtype=torch.int64)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def phase_kernel_occ(dev, report):
+    """The occupancy probe kernel against ``probe_bits_plain`` at G=64 and
+    G=128: identical bits on the cells of 4096 orbit rays x 64 bins (by
+    ``query_bin_weights``' own index computation, ``bin_cells``), on a
+    ragged count and on one probe in every word; faulty plain versions must
+    differ; times at the main path's 262,144 probes (G=64)."""
+    from minimal_nerf_torch.kernels import occupancy_probe as op
+    from minimal_nerf_torch.ops import occupancy as occ
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    o, d, _ = sample_rays(RAYS, 1, gen, dev)
+    ok_all, worst = True, 0
+    for g in (64, 128):
+        cfg = occ.OccupancyConfig(resolution=g)
+        n_words = g ** 3 // 32
+        words = random_words(n_words, gen, dev)
+        lin, in_box = occ.bin_cells(o, d, cfg, OCC_BINS, 2.0, 6.0)
+        every = (torch.arange(n_words, dtype=torch.int32, device=dev) * 32
+                 + torch.randint(0, 32, (n_words,), generator=gen, device=dev, dtype=torch.int32))
+        cases = {f"{RAYS}x{OCC_BINS} orbit bins": lin,
+                 f"ragged {RAYS * OCC_BINS - 1}": lin.reshape(-1)[:RAYS * OCC_BINS - 1],
+                 f"every word ({n_words})": every}
+        msg, ok = [], True
+        for name, probes in cases.items():
+            k, p = op.probe_bits(words, probes), op.probe_bits_plain(words, probes)
+            bad = int((k != p).sum())
+            worst = max(worst, int((k - p).abs().max()))
+            ok &= bad == 0 and k.shape == probes.shape and k.dtype == torch.int32
+            msg.append(f"{name}: {bad} mismatches, {k.float().mean().item():.3f} set")
+        faults = {name: int((fault(words, lin) != op.probe_bits(words, lin)).sum())
+                  for name, fault in PROBE_FAULTS.items()}
+        ok &= all(m > 0 for m in faults.values())
+        ok_all &= ok
+        print(f"[kernel-occ] G={g} ({n_words} words, {in_box.float().mean().item():.3f} of the "
+              f"bins inside the grid's box): {'; '.join(msg)}; faulty plain versions' "
+              f"mismatches {faults} (each must be > 0) {'PASS' if ok else 'FAIL'}", flush=True)
+        if g == 64:
+            p_count = lin.numel()
+            kernel = lambda: op.probe_bits(words, lin)  # noqa: E731
+            plain = lambda: op.probe_bits_plain(words, lin)  # noqa: E731
+            # no single PyTorch call computes the function: the yardstick is
+            # the bare indexing expression (no range check), never used
+            lib = lambda: (words[(lin >> 5).long()] >> (lin & 31)) & 1  # noqa: E731
+            # device time per call (the calls are too short for events: CUDA
+            # events around back-to-back calls time the host instead, shown
+            # as call_ms)
+            ms, plain_ms, lib_ms = (device_ms(f) for f in (kernel, plain, lib))
+            call_ms = cuda_ms(kernel, warmup=10, reps=200)
+            # bytes: lin in and bits out (4 B each per probe), the table once
+            b_ms = 1e3 * (8 * p_count + 4 * n_words) / HBM_BYTES_PER_S
+            print(f"[kernel-occ] G=64 P={p_count}: device ms={ms:.5f} plain_ms={plain_ms:.5f} "
+                  f"library_ms={lib_ms:.5f} (indexing expression) bound_ms={b_ms:.5f} (bytes); "
+                  f"call_ms={call_ms:.5f} (CUDA events over 200 back-to-back wrapper calls)",
+                  flush=True)
+            report["occ"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                                 bound_by="bytes")
+    report["occ"]["err"] = worst
+    if not ok_all:
+        raise AssertionError("occupancy probe kernel disagrees with its plain version")
+
+
 def phase_main_path(dev, tmp: Path):
     from minimal_nerf_torch.kernels import fused_raymarch as fr
     from minimal_nerf_torch.models.nerf import NeRFConfig, init_nerf_network
@@ -597,9 +733,7 @@ def phase_reference(dev, ckpt: Path):
     gen = torch.Generator(device=dev).manual_seed(2)
     o, d, _ = sample_rays(n, 1, gen, dev)
     params, cfg, tcfg, _, _ = load_state_for_inference(ckpt, device=dev)
-    uniforms = {"coarse": torch.rand((n, cfg.coarse_samples), generator=gen, device=dev),
-                "eps": torch.rand((n, 1), generator=gen, device=dev),
-                "jitter": torch.rand((n, cfg.fine_samples, 1), generator=gen, device=dev)}
+    uniforms = train_uniforms(n, cfg, gen, dev)
     with uncounted():
         card = fr.render_rays_fused(params, cfg, o, d, compute_dtype=tcfg.compute_dtype,
                                     uniforms=uniforms)
@@ -726,43 +860,45 @@ def phase_train(dev, tmp: Path, scene):
           f"{want_r}) {'PASS' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("render from the trained checkpoint failed")
-    return dict(ms=ms, losses=losses, counts=counts, bias=bias), step_fn, params, state
+    return dict(ms=ms, losses=losses, counts=counts, bias=bias, ckpt=ckpt), step_fn, params, state
 
 
-def phase_train_reference(dev, scene, bias: float, kernel: str = "fused"):
-    """One train step on the card (kernels) against the same step on the
-    CPU (plain versions): shared weights, a 256-ray batch and shared draws,
-    full width, bf16, through the render hooks of ``kernel``."""
+def train_uniforms(n: int, cfg, gen, dev, occupancy: bool = False):
+    """Shared draws of one render: the coarse sampler's (uniform jitter, or
+    the occupancy sampler's eps and in-bin jitter) and the fine sampler's."""
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    coarse = (rand(n, 1), rand(n, cfg.coarse_samples)) if occupancy else rand(
+        n, cfg.coarse_samples)
+    return {"coarse": coarse, "eps": rand(n, 1), "jitter": rand(n, cfg.fine_samples, 1)}
+
+
+def hold_step(tag: str, dev, cfg, tcfg, kernel: str, params, batch, uniforms, want,
+              coarse_sampler=None, note: str = ""):
+    """One train step (loss and gradients through ``kernel``'s render hooks,
+    then Adam) on the card against the same step on the CPU (plain
+    versions), from copies of ``params`` on shared batch and draws.
+    ``coarse_sampler(device)`` gives each side's coarse sampler; ``want`` is
+    the card's launch counts (the CPU's must be none)."""
     from minimal_nerf_torch.models.mlp import map_params
-    from minimal_nerf_torch.models.nerf import NeRFConfig
     from minimal_nerf_torch.training import loop
     from minimal_nerf_torch.training.checkpoint import flatten_tree
-    from minimal_nerf_torch.training.config import TrainConfig
 
-    cfg, tcfg = NeRFConfig(), TrainConfig(kernel=kernel)
-    n = 256
-    gen = torch.Generator(device=dev).manual_seed(4)
-    batch = loop.sample_train_batch(0, scene.images, scene.poses, loop.scene_static(scene), n,
-                                    TRAIN_FRAMES, tcfg.cropping_epochs, 0, generator=gen)
-    batch = {k: batch[k] for k in ("origin", "direc", "rgb")}
-    uniforms = {"coarse": torch.rand((n, cfg.coarse_samples), generator=gen, device=dev),
-                "eps": torch.rand((n, 1), generator=gen, device=dev),
-                "jitter": torch.rand((n, cfg.fine_samples, 1), generator=gen, device=dev)}
     to_cpu = lambda tree: map_params(lambda t: t.detach().cpu(), tree)  # noqa: E731
     lr = loop.make_lr_schedule(tcfg, TRAIN_FRAMES)(0)
     results, ran = [], []
-    for device, params, b, u in (
-            (dev, init_train_params(dev, cfg, bias), batch, uniforms),
-            ("cpu", to_cpu(init_train_params(dev, cfg, bias)), to_cpu(batch), to_cpu(uniforms))):
+    for device, p, b, u in (
+            (dev, map_params(lambda t: t.detach().clone(), params), batch, uniforms),
+            ("cpu", to_cpu(params), to_cpu(batch), to_cpu(uniforms))):
         mlp_apply, render_fn = loop.kernel_hooks(kernel, device)
         with uncounted():
             before = counts()
-            metrics, grads = loop.loss_and_grads(params, cfg, b, tcfg.compute_dtype, render_fn,
-                                                 uniforms=u, mlp_apply=mlp_apply)
+            metrics, grads = loop.loss_and_grads(
+                p, cfg, b, tcfg.compute_dtype, render_fn, uniforms=u, mlp_apply=mlp_apply,
+                coarse_sampler=coarse_sampler(device) if coarse_sampler else None)
             ran.append(tuple(a - c for a, c in zip(counts(), before)))
-        loop.adam_update(params, grads, loop.adam_init(params), lr)
+        loop.adam_update(p, grads, loop.adam_init(p), lr)
         results.append((metrics["train_loss"].item(), flatten_tree(to_cpu(grads)),
-                        flatten_tree(to_cpu(params))))
+                        flatten_tree(to_cpu(p))))
     (card_loss, card_g, card_p), (cpu_loss, cpu_g, cpu_p) = results
     errs = bwd_errors(card_g, cpu_g)
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
@@ -774,22 +910,41 @@ def phase_train_reference(dev, scene, bias: float, kernel: str = "fused"):
     # gradients: the backward kernel's bf16 bounds; Adam's first step moves
     # each weight by lr * g / (|g| + eps), so a gradient near 0 may move the
     # two sides by up to 2 lr, while on average they agree far closer
+    ok = (loss_rel <= 1e-3 and bwd_within(errs, BWD_TOL["bf16"])
+          and p_max <= 2.0 * lr * 1.001 and p_mean <= 0.05 * lr
+          and ran == [want, (0,) * len(want)])
+    print(f"[{tag}] one step, {batch['origin'].shape[0]} rays, bf16, --kernel {kernel}{note}, "
+          f"card (kernels) vs CPU (plain), shared weights, batch and draws: launches (fused "
+          f"fwd, bwd, point fwd, bwd, probe) card {ran[0]} cpu {ran[1]} (want {want}, none); "
+          f"loss card {card_loss:.6f} cpu {cpu_loss:.6f} (rel {loss_rel:.2e}, tol 1e-3); "
+          f"gradients worst over the leaves max_rel={max(e[0] for e in errs):.3e} mean_rel="
+          f"{max(e[1] for e in errs):.3e} (bounds {BWD_TOL['bf16'][0]} / {BWD_TOL['bf16'][1]}); "
+          f"params after Adam max |d|={p_max:.3e} (tol 2 lr = {2 * lr:.1e}) mean |d|="
+          f"{p_mean:.3e} (tol 0.05 lr) {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"[{tag}] train step on the card disagrees with the CPU reference")
+
+
+def phase_train_reference(dev, scene, bias: float, kernel: str = "fused"):
+    """One train step on the card (kernels) against the same step on the
+    CPU (plain versions): shared weights, a 256-ray batch and shared draws,
+    full width, bf16, through the render hooks of ``kernel``."""
+    from minimal_nerf_torch.models.nerf import NeRFConfig
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    cfg, tcfg = NeRFConfig(), TrainConfig(kernel=kernel)
+    n = 256
+    gen = torch.Generator(device=dev).manual_seed(4)
+    batch = loop.sample_train_batch(0, scene.images, scene.poses, loop.scene_static(scene), n,
+                                    TRAIN_FRAMES, tcfg.cropping_epochs, 0, generator=gen)
+    batch = {k: batch[k] for k in ("origin", "direc", "rgb")}
     # the card's step went through this path's kernels (2 passes each way),
     # the CPU's through none
-    want = (2, 2, 0, 0) if kernel == "fused" else (0, 0, 2, 2)
-    ok = (loss_rel <= 1e-3 and bwd_within(errs, BWD_TOL["bf16"])
-          and p_max <= 2.0 * lr * 1.001 and p_mean <= 0.05 * lr and ran == [want, (0,) * 4])
-    tag = "train-reference" if kernel == "fused" else f"{kernel}-reference"
-    print(f"[{tag}] one step, {n} rays, bf16, --kernel {kernel}, card (kernels) vs CPU "
-          f"(plain), shared weights, batch and draws: launches (fused fwd, bwd, point fwd, "
-          f"bwd) card {ran[0]} cpu {ran[1]} (want {want}, none); loss card {card_loss:.6f} cpu "
-          f"{cpu_loss:.6f} (rel {loss_rel:.2e}, tol 1e-3); gradients worst over the leaves "
-          f"max_rel={max(e[0] for e in errs):.3e} mean_rel={max(e[1] for e in errs):.3e} (bounds "
-          f"{BWD_TOL['bf16'][0]} / {BWD_TOL['bf16'][1]}); params after Adam max |d|="
-          f"{p_max:.3e} (tol 2 lr = {2 * lr:.1e}) mean |d|={p_mean:.3e} (tol 0.05 lr) "
-          f"{'PASS' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        raise AssertionError(f"{kernel} train step on the card disagrees with the CPU reference")
+    want = (2, 2, 0, 0, 0) if kernel == "fused" else (0, 0, 2, 2, 0)
+    hold_step("train-reference" if kernel == "fused" else f"{kernel}-reference", dev, cfg, tcfg,
+              kernel, init_train_params(dev, cfg, bias), batch,
+              train_uniforms(n, cfg, gen, dev), want)
 
 
 def phase_train_pallas(dev, tmp: Path, scene, bias: float):
@@ -882,9 +1037,7 @@ def phase_pallas_reference(dev, scene, bias: float):
     cfg, n = NeRFConfig(), 256
     gen = torch.Generator(device=dev).manual_seed(7)
     o, d, _ = sample_rays(n, 1, gen, dev)
-    uniforms = {"coarse": torch.rand((n, cfg.coarse_samples), generator=gen, device=dev),
-                "eps": torch.rand((n, 1), generator=gen, device=dev),
-                "jitter": torch.rand((n, cfg.fine_samples, 1), generator=gen, device=dev)}
+    uniforms = train_uniforms(n, cfg, gen, dev)
     params = init_train_params(dev, cfg, bias)
     to_cpu = lambda tree: map_params(lambda t: t.cpu(), tree)  # noqa: E731
     with torch.no_grad(), uncounted():
@@ -896,7 +1049,8 @@ def phase_pallas_reference(dev, scene, bias: float):
                           mlp_apply=rm.make_mlp_kernel_apply(), uniforms=to_cpu(uniforms))
     # same weights, draws and rounding points: the kernel and the plain
     # version differ only in the order of fp32 sums (see TOL)
-    ok, msg = ran == (0, 0, 2, 0), [f"card launches (fused fwd, bwd, point fwd, bwd) {ran}"]
+    ok, msg = ran == (0, 0, 2, 0, 0), [f"card launches (fused fwd, bwd, point fwd, bwd, probe) "
+                                       f"{ran}"]
     for k in ("coarse_rgb_rays", "fine_rgb_rays"):
         diff = (card[k].cpu() - ref[k]).abs()
         ok &= bool(torch.isfinite(card[k]).all()) and diff.max().item() <= 1e-3
@@ -909,17 +1063,226 @@ def phase_pallas_reference(dev, scene, bias: float):
     phase_train_reference(dev, scene, bias, kernel="pallas")
 
 
+OCC_WARMUP = 32  # the fast recipe's 256 warmup steps, cut so 100 steps leave the warmup
+
+
+def render_counted(ckpt, dev, frames: int = 1, timed: bool = False, **options):
+    """Render ``frames`` 800x800 orbit frames from ``ckpt`` through
+    ``render_views``; returns the last frame, the launch counts of the
+    frames (``counts()`` order) and the ms of the last frame (with
+    ``timed``, the second of two frames and its own counts)."""
+    from minimal_nerf_torch.render import render_views
+
+    frames_iter = iter(render_views(str(ckpt), rays=RAYS, num_poses=frames + int(timed),
+                                    height=HW, width=HW, device=dev, **options))
+    if timed:
+        next(frames_iter)
+    before = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        frame = next(frames_iter)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / frames
+    return frame, tuple(a - b for a, b in zip(counts(), before)), ms
+
+
+def phase_train_occ(dev, tmp: Path, scene, start_params, uniform_ckpt: Path):
+    """100 full-width steps of the fast recipe (``TrainConfig(occupancy=True)``
+    at 16 coarse + 48 fine samples, bf16, ``--kernel auto`` -> fused, the
+    probe method ``auto`` -> the probe kernel; warmup cut to 32 steps) from
+    the weights ``[train]`` reached and a fresh Adam state and grid; a
+    checkpoint with its grid and Adam state, and frames rendered through its
+    grid, with ``--ignore-occupancy``, and through a grid baked from the
+    uniform ``[train]`` checkpoint.
+
+    From the seeded init the coarse net's density is positive almost
+    everywhere, and the grid's EMA (``max(0.9 ema, sigma)`` every 16 steps)
+    keeps every cell occupied for hundreds of steps after the field has
+    emptied: 100 steps from there would never show the grid guiding a
+    sample. The ``[train]`` weights' field is already sparse."""
+    from minimal_nerf_torch.kernels import fused_raymarch as fr
+    from minimal_nerf_torch.kernels import occupancy_probe as op
+    from minimal_nerf_torch.models.mlp import map_params
+    from minimal_nerf_torch.models.nerf import NeRFConfig
+    from minimal_nerf_torch.ops import occupancy as occ
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.checkpoint import (checkpoint_name, load_checkpoint,
+                                                        save_checkpoint)
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    cfg = NeRFConfig(coarse_samples=16, fine_samples=48)
+    tcfg = TrainConfig(occupancy=True, occ_warmup_steps=OCC_WARMUP)
+    occ_cfg = tcfg.occupancy_config
+    mlp_apply, render_fn = loop.kernel_hooks(tcfg.kernel, dev)
+    step_fn = loop.make_train_step(cfg, tcfg, loop.scene_static(scene), render_fn=render_fn,
+                                   device=dev, mlp_apply=mlp_apply, occupancy_cfg=occ_cfg)
+    copy = lambda: map_params(lambda t: t.detach().clone(), start_params)  # noqa: E731
+    params = copy()
+    with uncounted():  # warm-up
+        step_fn(params, loop.adam_init(params), occ.init_grid(occ_cfg, dev), scene.images,
+                scene.poses, 0, 0)
+    params = copy()
+    state, grid = loop.adam_init(params), occ.init_grid(occ_cfg, dev)
+
+    def live_share():
+        """The occupied share of the coarse net's density field as it is now
+        (one jittered probe per cell, no EMA)."""
+        sigma = occ.update_grid_ema(occ.init_grid(occ_cfg, dev), params, cfg.position_dim,
+                                    cfg.direction_dim, occ_cfg,
+                                    torch.Generator(device=dev).manual_seed(0),
+                                    compute_dtype=tcfg.compute_dtype)
+        return occ.occupancy_mask(sigma, occ_cfg).float().mean().item()
+
+    live_start = live_share()
+    updates = []
+    count_updates = lambda f: lambda *a, **k: updates.append(1) or f(*a, **k)  # noqa: E731
+    losses, fractions, times = [], [], []
+    with wrapped(occ, "update_grid_ema", count_updates):
+        reset_counts()
+        for step in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, grid, metrics = step_fn(params, state, grid, scene.images,
+                                                   scene.poses, step, 0)
+            losses.append(metrics["train_loss"].item())
+            times.append(time.perf_counter() - t0)
+            fractions.append(metrics["occ_fraction"].item())
+    launched = dict(fwd=fr.launches, bwd=fr.bwd_launches, wgrad=fr.wgrad_launches,
+                    probe=op.launches)
+    live_end = live_share()
+    ms = 1e3 * sorted(times)[len(times) // 2]
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    want_updates = len(range(0, TRAIN_STEPS, occ_cfg.update_every))
+    want = dict(fwd=2 * TRAIN_STEPS, bwd=2 * TRAIN_STEPS, wgrad=2 * TRAIN_STEPS, probe=TRAIN_STEPS)
+    ok = (all(math.isfinite(x) for x in losses) and last < first
+          and len(updates) == want_updates and launched == want
+          and all(f == 1.0 for f in fractions[:OCC_WARMUP]) and 0.0 < fractions[-1] < 1.0)
+    print(f"[train-occ] {TRAIN_STEPS} steps, {tcfg.num_rays} rays, {tcfg.precision}, "
+          f"{cfg.coarse_samples}+{cfg.fine_samples} samples, width 256/128, occupancy G="
+          f"{occ_cfg.resolution} (warmup {OCC_WARMUP} steps, cut from 256; an update every "
+          f"{occ_cfg.update_every}), --kernel {tcfg.kernel}, probe {occ_cfg.probe_method}: "
+          f"median ms/step={ms:.2f} rays/s={tcfg.num_rays / (ms / 1e3):.0f}; loss first "
+          f"{losses[0]:.5f} last {losses[-1]:.5f}, mean of first 10 {first:.5f} > last 10 "
+          f"{last:.5f}: {last < first}; grid updates {len(updates)} (want {want_updates}); "
+          f"occ_fraction {fractions[0]:.4f} at step 0, {fractions[OCC_WARMUP - 1]:.4f} at "
+          f"step {OCC_WARMUP - 1}, {fractions[OCC_WARMUP]:.4f} at step {OCC_WARMUP}, "
+          f"{fractions[-1]:.4f} at the end (want 1 in the warmup, strictly between 0 and 1 at "
+          f"the end; the live density field's occupied share {live_start:.4f} at the start, "
+          f"{live_end:.4f} at the end); launches {launched} (want {want}) "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("occupancy training did not run as expected")
+
+    ckpt = save_checkpoint(tmp / checkpoint_name("occ", TRAIN_STEPS // TRAIN_FRAMES, TRAIN_STEPS),
+                           params, TRAIN_STEPS, cfg.to_dict(), tcfg.to_dict(), opt_state=state,
+                           grid=grid)
+    header, leaves = load_checkpoint(ckpt)
+    saved_ok = (header["num_leaves"] == len(leaves) == 123 and int(leaves[1]) == TRAIN_STEPS
+                and leaves[0].shape == grid.shape and (leaves[0] == grid.cpu().numpy()).all())
+    chunks = math.ceil(HW * HW / RAYS)
+    frame, ran, ms_frame = render_counted(ckpt, dev, timed=True)
+    frame_ok = ran == (2 * chunks, 0, 0, 0, chunks)
+    frame_means = [float(frame.mean())]
+    for options, want_ran in (
+            (dict(ignore_occupancy=True), (2 * chunks, 0, 0, 0, 0)),
+            (dict(bake_occupancy=True, coarse=16, fine=48, ckpt=uniform_ckpt),
+             (2 * chunks, 0, 0, 0, chunks))):
+        other, other_ran, _ = render_counted(options.pop("ckpt", ckpt), dev, **options)
+        frame_ok &= other_ran == want_ran and other.shape == (HW, HW, 3)
+        frame_means.append(float(other.mean()))
+        ran += other_ran
+    ok = saved_ok and frame_ok and frame.shape == (HW, HW, 3) and str(frame.dtype) == "uint8"
+    print(f"[train-occ] checkpoint {ckpt.name}: {header['num_leaves']} leaves (want 123: the "
+          f"grid at leaf 0), Adam count {int(leaves[1])} (want {TRAIN_STEPS}); 2 frames "
+          f"{HW}x{HW} through its grid (--kernel auto): ms/frame={ms_frame:.1f} (the second) "
+          f"rays/s={HW * HW / (ms_frame / 1e3):.0f}, launches of the second (fused fwd, bwd, "
+          f"point fwd, bwd, probe) {ran[:5]} (want probe {chunks} = 1 per chunk, fused fwd "
+          f"{2 * chunks}); then one frame with --ignore-occupancy {ran[5:10]} (want probe 0) and "
+          f"one with --bake-occupancy -c 16 -f 48 from {uniform_ckpt.name} {ran[10:]}; frame "
+          f"means {[round(m, 2) for m in frame_means]} {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("render from the occupancy checkpoint failed")
+    return (dict(ms=ms, ms_frame=ms_frame, counts=launched, frame_probes=ran[4]), step_fn, params,
+            state, grid, cfg, tcfg)
+
+
+def phase_occ_reference(dev, scene, params, grid, cfg, tcfg):
+    """One occupancy step on the card against the same step on the CPU, on
+    the trained weights and grid of ``[train-occ]`` and shared draws: the
+    grid update (plain MLP in bf16) and its packed words, then loss,
+    gradients and Adam with the CPU's words on both sides. An update in fp32
+    and one with decay 1.0 must fail the grid's bounds."""
+    import dataclasses
+
+    from minimal_nerf_torch.models.mlp import map_params
+    from minimal_nerf_torch.ops import occupancy as occ
+    from minimal_nerf_torch.training import loop
+
+    occ_cfg = tcfg.occupancy_config
+    n, g = 256, occ_cfg.resolution
+    gen = torch.Generator(device=dev).manual_seed(9)
+    batch = loop.sample_train_batch(0, scene.images, scene.poses, loop.scene_static(scene), n,
+                                    TRAIN_FRAMES, tcfg.cropping_epochs, 0, generator=gen)
+    batch = {k: batch[k] for k in ("origin", "direc", "rgb")}
+    jitter = torch.rand((g ** 3, 3), generator=gen, device=dev)
+    cpu_p = map_params(lambda t: t.detach().cpu(), params)
+    want = occ.update_grid_ema(grid.cpu(), cpu_p, cfg.position_dim, cfg.direction_dim, occ_cfg,
+                               compute_dtype=tcfg.compute_dtype, jitter=jitter.cpu())
+    cpu_words = occ.pack_occupancy(want, occ_cfg)
+    scale = want.abs().max().item()
+
+    def held(ucfg, dtype):
+        """The card's update under ``ucfg`` in ``dtype`` against the CPU's:
+        (max |d|, mean |d|) as shares of the largest density, the share of
+        differing words, the cells of other occupancy, and whether all three
+        stay within their bounds."""
+        new = occ.update_grid_ema(grid, params, cfg.position_dim, cfg.direction_dim, ucfg,
+                                  compute_dtype=dtype, jitter=jitter).cpu()
+        diff = (new - want).abs()
+        words_differ = (occ.pack_occupancy(new, occ_cfg) != cpu_words).float().mean().item()
+        cells = int((occ.occupancy_mask(new, occ_cfg) != occ.occupancy_mask(want, occ_cfg)).sum())
+        errs = (diff.max().item() / scale, diff.mean().item() / scale, words_differ)
+        return errs, cells, (errs[0] <= OCC_GRID_TOL[0] and errs[1] <= OCC_GRID_TOL[1]
+                             and errs[2] <= OCC_WORDS_TOL)
+
+    errs, cells, ok = held(occ_cfg, tcfg.compute_dtype)
+    controls = {"fp32 update": held(occ_cfg, None),
+                "decay 1.0": held(dataclasses.replace(occ_cfg, decay=1.0), tcfg.compute_dtype)}
+    caught = not any(c[2] for c in controls.values())
+    fmt = lambda e: f"max {e[0]:.2e} mean {e[1]:.2e} words {e[2]:.2e}"  # noqa: E731
+    faulty = ", ".join(f"{k}: {fmt(c[0])}, {c[1]} cells" for k, c in controls.items())
+    print(f"[occ-reference] grid update at G={g} on the trained weights, bf16, card vs CPU, "
+          f"shared jitter, as shares of the largest density {scale:.3e}: {fmt(errs)} (bounds "
+          f"{OCC_GRID_TOL[0]} / {OCC_GRID_TOL[1]} / {OCC_WORDS_TOL}); cells of other occupancy "
+          f"{cells} of {g ** 3}; faulty updates {{{faulty}}} "
+          f"(each must fail a bound) {'PASS' if ok and caught else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("occupancy grid update on the card disagrees with the CPU")
+    if not caught:
+        raise AssertionError("a faulty occupancy grid update passed the bounds")
+    hold_step("occ-reference", dev, cfg, tcfg, "fused", params, batch,
+              train_uniforms(n, cfg, gen, dev, occupancy=True), (2, 2, 0, 0, 1),
+              coarse_sampler=lambda device: occ.make_occupancy_sampler(cpu_words.to(device),
+                                                                       occ_cfg),
+              note=", occupancy sampler on the CPU's words")
+
+
 FUSED_GROUPS = {"forward kernel": ("fused_fwd_kernel",),
                 "backward kernels": ("fused_bwd_kernel", "wgrad_", "reduce_slices")}
 POINT_GROUPS = {"point forward kernel": ("points_fwd_kernel",),
                 "point backward kernels": ("points_bwd_kernel", "wgrad_", "reduce_slices")}
 
 
+OCC_GROUPS = dict(FUSED_GROUPS, **{"probe kernel": ("probe_kernel",)})
+
+
 def profile_shares(label: str, fn, groups=FUSED_GROUPS):
     """Run ``fn`` under ``torch.profiler``: print each group of kernels'
     time and share of the wall time (the backward's split by kernel), other
     device work and the device's idle share (wall time covered by no device
-    activity). Fails when the profiler records no device activity."""
+    activity). Fails when the profiler records no device activity. Returns
+    the wall time and each group's device time (us)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -933,14 +1296,15 @@ def profile_shares(label: str, fn, groups=FUSED_GROUPS):
     if not spans:
         raise AssertionError(f"[profile] {label}: the profiler recorded no device activity")
     kernel_us = lambda key: sum(b - a for a, b, name in spans if key in name)  # noqa: E731
-    parts, kernels_us = [], 0.0
+    parts, kernels_us, group_us = [], 0.0, {}
     for group, keys in groups.items():
         each = [kernel_us(k) for k in keys]
         kernels_us += sum(each)
+        group_us[group] = sum(each)
         split = (" (" + ", ".join(f"{k.strip('_')} {u / 1e3:.2f}" for k, u in zip(keys, each))
                  + ")") if len(keys) > 1 else ""
-        parts.append(f"{group}={sum(each) / 1e3:.1f} ms ({100 * sum(each) / wall_us:.1f}% of "
-                     f"wall){split}")
+        parts.append(f"{group}={sum(each) / 1e3:.{3 if sum(each) < 1e3 else 1}f} ms "
+                     f"({100 * sum(each) / wall_us:.1f}% of wall){split}")
     busy_us, end = 0.0, -math.inf
     for a, b, _ in spans:  # union of the device intervals
         if b > end:
@@ -950,11 +1314,22 @@ def profile_shares(label: str, fn, groups=FUSED_GROUPS):
           f"busy={busy_us / 1e3:.1f} ms, {', '.join(parts)}, other device work="
           f"{(busy_us - kernels_us) / 1e3:.1f} ms, device idle share="
           f"{100 * (1 - busy_us / wall_us):.1f}%", flush=True)
+    return wall_us, group_us
 
 
-def phase_profile(ckpt: Path, dev, train_step, pallas_step):
-    """One more frame of the render path, one more train step, and one more
-    step of the pallas path."""
+def event_spans(events):
+    """The summed ms between recorded pairs of CUDA events."""
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events)
+
+
+def phase_profile(ckpt: Path, dev, train_step, pallas_step, occ_step):
+    """One more frame of the render path, one more train step, one more
+    step of the pallas path and one more occupancy step (one without a grid
+    update, as 15 of every 16 are); for the last, also the device span of
+    ``query_bin_weights`` (CUDA events around each call) and its share
+    beside the probe kernel's."""
+    from minimal_nerf_torch.ops import occupancy as occ
     from minimal_nerf_torch.render import render_views
 
     frames_iter = render_views(str(ckpt), rays=RAYS, num_poses=1, height=HW, width=HW,
@@ -962,6 +1337,28 @@ def phase_profile(ckpt: Path, dev, train_step, pallas_step):
     profile_shares(f"1 frame {HW}x{HW}", lambda: list(frames_iter))
     profile_shares(f"1 train step ({RAYS} rays)", train_step)
     profile_shares(f"1 pallas train step ({RAYS} rays)", pallas_step, POINT_GROUPS)
+    events = []
+
+    def timed(f):
+        def run(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = f(*args, **kwargs)
+            end.record()
+            events.append((start, end))
+            return out
+        return run
+
+    with wrapped(occ, "query_bin_weights", timed):
+        wall_us, group_us = profile_shares(f"1 occupancy train step ({RAYS} rays, 16+48)",
+                                           occ_step, OCC_GROUPS)
+    qbw_ms, probe_ms = event_spans(events), group_us["probe kernel"] / 1e3
+    wall_ms = wall_us / 1e3
+    print(f"[profile] that occupancy step's query_bin_weights: {len(events)} call(s), device "
+          f"span {qbw_ms:.3f} ms ({100 * qbw_ms / wall_ms:.1f}% of wall; CUDA events around the "
+          f"call): probe kernel {probe_ms:.3f} ms ({100 * probe_ms / wall_ms:.2f}% of wall), "
+          f"the rest of query_bin_weights {qbw_ms - probe_ms:.3f} ms "
+          f"({100 * (qbw_ms - probe_ms) / wall_ms:.1f}% of wall)", flush=True)
 
 
 def main() -> int:
@@ -992,6 +1389,7 @@ def main() -> int:
     phase_kernel_bwd(dev, report)
     phase_kernel_mlp(dev, report)
     phase_kernel_mlp_bwd(dev, report)
+    phase_kernel_occ(dev, report)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = phase_main_path(dev, Path(tmp))
         phase_reference(dev, ckpt)
@@ -1001,10 +1399,15 @@ def main() -> int:
         pallas, p_step_fn, p_params, p_state = phase_train_pallas(dev, Path(tmp), scene,
                                                                   train["bias"])
         phase_pallas_reference(dev, scene, train["bias"])
+        occ_train, o_step_fn, o_params, o_state, o_grid, o_cfg, o_tcfg = phase_train_occ(
+            dev, Path(tmp), scene, params, train["ckpt"])
+        phase_occ_reference(dev, scene, o_params, o_grid, o_cfg, o_tcfg)
         phase_profile(ckpt, dev,
                       lambda: step_fn(params, state, scene.images, scene.poses, TRAIN_STEPS, 0),
                       lambda: p_step_fn(p_params, p_state, scene.images, scene.poses,
-                                        TRAIN_STEPS, 0))
+                                        TRAIN_STEPS, 0),
+                      lambda: o_step_fn(o_params, o_state, o_grid, scene.images, scene.poses,
+                                        TRAIN_STEPS + 1, 0))
 
     def entry(name, replaces, shapes, launches):
         # one 4096-ray chunk or step of the main paths: S=64 and S=192, bf16
@@ -1027,6 +1430,10 @@ def main() -> int:
               [report[("mlp", "bf16", s)] for s in SAMPLES], pallas["counts"]["fwd"]),
         entry("raymarch_mlp_bwd", "minimal_nerf_tpu/kernels/raymarch.py:277",
               [report[("mlp-bwd", "bf16", s)] for s in SAMPLES], pallas["counts"]["bwd"]),
+        # one 4096-ray chunk or step's 4096 x 64 probes at G=64; launches in
+        # the 100 occupancy steps (one per step)
+        entry("occupancy_probe", "minimal_nerf_tpu/kernels/occupancy_probe.py:44",
+              [report["occ"]], occ_train["counts"]["probe"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -13,7 +13,10 @@ fused forward and backward kernels, Adam, the LR schedule) on in-memory and
 procedural scenes (``data/``); and the point-level path (``--kernel
 pallas``, ``kernels/raymarch.py``): the same render and train step with the
 plain render around hand-written point-level MLP forward and backward
-kernels (``training.loop.kernel_hooks``).
+kernels (``training.loop.kernel_hooks``); and occupancy-guided coarse
+sampling (``ops/occupancy.py``) for training and serving, its grid probe a
+hand-written kernel (``kernels/occupancy_probe.py``), with the grid and the
+Adam state kept in the checkpoint.
 """
 
 from __future__ import annotations

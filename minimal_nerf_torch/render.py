@@ -71,9 +71,10 @@ def main(argv=None) -> Path:
     parser.add_argument("--data-parallel", type=int, default=1,
                         help="shard each ray chunk over this many devices (not ported)")
     parser.add_argument("--ignore-occupancy", action="store_true",
-                        help="uniform coarse sampling for occupancy checkpoints (not ported)")
+                        help="uniform coarse sampling for occupancy checkpoints")
     parser.add_argument("--bake-occupancy", action="store_true",
-                        help="bake an occupancy grid from the densities (not ported)")
+                        help="bake an occupancy grid from the trained densities for a "
+                             "checkpoint without one")
     parser.add_argument("--coarse", type=int, default=0,
                         help="override coarse samples/ray (0 = checkpoint value)")
     parser.add_argument("--fine", type=int, default=0,

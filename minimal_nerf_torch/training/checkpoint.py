@@ -10,10 +10,13 @@ is a numpy ``.npz`` holding ``leaf_0 .. leaf_{L-1}`` plus a JSON
 - ``params``: ``coarse``/``fine`` -> ``density``, ``feature[0..2]``,
   ``rgb[0..1]``, ``trunk[0..3]``, each with ``b`` before ``w``.
 
-A default ``full`` checkpoint therefore has 2 + 3 * 40 = 122 leaves.
-``save_checkpoint`` writes zero moments and zero counts (the train step's
-Adam state is not saved yet); the file loads in the JAX package's
-``load_state_for_inference``.
+A default ``full`` checkpoint therefore has 2 + 3 * 40 = 122 leaves. An
+occupancy run keeps its density-EMA grid in the optimizer-state slot,
+``{"occ_ema": grid, "opt": adam}``: with sorted keys the grid is leaf 0 and
+the file has 123 leaves. ``save_checkpoint`` writes the train step's Adam
+state (``{"count", "mu", "nu"}``, the schedule's count equal to Adam's) or,
+without one, zero moments and counts; the file loads, and resumes, in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -55,23 +58,37 @@ def unflatten_tree(structure, leaves: List[Any]):
     return out
 
 
-def state_leaves(param_leaves: List[np.ndarray]) -> List[np.ndarray]:
-    """The full 3P+2 leaf list for ``param_leaves``, with a zero optimizer
-    state (Adam count, mu, nu, schedule count)."""
-    zeros = [np.zeros_like(p, dtype=np.float32) for p in param_leaves]
-    count = np.zeros((), np.int32)
-    return [count] + zeros + [z.copy() for z in zeros] + [count.copy()] + list(param_leaves)
+def _to_numpy(t) -> np.ndarray:
+    if hasattr(t, "detach"):
+        t = t.detach().float().cpu().numpy()
+    return np.asarray(t, dtype=np.float32)
+
+
+def state_leaves(param_leaves: List[np.ndarray], opt_state=None, grid=None) -> List[np.ndarray]:
+    """The full leaf list for ``param_leaves``: the grid (if any), the Adam
+    count, ``mu``, ``nu``, the schedule count, the params. Without
+    ``opt_state`` (``{"count", "mu", "nu"}``) the optimizer state is zero."""
+    if opt_state is None:
+        count = np.zeros((), np.int32)
+        mu = [np.zeros_like(p, dtype=np.float32) for p in param_leaves]
+        nu = [m.copy() for m in mu]
+    else:
+        count = np.asarray(int(opt_state["count"]), np.int32)
+        mu = [_to_numpy(m) for m in flatten_tree(opt_state["mu"])]
+        nu = [_to_numpy(v) for v in flatten_tree(opt_state["nu"])]
+    head = [] if grid is None else [_to_numpy(grid)]
+    return head + [count] + mu + nu + [count.copy()] + list(param_leaves)
 
 
 def save_checkpoint(path, params, step: int, nerf_config_dict: Dict[str, Any],
                     train_config_dict: Dict[str, Any],
-                    extra: Optional[Dict[str, Any]] = None) -> Path:
-    """Write ``params`` (a ``{"coarse", "fine"}`` tree of tensors or arrays)
-    in the JAX format, atomically via a temp file."""
+                    extra: Optional[Dict[str, Any]] = None, opt_state=None,
+                    grid=None) -> Path:
+    """Write ``params`` (a ``{"coarse", "fine"}`` tree of tensors or arrays),
+    the Adam state ``opt_state`` (zeros if None) and an occupancy run's
+    ``grid`` in the JAX format, atomically via a temp file."""
     path = Path(path)
-    params_np = [np.asarray(p.detach().float().cpu().numpy() if hasattr(p, "detach") else p,
-                            dtype=np.float32) for p in flatten_tree(params)]
-    leaves = state_leaves(params_np)
+    leaves = state_leaves([_to_numpy(p) for p in flatten_tree(params)], opt_state, grid)
     header = {
         "step": int(step),
         "nerf_config": nerf_config_dict,
@@ -112,25 +129,31 @@ def load_checkpoint(path) -> Tuple[Dict[str, Any], Dict[int, np.ndarray]]:
     return header, leaves
 
 
-def restore_params(header, leaves: Dict[int, np.ndarray], shapes_tree):
-    """The params tree from a checkpoint whose state is Adam + schedule over
-    a params tree shaped like ``shapes_tree`` (leaves are shape tuples).
+def restore_state(header, leaves: Dict[int, np.ndarray], shapes_tree, grid_shape=None):
+    """``(params, opt_state, grid)`` from a checkpoint whose state is Adam +
+    schedule over a params tree shaped like ``shapes_tree`` (leaves are shape
+    tuples), preceded by an occupancy grid of ``grid_shape`` if one is given.
 
-    Raises ``ValueError`` on any other layout: a different leaf count, or a
-    leaf whose shape does not match.
+    ``params`` and ``opt_state = {"count", "mu", "nu"}`` hold numpy arrays
+    in the params layout (``count`` an int); ``grid`` is None without
+    ``grid_shape``. Raises ``ValueError`` on any other layout: a different
+    leaf count, or a leaf whose shape does not match.
     """
     shapes = flatten_tree(shapes_tree)
     p = len(shapes)
-    expected = 3 * p + 2
-    if header.get("num_leaves") != expected or sorted(leaves) != list(range(expected)):
+    head = [] if grid_shape is None else [tuple(grid_shape)]
+    want = head + [()] + shapes + shapes + [()] + shapes
+    if header.get("num_leaves") != len(want) or sorted(leaves) != list(range(len(want))):
         raise ValueError(
-            f"checkpoint has {header.get('num_leaves')} leaves; a params tree of "
-            f"{p} leaves under Adam needs {expected}")
-    want = [()] + shapes + shapes + [()] + shapes
+            f"checkpoint has {header.get('num_leaves')} leaves; a params tree of {p} leaves "
+            f"under Adam{' with an occupancy grid' if head else ''} needs {len(want)}")
     for i, shape in enumerate(want):
         if tuple(leaves[i].shape) != tuple(shape):
             raise ValueError(f"leaf {i}: saved shape {leaves[i].shape} != expected {shape}")
-    return unflatten_tree(shapes_tree, [leaves[i] for i in range(2 * p + 2, expected)])
+    h = len(head)
+    tree = lambda lo: unflatten_tree(shapes_tree, [leaves[i] for i in range(lo, lo + p)])  # noqa: E731
+    opt_state = {"count": int(leaves[h]), "mu": tree(h + 1), "nu": tree(h + 1 + p)}
+    return tree(h + 2 + 2 * p), opt_state, (leaves[0] if head else None)
 
 
 def checkpoint_name(name: str, epoch: int, step: int) -> str:

@@ -36,7 +36,7 @@ class TrainConfig:
     # inference renders through the same one by default
     kernel: str = "auto"
     rng_impl: str = "threefry2x32"
-    # occupancy-grid sampling (not ported yet; loading such a run raises)
+    # occupancy-grid sampling (ops.occupancy.OccupancyConfig's fields)
     occupancy: bool = False
     occ_resolution: int = 64
     occ_bound: float = 3.2
@@ -62,6 +62,22 @@ class TrainConfig:
             # runs from before the relative threshold used the absolute cutoff
             kept["occ_rel_threshold"] = 0.0
         return cls(**kept)
+
+    @property
+    def occupancy_config(self):
+        """The ``ops.occupancy.OccupancyConfig`` this config describes, or None
+        when occupancy is off."""
+        if not self.occupancy:
+            return None
+        from minimal_nerf_torch.ops.occupancy import OccupancyConfig
+
+        return OccupancyConfig(
+            resolution=self.occ_resolution, bound=self.occ_bound,
+            threshold=self.occ_threshold, rel_threshold=self.occ_rel_threshold,
+            decay=self.occ_decay, update_every=self.occ_update_every,
+            warmup_steps=self.occ_warmup_steps, num_bins=self.occ_num_bins,
+            floor=self.occ_floor, in_bin_jitter=self.occ_in_bin_jitter,
+            grid_source=self.occ_grid_source, probe_method=self.occ_probe_method)
 
     @property
     def compute_dtype(self):

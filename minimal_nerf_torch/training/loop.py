@@ -1,12 +1,15 @@
 """The train step: batch sampling, hierarchical render, loss, Adam, LR.
 
 Counterpart of ``minimal_nerf_tpu/training/loop.py`` (single device; the
-multi-step scan, occupancy and data parallelism are not ported yet). PyTorch
-runs eagerly, so there is no ``jit``: ``make_train_step`` returns a plain
-function that samples a batch, renders it through the fused kernels (or the
-hooks of another ``--kernel``, ``kernel_hooks``), takes the gradients with
-autograd and applies Adam with optax's semantics IN PLACE on the parameter
-tensors.
+multi-step scan and data parallelism are not ported yet). PyTorch runs
+eagerly, so there is no ``jit``: ``make_train_step`` returns a plain function
+that samples a batch, renders it through the fused kernels (or the hooks of
+another ``--kernel``, ``kernel_hooks``), takes the gradients with autograd
+and applies Adam with optax's semantics IN PLACE on the parameter tensors.
+With an ``OccupancyConfig`` the step first updates the density-EMA grid (in
+place) and packs it (``occupancy_step_context``), and the loss samples its
+coarse points through the grid (``coarse_sampler`` of ``nerf_loss``, the
+counterpart of JAX's ``make_occupancy_loss``).
 
 Adam is written as plain functions over ``{"count", "mu", "nu"}`` with ``mu``
 and ``nu`` in the parameter tree's layout, the state optax keeps, so the
@@ -27,13 +30,15 @@ import torch
 from minimal_nerf_torch.data.synthetic import ray_batch_from_arrays
 from minimal_nerf_torch.models.mlp import map_params
 from minimal_nerf_torch.models.nerf import NeRFConfig
+from minimal_nerf_torch.ops import occupancy as occ
 from minimal_nerf_torch.training.checkpoint import flatten_tree, unflatten_tree
 from minimal_nerf_torch.training.config import TrainConfig
 
 Params = Dict[str, Any]
 
-# stream tags separating the generators derived from one seed
-_PERM_STREAM, _BATCH_STREAM, _RENDER_STREAM = 0x5EED, 1, 2
+# stream tags separating the generators derived from one seed; the grid
+# update's jitter has its own, so enabling occupancy perturbs no other draw
+_PERM_STREAM, _BATCH_STREAM, _RENDER_STREAM, _OCC_STREAM = 0x5EED, 1, 2, 0x0CC
 
 
 @dataclasses.dataclass
@@ -120,22 +125,26 @@ def finalize_metrics(metrics: Dict[str, torch.Tensor], grads: Params) -> Dict[st
 
 def nerf_loss(params: Params, nerf_cfg: NeRFConfig, o_rays, d_rays, rgb,
               generator: Optional[torch.Generator] = None, compute_dtype=None,
-              render_fn=None, uniforms=None,
-              mlp_apply=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+              render_fn=None, uniforms=None, mlp_apply=None,
+              coarse_sampler=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``MSE(coarse, gt) + MSE(fine, gt)`` (reference ``nerf_model.py:158-161``).
 
     ``render_fn`` is the hierarchical render (signature of
     ``models.nerf.render_rays``); ``mlp_apply`` is its MLP hook. With
     neither, the fused kernels' ``render_rays_fused``; with ``mlp_apply``
-    alone, ``models.nerf.render_rays``. ``uniforms`` replaces the draws. The
-    render's density statistics, where it has them, join the metrics.
+    alone, ``models.nerf.render_rays``. ``coarse_sampler`` overrides the
+    coarse sample placement (the occupancy sampler,
+    ``ops.occupancy.make_occupancy_sampler``). ``uniforms`` replaces the
+    draws. The render's density statistics, where it has them, join the
+    metrics.
     """
     from minimal_nerf_torch.kernels.fused_raymarch import render_rays_fused
     from minimal_nerf_torch.models.nerf import render_rays
 
     render = render_fn or (render_rays if mlp_apply is not None else render_rays_fused)
     out = render(params, nerf_cfg, o_rays, d_rays, generator, compute_dtype=compute_dtype,
-                 mlp_apply=mlp_apply, return_stats=True, uniforms=uniforms)
+                 mlp_apply=mlp_apply, return_stats=True, uniforms=uniforms,
+                 coarse_sampler=coarse_sampler)
     coarse_loss = torch.mean((out["coarse_rgb_rays"] - rgb) ** 2)
     fine_loss = torch.mean((out["fine_rgb_rays"] - rgb) ** 2)
     loss = coarse_loss + fine_loss
@@ -179,14 +188,15 @@ def sample_train_batch(step: int, images: torch.Tensor, poses: torch.Tensor,
 
 def loss_and_grads(params: Params, nerf_cfg: NeRFConfig, batch: Dict[str, Any],
                    compute_dtype=None, render_fn=None, generator=None, uniforms=None,
-                   mlp_apply=None):
+                   mlp_apply=None, coarse_sampler=None):
     """``(metrics, grads)`` of ``nerf_loss`` on one batch; the parameters'
     leaves are made to require gradients, and no ``.grad`` is written."""
     leaves = flatten_tree(params)
     for leaf in leaves:
         leaf.requires_grad_(True)
     loss, metrics = nerf_loss(params, nerf_cfg, batch["origin"], batch["direc"], batch["rgb"],
-                              generator, compute_dtype, render_fn, uniforms, mlp_apply)
+                              generator, compute_dtype, render_fn, uniforms, mlp_apply,
+                              coarse_sampler)
     grads = torch.autograd.grad(loss, leaves)
     return ({k: v.detach() for k, v in metrics.items()},
             unflatten_tree(params, list(grads)))
@@ -217,8 +227,35 @@ def kernel_hooks(kernel: str, device="cuda") -> Tuple[Optional[Callable], Callab
     raise ValueError(f"unknown kernel {kernel!r}")
 
 
+def occupancy_step_context(occupancy_cfg, nerf_cfg: NeRFConfig, compute_dtype, params: Params,
+                           grid: torch.Tensor, step: int, seed: int,
+                           jitter: Optional[torch.Tensor] = None):
+    """The occupancy work of one step before its render (JAX
+    ``_occ_step_context``).
+
+    At ``step % update_every == 0`` the density EMA is updated IN PLACE in
+    ``grid`` from ``params`` as they stand before this step's Adam update,
+    through the plain MLP in the compute dtype with no gradient, whatever
+    kernel the step renders through; its jitter comes from the occupancy
+    stream of ``(seed, step)`` unless ``jitter [G^3, 3]`` is given. Then the
+    grid is packed, every cell forced occupied while ``step < warmup_steps``.
+    Returns ``(occ_words, occ_fraction)``; the fraction is the packed mask's
+    mean (JAX counts the words' set bits: the same number).
+    """
+    if step % occupancy_cfg.update_every == 0:
+        gen = None if jitter is not None else step_generator(seed, step, _OCC_STREAM,
+                                                             grid.device)
+        grid.copy_(occ.update_grid_ema(grid, params, nerf_cfg.position_dim,
+                                       nerf_cfg.direction_dim, occupancy_cfg, gen,
+                                       compute_dtype=compute_dtype, jitter=jitter))
+    warm = step < occupancy_cfg.warmup_steps
+    words = occ.pack_occupancy(grid, occupancy_cfg, force_all=warm)
+    return words, occ.occupancy_mask(grid, occupancy_cfg, warm).float().mean()
+
+
 def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
-                    render_fn=None, device="cuda", mlp_apply=None) -> Callable:
+                    render_fn=None, device="cuda", mlp_apply=None,
+                    occupancy_cfg=None) -> Callable:
     """The train step ``step_fn(params, opt_state, images, poses, step, seed)
     -> (params, opt_state, metrics)``.
 
@@ -229,6 +266,12 @@ def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
     moments are updated IN PLACE (the returned ``params`` is the same tree).
     Metrics are device scalars under the JAX names plus ``lr`` (no host
     sync).
+
+    With ``occupancy_cfg`` (``ops.occupancy.OccupancyConfig``) the step is
+    ``step_fn(params, opt_state, grid, images, poses, step, seed) ->
+    (params, opt_state, grid, metrics)``: ``occupancy_step_context`` updates
+    the ``[G, G, G]`` grid in place and packs it, the coarse samples follow
+    the packed grid, and the metrics gain ``occ_fraction``.
     """
     from minimal_nerf_torch import resolve_device
     from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
@@ -239,14 +282,25 @@ def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
     lr_sched = make_lr_schedule(train_cfg, steps_per_epoch)
     render = render_fn or (render_rays if mlp_apply is not None else make_fused_render_fn())
 
-    def step_fn(params, opt_state, images, poses, step: int, seed: int):
+    def step_fn(params, opt_state, images, poses, step: int, seed: int, coarse_sampler=None):
         batch = sample_train_batch(step, images, poses, static, train_cfg.num_rays,
                                    steps_per_epoch, train_cfg.cropping_epochs, seed,
                                    generator=step_generator(seed, step, _BATCH_STREAM, dev))
         metrics, grads = loss_and_grads(
             params, nerf_cfg, batch, train_cfg.compute_dtype, render,
-            generator=step_generator(seed, step, _RENDER_STREAM, dev), mlp_apply=mlp_apply)
+            generator=step_generator(seed, step, _RENDER_STREAM, dev), mlp_apply=mlp_apply,
+            coarse_sampler=coarse_sampler)
         opt_state = adam_update(params, grads, opt_state, lr_sched(opt_state["count"]))
         return params, opt_state, dict(finalize_metrics(metrics, grads), lr=lr_sched(step))
 
-    return step_fn
+    if occupancy_cfg is None:
+        return step_fn
+
+    def occ_step_fn(params, opt_state, grid, images, poses, step: int, seed: int):
+        words, occ_fraction = occupancy_step_context(
+            occupancy_cfg, nerf_cfg, train_cfg.compute_dtype, params, grid, step, seed)
+        params, opt_state, metrics = step_fn(params, opt_state, images, poses, step, seed,
+                                             occ.make_occupancy_sampler(words, occupancy_cfg))
+        return params, opt_state, grid, dict(metrics, occ_fraction=occ_fraction)
+
+    return occ_step_fn

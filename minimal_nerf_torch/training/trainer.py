@@ -3,9 +3,9 @@
 Counterpart of ``load_state_for_inference`` in
 ``minimal_nerf_tpu/training/trainer.py``. The trainer itself (epochs,
 validation, save and resume) is not ported yet; the train step is
-``training/loop.py``. Only full coarse + fine checkpoints without an
-occupancy grid load here; any other layout raises rather than being guessed
-at.
+``training/loop.py``. Full coarse + fine checkpoints load here, with the
+density-EMA grid of an occupancy run; any other layout raises rather than
+being guessed at.
 """
 
 from __future__ import annotations
@@ -22,8 +22,11 @@ from minimal_nerf_torch.training.config import TrainConfig
 def load_state_for_inference(ckpt_path, device="cuda"):
     """``(params, nerf_cfg, train_cfg, grid, step)`` of a checkpoint.
 
-    ``params`` are fp32 tensors on ``device``; ``grid`` is always None until
-    occupancy sampling is ported (ROADMAP Queue 1 item 4, occupancy).
+    ``params`` are fp32 tensors on ``device``; ``grid`` is an occupancy
+    run's ``[G, G, G]`` density EMA (fp32 on ``device``), else None. ``step``
+    is the save step: a checkpoint saved inside the occupancy warmup trained
+    with every cell forced occupied, and inference packs its grid the same
+    way.
     """
     dev = resolve_device(device)
     header, leaves = ckpt_lib.load_checkpoint(ckpt_path)
@@ -34,11 +37,12 @@ def load_state_for_inference(ckpt_path, device="cuda"):
         raise NotImplementedError(
             f"checkpoint mode {mode!r}: only 'full' coarse+fine checkpoints load in "
             "the port so far (ROADMAP Queue 1 item 6, single/simple modes)")
-    if train_cfg.occupancy:
-        raise NotImplementedError(
-            "occupancy-trained checkpoint: the occupancy grid is not ported yet "
-            "(ROADMAP Queue 1 item 4, occupancy)")
+    occ_cfg = train_cfg.occupancy_config
+    grid_shape = (occ_cfg.resolution,) * 3 if occ_cfg is not None else None
     mlp = nerf_mlp_shapes(nerf_cfg.position_dim, nerf_cfg.direction_dim)
-    params = ckpt_lib.restore_params(header, leaves, {"coarse": mlp, "fine": mlp})
-    params = map_params(lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev), params)
-    return params, nerf_cfg, train_cfg, None, int(header["step"])
+    params, _, grid = ckpt_lib.restore_state(header, leaves, {"coarse": mlp, "fine": mlp},
+                                             grid_shape)
+    to_dev = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)  # noqa: E731
+    params = map_params(to_dev, params)
+    return params, nerf_cfg, train_cfg, None if grid is None else to_dev(grid), \
+        int(header["step"])

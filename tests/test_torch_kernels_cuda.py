@@ -1,6 +1,6 @@
 """The port's CUDA kernels (the fused ray-march forward and backward, the
-point-level MLP forward and backward) against their plain PyTorch versions,
-on a card.
+point-level MLP forward and backward, the occupancy probe) against their
+plain PyTorch versions, on a card.
 
 Marked ``cuda``: they skip without a card. This file imports neither JAX nor
 the JAX package, so it also runs where only PyTorch is installed:
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from minimal_nerf_torch.kernels import fused_raymarch as fr
+from minimal_nerf_torch.kernels import occupancy_probe as op
 from minimal_nerf_torch.kernels import raymarch as rm
 from minimal_nerf_torch.models.mlp import init_nerf_mlp
 
@@ -39,6 +40,7 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     fr.launches = fr.bwd_launches = fr.wgrad_launches = 0
     rm.launches = rm.bwd_launches = 0
+    op.launches = 0
     return torch.device("cuda")
 
 
@@ -352,3 +354,75 @@ def test_point_mlp_gradients_on_the_card(cuda_device):
     got = [t.grad for t in fr.flatten_tree(params)]
     assert _bwd_ok(_bwd_errors(got, want), BWD_TOL[torch.bfloat16])
     assert rm.launches == 1 and rm.bwd_launches == 1 and fr.launches == 0
+
+
+def _probe_inputs(seed, g, p, dev):
+    """Words with about half of the bits set and ``p`` indices over every
+    cell of a G^3 grid, int32 on ``dev``."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2 ** 32, size=g ** 3 // 32, dtype=np.uint32).view(np.int32)
+    lin = rng.integers(0, g ** 3, size=p, dtype=np.int32)
+    lin[: g ** 3 // 32] = np.arange(0, g ** 3, 32) + rng.integers(0, 32, size=g ** 3 // 32)
+    return torch.from_numpy(words).to(dev), torch.from_numpy(lin).to(dev)
+
+
+# the plain probe with one fault each; the kernel's bits must differ from
+# every one of them
+PROBE_FAULTS = {
+    "lin & 15": lambda w, lin: (w[(lin >> 5).long()] >> (lin & 15)) & 1,
+    "lin >> 4 as the word": lambda w, lin: (w[(lin >> 4).long() % w.numel()] >> (lin & 31)) & 1,
+    "bits reversed": lambda w, lin: (w[(lin >> 5).long()] >> (31 - (lin & 31))) & 1,
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [64, 128])
+@pytest.mark.parametrize("p", [262144, 262143, 5])
+def test_probe_kernel_matches_plain(cuda_device, g, p):
+    """Identical bits at G=64 and G=128, at the main path's 4096 x 64
+    probes (every word probed), a ragged count and a tiny one."""
+    words, lin = _probe_inputs(g + p, g, max(p, g ** 3 // 32), cuda_device)
+    lin = lin[:p].contiguous() if p < lin.numel() else lin
+    got = op.probe_bits(words, lin)
+    want = op.probe_bits_plain(words, lin)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == lin.shape
+    assert torch.equal(got, want)
+    assert p < 1000 or 0.4 < got.float().mean().item() < 0.6  # half of the bits set
+    assert op.launches == 1
+
+
+@pytest.mark.cuda
+def test_probe_kernel_shapes_unaligned_and_out_of_range(cuda_device):
+    """Any shape of ``lin``; a view starting 4 bytes into its storage (the
+    kernel's scalar path); indices outside the table give 0."""
+    words, lin = _probe_inputs(3, 16, 4097, cuda_device)
+    shaped = lin[:4096].reshape(64, 64)
+    assert torch.equal(op.probe_bits(words, shaped), op.probe_bits_plain(words, shaped))
+    unaligned = lin[1:]
+    assert unaligned.data_ptr() % 16 != 0
+    assert torch.equal(op.probe_bits(words, unaligned), op.probe_bits_plain(words, unaligned))
+    full = torch.full((4,), -1, dtype=torch.int32, device=cuda_device)
+    bad = torch.tensor([-1, -33, 0, 127, 128, 4096, 2 ** 31 - 1], dtype=torch.int32,
+                       device=cuda_device)
+    assert op.probe_bits(full, bad).tolist() == [0, 0, 1, 1, 0, 0, 0]
+    assert op.launches == 3
+
+
+@pytest.mark.cuda
+def test_probe_kernel_differs_from_faulty_plain_versions(cuda_device):
+    words, lin = _probe_inputs(5, 64, 4096 * 64, cuda_device)
+    got = op.probe_bits(words, lin)
+    for name, fault in PROBE_FAULTS.items():
+        mismatches = int((fault(words, lin) != got).sum())
+        assert mismatches > 1000, name
+
+
+@pytest.mark.cuda
+def test_probe_kernel_rejects_bad_inputs(cuda_device):
+    words, lin = _probe_inputs(6, 16, 256, cuda_device)
+    for bad_words, bad_lin in ((words.long(), lin), (words, lin.long()), (words.cpu(), lin),
+                               (words, lin.reshape(16, 16).t())):
+        with pytest.raises(ValueError):
+            op.probe_bits(bad_words, bad_lin)
+    assert op.launches == 0

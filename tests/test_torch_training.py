@@ -5,6 +5,8 @@ both sides; the JAX render runs its Pallas kernels in interpret mode. On
 the CPU the port runs its kernels' plain versions.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,10 +16,12 @@ import torch
 
 from minimal_nerf_torch.data import procedural as t_proc
 from minimal_nerf_torch.kernels import fused_raymarch as t_fused
+from minimal_nerf_torch.kernels import occupancy_probe as t_probe
 from minimal_nerf_torch.kernels import raymarch as t_rm
 from minimal_nerf_torch.models import mlp as t_mlp
 from minimal_nerf_torch.models import nerf as t_nerf
 from minimal_nerf_torch.ops import cameras as t_cam
+from minimal_nerf_torch.ops import occupancy as t_occ
 from minimal_nerf_torch.training import config as t_config
 from minimal_nerf_torch.training import loop as t_loop
 from minimal_nerf_torch.training.checkpoint import flatten_tree
@@ -27,6 +31,7 @@ from minimal_nerf_tpu.kernels import raymarch as j_rm
 from minimal_nerf_tpu.models import mlp as j_mlp
 from minimal_nerf_tpu.models import nerf as j_nerf
 from minimal_nerf_tpu.ops import cameras as j_cam
+from minimal_nerf_tpu.ops import occupancy as j_occ
 from minimal_nerf_tpu.training import config as j_config
 from minimal_nerf_tpu.training import loop as j_loop
 
@@ -91,6 +96,28 @@ def _jax_draws(key, n, cfg):
             "jitter": u(k_jit, (n, cfg.fine_samples, 1))}
 
 
+def _assert_step_matches(metrics, grads, tp, j_loss, j_grads, j_after, lr=5e-4):
+    """Loss, gradients, their global norm and the parameters after the first
+    Adam step of the port (``metrics``, ``grads``, ``tp``) against JAX."""
+    np.testing.assert_allclose(float(metrics["train_loss"]), float(j_loss), rtol=1e-5)
+    # gradients per leaf relative to the leaf's max (fp32 sum orders differ)
+    for a, b in zip(flatten_tree(jax.device_get(j_grads)), flatten_tree(grads)):
+        assert np.abs(b.numpy() - a).max() <= 5e-5 * np.abs(a).max()
+    np.testing.assert_allclose(float(metrics["grad_2.0_norm_total"]),
+                               float(optax.global_norm(j_grads)), rtol=1e-5)
+    # the first Adam step moves each weight by lr * g / (|g| + eps): ~lr *
+    # sign(g), where a 5e-5 gradient difference moves it by < 1e-3 * lr. Only
+    # where |g| is within a few eps of 0 can the two steps differ by up to
+    # 2 * lr (one element of the 4096 of trunk[1] here; the many exact zeros
+    # of dead ReLU units move neither side).
+    for a, b, g in zip(flatten_tree(jax.device_get(j_after)), flatten_tree(tp),
+                       flatten_tree(jax.device_get(j_grads))):
+        diff = np.abs(b.detach().numpy() - a)
+        near_zero = np.abs(g) < 1e-6
+        assert diff[~near_zero].max(initial=0) <= 1e-3 * lr
+        assert diff[near_zero].max(initial=0) <= 2 * lr
+
+
 def test_train_step_matches_jax():
     """Loss, gradients, the parameters after Adam and the LR of one step on
     a shared batch and shared draws, fp32 (position_dim 4: see
@@ -127,24 +154,7 @@ def test_train_step_matches_jax():
     t_loop.adam_update(tp, grads, t_loop.adam_init(tp), t_sched(0))
     metrics = t_loop.finalize_metrics(metrics, grads)
 
-    np.testing.assert_allclose(float(metrics["train_loss"]), float(j_loss), rtol=1e-5)
-    # gradients per leaf relative to the leaf's max (fp32 sum orders differ)
-    for a, b in zip(flatten_tree(jax.device_get(j_grads)), flatten_tree(grads)):
-        assert np.abs(b.numpy() - a).max() <= 5e-5 * np.abs(a).max()
-    np.testing.assert_allclose(float(metrics["grad_2.0_norm_total"]),
-                               float(optax.global_norm(j_grads)), rtol=1e-5)
-    # the first Adam step moves each weight by lr * g / (|g| + eps): ~lr *
-    # sign(g), where a 5e-5 gradient difference moves it by < 1e-3 * lr. Only
-    # where |g| is within a few eps of 0 can the two steps differ by up to
-    # 2 * lr (one element of the 4096 of trunk[1] here; the many exact zeros
-    # of dead ReLU units move neither side).
-    lr = 5e-4
-    for a, b, g in zip(flatten_tree(jax.device_get(j_after)), flatten_tree(tp),
-                       flatten_tree(jax.device_get(j_grads))):
-        diff = np.abs(b.detach().numpy() - a)
-        near_zero = np.abs(g) < 1e-6
-        assert diff[~near_zero].max(initial=0) <= 1e-3 * lr
-        assert diff[near_zero].max(initial=0) <= 2 * lr
+    _assert_step_matches(metrics, grads, tp, j_loss, j_grads, j_after)
 
 
 def test_pallas_train_step_matches_jax():
@@ -188,26 +198,13 @@ def test_pallas_train_step_matches_jax():
     metrics = t_loop.finalize_metrics(metrics, grads)
 
     assert set(metrics) == set(j_metrics)
-    np.testing.assert_allclose(float(metrics["train_loss"]), float(j_loss), rtol=1e-5)
+    _assert_step_matches(metrics, grads, tp, j_loss, j_grads, j_after)
     for name in ("coarse", "fine"):
         # the norms of 64 / 128 fp32 densities, and the counts of non-zero ones
         np.testing.assert_allclose(float(metrics[f"{name}_density_norms"]),
                                    float(j_metrics[f"{name}_density_norms"]), rtol=1e-5)
         assert float(metrics[f"{name}_density_non_zeros"]) == float(
             j_metrics[f"{name}_density_non_zeros"]) > 0
-    # gradients per leaf relative to the leaf's max (fp32 sum orders differ)
-    for a, b in zip(flatten_tree(jax.device_get(j_grads)), flatten_tree(grads)):
-        assert np.abs(b.numpy() - a).max() <= 5e-5 * np.abs(a).max()
-    np.testing.assert_allclose(float(metrics["grad_2.0_norm_total"]),
-                               float(j_metrics["grad_2.0_norm_total"]), rtol=1e-5)
-    # Adam's first step: ~lr * sign(g); see test_train_step_matches_jax
-    lr = 5e-4
-    for a, b, g in zip(flatten_tree(jax.device_get(j_after)), flatten_tree(tp),
-                       flatten_tree(jax.device_get(j_grads))):
-        diff = np.abs(b.detach().numpy() - a)
-        near_zero = np.abs(g) < 1e-6
-        assert diff[~near_zero].max(initial=0) <= 1e-3 * lr
-        assert diff[near_zero].max(initial=0) <= 2 * lr
 
 
 def test_kernel_hooks():
@@ -219,6 +216,147 @@ def test_kernel_hooks():
     assert mlp_apply is None and render_fn is not t_nerf.render_rays
     with pytest.raises(ValueError):
         t_loop.kernel_hooks("triton", "cpu")
+
+
+def _orbit_rays(seed, n):
+    """Rays from a sphere of radius 4 toward the origin: their bins cross
+    the occupancy grid's box ``[-3.2, 3.2]^3`` and leave it."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3))
+    o = (4.0 * o / np.linalg.norm(o, axis=1, keepdims=True)).astype(np.float32)
+    d = (-o / 4.0 + 0.1 * rng.normal(size=(n, 3))).astype(np.float32)
+    return o, d, rng.uniform(size=(n, 3)).astype(np.float32)
+
+
+def _jax_occ_draws(key, n, cfg):
+    """The uniforms JAX's render draws from ``key`` under the occupancy
+    sampler: its eps and in-bin jitter split from the coarse key."""
+    k_coarse, k_cdf = jax.random.split(key)
+    k_occ_eps, k_frac = jax.random.split(k_coarse)
+    k_eps, k_jit = jax.random.split(k_cdf)
+    u = lambda k, shape: T(jax.random.uniform(k, shape, dtype=jnp.float32))  # noqa: E731
+    return {"coarse": (u(k_occ_eps, (n, 1)), u(k_frac, (n, cfg.coarse_samples))),
+            "eps": u(k_eps, (n, 1)), "jitter": u(k_jit, (n, cfg.fine_samples, 1))}
+
+
+@pytest.mark.parametrize("case", ["fused", "warmup", "pallas"])
+def test_occupancy_train_step_matches_jax(case):
+    """One occupancy step against JAX's pieces of
+    ``make_train_step(..., occupancy_cfg=...)``: ``_occ_step_context`` (the
+    EMA update on the jitter of the occupancy stream, the packed words, the
+    occupied fraction) and the ``make_occupancy_loss`` loss over the fused
+    render (``fused``; ``warmup``: every cell forced occupied) or the point
+    kernels' hook (``pallas``), then optax's Adam; shared weights, batch and
+    draws, fp32 at position_dim 4 (see test_train_step_matches_jax). The
+    grid within 1e-5 of its largest value (fp32 sum orders), the words and
+    the fraction exact."""
+    jcfg = j_nerf.NeRFConfig(position_dim=4, direction_dim=2, coarse_samples=8, fine_samples=8)
+    tcfg = t_nerf.NeRFConfig(**jcfg.to_dict())
+    keys = jax.random.split(jax.random.PRNGKey(23))
+    jp = {k: _he(j_mlp.init_nerf_mlp(key, 4, 2, width=64, rgb_width=32))
+          for k, key in zip(("coarse", "fine"), keys)}
+    n, g, step = 8, 8, 4
+    o, d, rgb = _orbit_rays(24, n)
+    occ_kw = dict(resolution=g, update_every=4, num_bins=16,
+                  warmup_steps=8 if case == "warmup" else 0)
+    j_occ_cfg, t_occ_cfg = j_occ.OccupancyConfig(**occ_kw), t_occ.OccupancyConfig(**occ_kw)
+    grid0 = np.random.default_rng(25).uniform(0, 0.02, (g, g, g)).astype(np.float32)
+    step_key, render_key = jax.random.PRNGKey(26), jax.random.PRNGKey(27)
+    train = dict(start_lr=5e-4, end_lr=5e-5, lr_decay_epochs=10)
+
+    j_params = jax.tree_util.tree_map(jnp.asarray, jp)
+    j_grid, j_words, j_frac = j_loop._occ_step_context(
+        j_occ_cfg, jcfg, None, j_params, jnp.asarray(grid0), jnp.int32(step), step_key)
+    if case == "pallas":
+        mlp_apply = j_rm.make_pallas_mlp_apply(tile=64, interpret=True, differentiable=True)
+        base = j_loop.nerf_loss
+    else:
+        mlp_apply = None
+        base = functools.partial(j_loop.nerf_loss, render_fn=j_fused.make_fused_render_fn(
+            ray_tile=8, interpret=True))
+    loss_fn = j_loop.make_occupancy_loss(j_occ_cfg, base_loss_fn=base)
+    (j_loss, _), j_grads = jax.value_and_grad(loss_fn, has_aux=True)(
+        j_params, jcfg, jnp.asarray(o), jnp.asarray(d), jnp.asarray(rgb), render_key, None,
+        mlp_apply, j_words)
+    tx = j_loop.make_optimizer(j_config.TrainConfig(**train), 1)
+    updates, _ = tx.update(j_grads, tx.init(j_params), j_params)
+    j_after = optax.apply_updates(j_params, updates)
+
+    tp = t_mlp.params_from_jax(jp, "cpu")
+    grid = T(grid0)
+    jitter = T(jax.random.uniform(jax.random.fold_in(step_key, 0x0CC), (g ** 3, 3)))
+    words, frac = t_loop.occupancy_step_context(t_occ_cfg, tcfg, None, tp, grid, step, 0,
+                                                jitter=jitter)
+    j_grid = np.asarray(j_grid)
+    assert np.abs(grid.numpy() - j_grid).max() <= 1e-5 * j_grid.max()
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), np.asarray(j_words))
+    assert float(frac) == float(j_frac)
+    if case == "warmup":
+        assert float(frac) == 1.0
+    else:
+        assert 0.1 < float(frac) < 0.9
+    mlp_hook, render_fn = t_loop.kernel_hooks("pallas" if case == "pallas" else "fused", "cpu")
+    batch = {"origin": T(o), "direc": T(d), "rgb": T(rgb)}
+    metrics, grads = t_loop.loss_and_grads(
+        tp, tcfg, batch, render_fn=render_fn, uniforms=_jax_occ_draws(render_key, n, jcfg),
+        mlp_apply=mlp_hook, coarse_sampler=t_occ.make_occupancy_sampler(words, t_occ_cfg))
+    t_loop.adam_update(tp, grads, t_loop.adam_init(tp),
+                       t_loop.make_lr_schedule(t_config.TrainConfig(**train), 1)(0))
+    _assert_step_matches(t_loop.finalize_metrics(metrics, grads), grads, tp, j_loss, j_grads,
+                         j_after)
+
+
+@pytest.mark.parametrize("kernel", ["fused", "pallas", "xla"])
+def test_make_train_step_with_occupancy_runs_and_learns(kernel):
+    """Six occupancy steps on a tiny procedural scene under each of
+    ``kernel_hooks``' choices: the grid updated in place at steps 0, 2 and 4
+    only, every cell occupied during the 2 warmup steps, ``occ_fraction``
+    among the metrics, the loss on a fixed batch lower after the steps, no
+    kernel launched on the CPU."""
+    cfg = t_nerf.NeRFConfig(position_dim=4, direction_dim=2, coarse_samples=8, fine_samples=8)
+    scenes, _ = t_proc.make_procedural_scene((("train", 3),), height=10, width=10,
+                                             gt_samples=16, scene="object", device="cpu")
+    scene = scenes["train"]
+    tcfg = t_config.TrainConfig(num_rays=32, precision="fp32", cropping_epochs=0,
+                                start_lr=5e-3, occupancy=True, occ_resolution=8,
+                                occ_update_every=2, occ_warmup_steps=2, occ_num_bins=16)
+    occ_cfg = tcfg.occupancy_config
+    params = t_nerf.init_nerf_network(torch.Generator().manual_seed(0), cfg, device="cpu")
+    for mlp in params.values():
+        mlp["density"]["b"] += 0.5
+    mlp_apply, render_fn = t_loop.kernel_hooks(kernel, "cpu")
+    step_fn = t_loop.make_train_step(cfg, tcfg, t_loop.scene_static(scene), render_fn=render_fn,
+                                     device="cpu", mlp_apply=mlp_apply, occupancy_cfg=occ_cfg)
+    batch = t_loop.sample_train_batch(0, scene.images, scene.poses, t_loop.scene_static(scene),
+                                      32, 3, 0, seed=0, generator=torch.Generator().manual_seed(1))
+    u = torch.Generator().manual_seed(2)
+    draws = {"coarse": torch.rand((32, 8), generator=u), "eps": torch.rand((32, 1), generator=u),
+             "jitter": torch.rand((32, 8, 1), generator=u)}
+
+    def fixed_loss():
+        with torch.no_grad():
+            return float(t_loop.nerf_loss(params, cfg, batch["origin"], batch["direc"],
+                                          batch["rgb"], render_fn=render_fn, uniforms=draws,
+                                          mlp_apply=mlp_apply)[0])
+
+    before = fixed_loss()
+    grid = t_occ.init_grid(occ_cfg, "cpu")
+    state = t_loop.adam_init(params)
+    t_probe.launches = 0
+    fractions, changed = [], []
+    for step in range(6):
+        prev = grid.clone()
+        out, state, out_grid, metrics = step_fn(params, state, grid, scene.images, scene.poses,
+                                                step, 0)
+        assert out is params and out_grid is grid
+        changed.append(not torch.equal(prev, grid))
+        fractions.append(float(metrics["occ_fraction"]))
+    assert changed == [True, False, True, False, True, False]
+    assert fractions[:2] == [1.0, 1.0] and all(0.0 <= f <= 1.0 for f in fractions)
+    assert {"train_loss", "grad_2.0_norm_total", "lr", "occ_fraction"} <= set(metrics)
+    assert all(np.isfinite(v.item()) for v in metrics.values())
+    assert state["count"] == 6 and fixed_loss() < before
+    assert t_fused.launches == t_fused.bwd_launches == t_rm.launches == t_probe.launches == 0
 
 
 def _tiny_scene(frames=5, hw=12):
