@@ -12,6 +12,8 @@ shown to reject faulty versions; the probe's bits must be identical), then:
 - ``[main]`` renders two 800x800 orbit frames from a full-width checkpoint
   written by the port and checks that the forward kernel carried the render;
 - ``[reference]`` holds a small render on the card against the CPU;
+- ``[render-cli]`` runs the render CLI (``render.main``) for 2 poses at
+  64x64 and walks the blocks of the gif it writes;
 - ``[train]`` trains 100 full-width steps on a procedural scene made on the
   card, checks the loss falls and the kernels' launch counts, saves a
   checkpoint and renders a frame from it;
@@ -158,24 +160,63 @@ def cuda_ms(fn, warmup: int = 2, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 50) -> float:
-    """The device time of one call of ``fn``: the summed durations of the
-    device activity (kernels, copies, fills) that ``reps`` calls record
-    under ``torch.profiler``, over ``reps``. For calls so short that CUDA
-    events around back-to-back calls time the host's launch rate."""
+def device_spans(fn, reps: int, tries: int = 3):
+    """(name, µs) of the device activity (kernels, copies, fills) that
+    ``reps`` calls of ``fn`` record under ``torch.profiler``, after one
+    call outside it. The profiler now and then records no device activity
+    at all; such a capture is taken again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with uncounted(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not spans:
-        raise AssertionError("the profiler recorded no device activity")
-    return sum(spans) / 1e3 / reps
+    for _ in range(tries):
+        with uncounted(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            return spans
+    raise AssertionError(f"the profiler recorded no device activity in {tries} captures")
+
+
+def device_ms(fn, reps: int = 50) -> float:
+    """The device time of one call of ``fn``: the summed durations of its
+    device activity over ``reps`` calls, over ``reps``. For calls so short
+    that CUDA events around back-to-back calls time the host's launch
+    rate."""
+    return sum(us for _, us in device_spans(fn, reps)) / 1e3 / reps
+
+
+def device_split(fn, keys, reps: int = 3):
+    """The device time of one call of ``fn`` by kernel: for each key, the
+    summed durations of the device activity whose name contains it, over
+    ``reps`` calls, over ``reps`` (ms)."""
+    spans = device_spans(fn, reps)
+    return {k: sum(us for name, us in spans if any(x in name for x in key)) / 1e3 / reps
+            for k, key in keys.items()}
+
+
+# the backwards' three parts by kernel name: A (per ray group or point
+# tile), B (the weight products, and the fused backward's bias sums), R (the
+# fixed-order sums of the slices' products and of the rows of bias sums)
+BWD_PARTS = {"fused": {"A": ("fused_bwd_kernel",), "B": ("wgrad_",),
+                       "R": ("reduce_slices", "reduce_rows")},
+             "point": {"A": ("points_bwd_kernel",), "B": ("wgrad_",),
+                       "R": ("reduce_slices", "reduce_rows")}}
+SCRATCH_CHANNELS = 3944   # the backwards' scratch channels per point
+MASK_BYTES = 52 * 4       # the fused backward's ReLU mask bits per point
+
+
+def scratch_floor(points: int, elem: int, masks: bool):
+    """(bytes of scratch a backward writes and reads again per call, their
+    least time in ms at HBM_BYTES_PER_S): each byte written once and read
+    once."""
+    per_point = SCRATCH_CHANNELS * elem + (MASK_BYTES if masks else 0)
+    total = 2 * points * per_point
+    return total, 1e3 * total / HBM_BYTES_PER_S
 
 
 def macs_per_point(pd: int = 10, dd: int = 4, width: int = 256, rgb: int = 128) -> int:
@@ -448,12 +489,14 @@ def phase_kernel_bwd(dev, report):
                 if bwd_within(bwd_errors(bw + bb, plain[0] + plain[1]), tol):
                     missed.append(name)
             ms = cuda_ms(lambda: fr.fused_backward(*args), warmup=1, reps=3)
+            parts = device_split(lambda: fr.fused_backward(*args), BWD_PARTS["fused"])
             plain_ms = cuda_ms(lambda: fr.fused_backward_plain(*args), warmup=1, reps=3)
             lib_ms = cuda_ms(library_bwd_chain(fm, RAYS, s, dev), warmup=1, reps=3)
             io = RAYS * 3 * 3 + RAYS * s * (2 if dw is not None else 1) + sum(
                 w.numel() for w in fm.ws + fm.bs)
             b_ms, b_by = bound_ms(fm, RAYS, s, PEAK_BF16 if dtype else PEAK_FP32,
                                   macs=bwd_macs_per_point(), io_floats=io)
+            sc_bytes, floor_ms = scratch_floor(RAYS * s, 2 if dtype else 4, masks=True)
             ok = within and same and not missed
             ok_all &= ok
             print(f"[kernel-bwd] {prec} N={RAYS} S={s} "
@@ -464,8 +507,10 @@ def phase_kernel_bwd(dev, report):
                   f"element bound >= {min(x for x, _ in seps):.2f}x, over the mean bound >= "
                   f"{min(y for _, y in seps):.1f}x; two launches bit-identical: {same}; "
                   f"faulty plain versions passed: {missed or 'none'}; ms={ms:.4f} "
+                  f"(device A={parts['A']:.4f} B={parts['B']:.4f} R={parts['R']:.4f}) "
                   f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} "
-                  f"({b_by}) {'PASS' if ok else 'FAIL'}", flush=True)
+                  f"({b_by}); scratch and masks {sc_bytes / 1e9:.3f} GB written and read, "
+                  f"byte floor {floor_ms:.4f} ms {'PASS' if ok else 'FAIL'}", flush=True)
             report[("bwd", prec, s)] = dict(err=max(e[2] for e in errs), ms=ms,
                                             plain_ms=plain_ms, library_ms=lib_ms,
                                             bound_ms=b_ms, bound_by=b_by)
@@ -578,12 +623,14 @@ def phase_kernel_mlp_bwd(dev, report):
                                                             drgb)))
                 if bwd_within(bwd_errors(bad[0] + bad[1], plain[0] + plain[1]), tol)]
             ms = cuda_ms(lambda: rm.points_backward(*args), warmup=1, reps=3)
+            parts = device_split(lambda: rm.points_backward(*args), BWD_PARTS["point"])
             plain_ms = cuda_ms(lambda: rm.points_backward_plain(*args), warmup=1, reps=3)
             lib_ms = cuda_ms(library_bwd_chain(fm, RAYS, s, dev), warmup=1, reps=3)
             # bytes: x, d, dsig, drgb in, the 22 gradients out
             io = RAYS * s * 10 + sum(w.numel() for w in fm.ws + fm.bs)
             b_ms, b_by = bound_ms(fm, RAYS, s, PEAK_BF16 if dtype else PEAK_FP32,
                                   macs=bwd_macs_per_point(), io_floats=io)
+            sc_bytes, floor_ms = scratch_floor(RAYS * s, 2 if dtype else 4, masks=False)
             ok = within and same and not missed
             ok_all &= ok
             print(f"[kernel-mlp-bwd] {prec} P={RAYS}x{s}: 22 leaves, worst over the leaves "
@@ -592,9 +639,11 @@ def phase_kernel_mlp_bwd(dev, report):
                   f"worst max_rel={max(e[0] for e in errs[12:]):.3e}; leaf spread (std) over the "
                   f"element bound >= {min(a for a, _ in seps):.2f}x, over the mean bound >= "
                   f"{min(b for _, b in seps):.1f}x; two launches bit-identical: {same}; faulty "
-                  f"plain versions passed: {missed or 'none'}; ms={ms:.4f} plain_ms="
-                  f"{plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-                  f"{'PASS' if ok else 'FAIL'}", flush=True)
+                  f"plain versions passed: {missed or 'none'}; ms={ms:.4f} (device A="
+                  f"{parts['A']:.4f} B={parts['B']:.4f} R={parts['R']:.4f}) plain_ms="
+                  f"{plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); "
+                  f"scratch {sc_bytes / 1e9:.3f} GB written and read, byte floor "
+                  f"{floor_ms:.4f} ms {'PASS' if ok else 'FAIL'}", flush=True)
             report[("mlp-bwd", prec, s)] = dict(err=max(e[2] for e in errs), ms=ms,
                                                 plain_ms=plain_ms, library_ms=lib_ms,
                                                 bound_ms=b_ms, bound_by=b_by)
@@ -752,6 +801,108 @@ def phase_reference(dev, ckpt: Path):
           f"{'; '.join(msg)} (tol 1e-3) {'PASS' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("card render disagrees with the CPU reference")
+
+
+def gif_blocks(data: bytes):
+    """Walk a GIF89a file's blocks: ``(width, height, [(delay cs, loop or
+    None, (left, top, w, h, local table entries, LZW bytes)) ...], trailer
+    seen)``, one entry per image. Raises on a malformed block."""
+    if data[:6] != b"GIF89a":
+        raise AssertionError(f"not a GIF89a header: {data[:6]!r}")
+    w, h = int.from_bytes(data[6:8], "little"), int.from_bytes(data[8:10], "little")
+    packed = data[10]
+    pos = 13 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+
+    def sub_blocks(pos):
+        n = 0
+        while data[pos]:
+            n += data[pos]
+            pos += data[pos] + 1
+        return pos + 1, n
+
+    images, delay, loop = [], None, None
+    while pos < len(data):
+        tag = data[pos]
+        if tag == 0x3B:
+            return w, h, images, loop, pos == len(data) - 1
+        if tag == 0x21:
+            label = data[pos + 1]
+            if label == 0xF9:
+                delay = int.from_bytes(data[pos + 4:pos + 6], "little")
+            if label == 0xFF and data[pos + 3:pos + 14] == b"NETSCAPE2.0":
+                loop = int.from_bytes(data[pos + 16:pos + 18], "little")
+            # an application block's 11-byte identifier, then its sub-blocks
+            start = pos + 3 + data[pos + 2] if label == 0xFF else pos + 2
+            pos, _ = sub_blocks(start)
+        elif tag == 0x2C:
+            left, top, iw, ih = (int.from_bytes(data[pos + k:pos + k + 2], "little")
+                                 for k in (1, 3, 5, 7))
+            ipacked = data[pos + 9]
+            entries = 2 << (ipacked & 7) if ipacked & 0x80 else 0
+            pos, n = sub_blocks(pos + 10 + 3 * entries + 1)
+            images.append((delay, (left, top, iw, ih, entries, n)))
+        else:
+            raise AssertionError(f"unknown GIF block 0x{tag:02x} at byte {pos}")
+    raise AssertionError("no GIF trailer")
+
+
+@contextlib.contextmanager
+def hidden_modules(*names):
+    """Inside, ``import`` of each named module raises ImportError, as on a
+    machine without it."""
+    saved = {name: sys.modules.get(name) for name in names}
+    try:
+        sys.modules.update({name: None for name in names})
+        yield
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+
+
+def phase_render_cli(dev, ckpt: Path, tmp: Path):
+    """``python -m minimal_nerf_torch.render`` as a user calls it, on the
+    card: 2 poses at 64x64 from the ``[main]`` checkpoint through
+    ``render.main``, which writes ``{save_dir}/{epoch}-360.gif`` with
+    whatever image package the machine has, else the port's own GIF
+    writer; once as the machine is and once with imageio and PIL hidden,
+    each file's blocks walked."""
+    from minimal_nerf_torch import render
+    from minimal_nerf_torch.kernels import fused_raymarch as fr
+    from minimal_nerf_torch.utils import imageio as mio
+
+    poses, size = 2, 64
+    want_launches = poses * math.ceil(size * size / RAYS) * 2
+    for packages, context in (("as installed", contextlib.nullcontext()),
+                              ("hidden", hidden_modules("imageio", "imageio.v2", "PIL",
+                                                        "PIL.Image"))):
+        save_dir = tmp / "recons" / packages.replace(" ", "_")
+        with context:
+            backend = mio._backend()[0]
+            reset_counts()
+            out = render.main(["-c", str(ckpt), "-r", str(RAYS), "-p", str(poses), "--height",
+                               str(size), "--width", str(size), "-s", str(save_dir)])
+            torch.cuda.synchronize()
+        launches = fr.launches
+        w, h, images, loop, trailer = gif_blocks(out.read_bytes())
+        want_path = save_dir / f"{render.epoch_tag(str(ckpt))}-360.gif"
+        ok = (out == want_path and (w, h) == (size, size) and len(images) == poses
+              and loop == 0 and trailer and launches == want_launches
+              and (packages != "hidden" or backend == "builtin")
+              and all(d == 10 and im[:4] == (0, 0, size, size) and im[5] > 0
+                      for d, im in images))
+        print(f"[render-cli] render.main -p {poses} --height {size} --width {size} on the card, "
+              f"image packages {packages} (backend: {backend}) wrote {out.name} "
+              f"({out.stat().st_size} bytes): GIF89a {w}x{h}, {len(images)} image descriptors "
+              f"(want {poses}) at {[im[:4] for _, im in images]}, local tables "
+              f"{[im[4] for _, im in images]} entries, LZW bytes {[im[5] for _, im in images]}, "
+              f"delays {[d for d, _ in images]} cs (want 10), loop {loop} (want 0), trailer "
+              f"last: {trailer}; fused forward launches {launches} (want {want_launches}) "
+              f"{'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("the render CLI's gif is not as expected")
 
 
 TRAIN_FRAMES, TRAIN_STEPS = 20, 100
@@ -1269,9 +1420,11 @@ def phase_occ_reference(dev, scene, params, grid, cfg, tcfg):
 
 
 FUSED_GROUPS = {"forward kernel": ("fused_fwd_kernel",),
-                "backward kernels": ("fused_bwd_kernel", "wgrad_", "reduce_slices")}
+                "backward kernels": ("fused_bwd_kernel", "wgrad_", "reduce_slices",
+                                     "reduce_rows")}
 POINT_GROUPS = {"point forward kernel": ("points_fwd_kernel",),
-                "point backward kernels": ("points_bwd_kernel", "wgrad_", "reduce_slices")}
+                "point backward kernels": ("points_bwd_kernel", "wgrad_", "reduce_slices",
+                                           "reduce_rows")}
 
 
 OCC_GROUPS = dict(FUSED_GROUPS, **{"probe kernel": ("probe_kernel",)})
@@ -1281,19 +1434,24 @@ def profile_shares(label: str, fn, groups=FUSED_GROUPS):
     """Run ``fn`` under ``torch.profiler``: print each group of kernels'
     time and share of the wall time (the backward's split by kernel), other
     device work and the device's idle share (wall time covered by no device
-    activity). Fails when the profiler records no device activity. Returns
-    the wall time and each group's device time (us)."""
+    activity). A capture with no device activity at all is taken again (up
+    to three times), then fails. Returns the wall time and each group's
+    device time (us)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with uncounted(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
+        with uncounted(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+    else:
         raise AssertionError(f"[profile] {label}: the profiler recorded no device activity")
     kernel_us = lambda key: sum(b - a for a, b, name in spans if key in name)  # noqa: E731
     parts, kernels_us, group_us = [], 0.0, {}
@@ -1332,9 +1490,19 @@ def phase_profile(ckpt: Path, dev, train_step, pallas_step, occ_step):
     from minimal_nerf_torch.ops import occupancy as occ
     from minimal_nerf_torch.render import render_views
 
-    frames_iter = render_views(str(ckpt), rays=RAYS, num_poses=1, height=HW, width=HW,
-                               device=dev)
-    profile_shares(f"1 frame {HW}x{HW}", lambda: list(frames_iter))
+    profile_shares(f"1 frame {HW}x{HW}",
+                   lambda: list(render_views(str(ckpt), rays=RAYS, num_poses=1, height=HW,
+                                             width=HW, device=dev)))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    train_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[profile] 1 train step ({RAYS} rays): peak device memory {peak / 2 ** 20:.1f} MiB "
+          f"(torch.cuda.max_memory_allocated), {(peak - base) / 2 ** 20:.1f} MiB above the "
+          f"{base / 2 ** 20:.1f} MiB held before the step (scene, weights, Adam state)",
+          flush=True)
     profile_shares(f"1 train step ({RAYS} rays)", train_step)
     profile_shares(f"1 pallas train step ({RAYS} rays)", pallas_step, POINT_GROUPS)
     events = []
@@ -1393,6 +1561,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = phase_main_path(dev, Path(tmp))
         phase_reference(dev, ckpt)
+        phase_render_cli(dev, ckpt, Path(tmp))
         scene = make_train_scene(dev)
         train, step_fn, params, state = phase_train(dev, Path(tmp), scene)
         phase_train_reference(dev, scene, train["bias"])

@@ -18,36 +18,53 @@
 //
 // Design. The TPU grid runs in order and adds each step's products into one
 // output; CTAs run in parallel, and the sum over rays must not depend on
-// their order. So the work is split in three launches, none of which uses
-// atomics, and two launches on the same inputs give bit-identical results:
+// their order. So the work is split in launches, none of which uses atomics,
+// and two launches on the same inputs give bit-identical results:
 //   A  `fused_bwd_kernel`: one CTA per group of whole rays, as the forward.
 //      It recomputes the forward tile by tile, keeping each layer's input
-//      activation (e, ed, a0..a5, h, r0), runs the compositing backward per
-//      ray (one warp, shuffle scans for the prefix and the suffix sums), then
-//      the reverse sweep tile by tile on the tensor cores (the wrapper packs
-//      W^T in mma fragment order), keeping each layer's output gradient
-//      (g_a0..g_a5, g_h, g_r0, and g_sigpre | g_rgbpre in one 8-channel
-//      block). Both go to a device scratch buffer in the compute dtype,
-//      feature-major [channel, point]: 3,944 channels, 7.9 KB per point in
-//      bf16.
+//      activation (e, ed, a0..a5, h, r0) in the scratch and each ReLU
+//      layer's mask as bits (208 B per point) in a device buffer: the CTA
+//      holds up to 1,024 rows, whose bits (208 KB) do not fit beside its
+//      buffers, while one tile's (26.6 KB) fit in its encoding buffers,
+//      which the reverse sweep no longer needs. It then runs the
+//      compositing backward per ray (one warp, shuffle scans for the prefix
+//      and the suffix sums) and the reverse sweep tile by tile on the tensor
+//      cores (the wrapper packs W^T in mma fragment order), each tile first
+//      bringing its mask words back into shared memory (mostly from L2: the
+//      CTA wrote them moments before), so no epilogue reads device memory
+//      per element. It keeps each layer's output gradient (g_a0..g_a5, g_h,
+//      g_r0, and g_sigpre | g_rgbpre in one 8-channel block), rounded to the
+//      compute dtype. The scratch holds
+//      3,944 channels per point in the compute dtype (7,888 B in bf16), each
+//      layer's block its own matrix [points, width], so a tile's rows of one
+//      layer are one contiguous run. Each layer's tile leaves shared memory
+//      as 16-byte streaming stores spread over the k-steps of the next
+//      layer, which reads the same tile, so the bytes drain while the
+//      tensor cores work. Every dense layer gives
+//      each warp all 128 rows of 1/8 of the columns, so a weight fragment
+//      crosses from L2 once per tile.
 //   B  `wgrad_*_kernel` (mlp_wgrad.cuh): for every layer, out[k, n] =
-//      sum_p X[k, p] G[n, p] over a fixed slice of the points, one warp per
-//      32 x 64 output tile, mma.sync bf16 with fp32 accumulation (FMA in
-//      fp32), fragments loaded straight from the feature-major scratch. A
-//      row of ones in place of X gives the bias gradients. Each slice writes
-//      its own partial sums.
-//   R  `reduce_slices` (mlp_wgrad.cuh): adds the slices' partial sums in a
-//      fixed order.
+//      sum_p X[p, k] G[p, n] over fixed slices of the points, a tiled GEMM
+//      with cp.async-staged operand tiles and ldmatrix fragments (FMA in
+//      fp32). Each slice writes its own partial sums. The CTAs of the first
+//      row tile of one product per gradient block also sum its columns from
+//      the staged tiles: the bias gradients, sums of the bf16-ROUNDED
+//      gradients as the scratch holds them (the TPU kernel's bias rounding
+//      point), per slice, off the tensor cores and in B's shadow.
+//   R  `reduce_slices` adds the slices' partial sums in a fixed order,
+//      `reduce_rows` the slices' bias sums (mlp_wgrad.cuh).
 //
 // What bounds it: tensor-core operations, 1,347,456 multiply-adds per point
 // (forward recomputed, activation gradients, weight gradients), against
-// ~16 KB of scratch written and read per point in bf16. This first version
-// is simple rather than fast: kernel A re-reads the ReLU masks from device
-// memory and writes the scratch with strided shared-memory reads; kernel B
-// reads its operands from L2 / device memory with no shared-memory staging.
+// 7,888 B of scratch (and 208 B of mask bits) written and read per point in
+// bf16: the operations bound is 2.86 ms per 4096-ray step at 64 + 192
+// samples, the bytes of a design that keeps the scratch in device memory
+// about 4.9 ms at 3.35 TB/s. Kernel A is held by its dense layers on
+// mma.sync (weights streamed from L2 one k-step ahead), kernel B by the
+// wait for its operand tiles (see mlp_wgrad.cuh).
 // Ragged edges: rays past N take zero cotangents, so they add exact zeros;
-// rows past a CTA's last sample are never stored; points past the end are
-// read as zeros.
+// rows past a CTA's last sample are never stored; kernel B reads points past
+// the end as zeros.
 
 #include "mlp_wgrad.cuh"
 
@@ -57,8 +74,10 @@ struct BwdArgs : RayArgs {
   const float* dcolor;
   const float* dweights;  // may be null: zeros
   const void* wt[7];
-  void* scratch;
-  long long pal;  // points per scratch channel (padded)
+  void* scratch;          // Scratch of `points` points
+  long long points;
+  uint32_t* masks;        // [points][MASK_WORDS]
+  float* bias_partial;    // [slices][BIAS_CH], written by kernel B
 };
 
 // the forward's buffers plus two per-sample temporaries of the compositing
@@ -142,21 +161,24 @@ __global__ void __launch_bounds__(THREADS) fused_bwd_kernel(BwdArgs a) {
   T* dray = reinterpret_cast<T*>(aa + MAX_RAY_ROWS);
   float* xs = reinterpret_cast<float*>(dray + MAX_RAYS * LDD);
   int* rayl = reinterpret_cast<int*>(xs + 3 * M);
+  // free during the reverse sweep: E and D hold a tile's mask words
+  uint32_t* mk = reinterpret_cast<uint32_t*>(E);
+  static_assert(sizeof(uint32_t) * M * MASK_WORDS <= sizeof(T) * M * (LDE + LDD), "mask words");
 
-  T* sc = static_cast<T*>(a.scratch);
-  const long long pal = a.pal;
+  const Scratch<T> sc{static_cast<T*>(a.scratch), a.points};
   const int ray0 = blockIdx.x * a.rays_per_cta;
   const int rows_total = a.rays_per_cta * a.s;
   const long long cta_p0 = (long long)blockIdx.x * rows_total;
+  uint32_t* masks = a.masks + cta_p0 * MASK_WORDS;
 
-  // 1. the forward, keeping every layer's input
+  // 1. the forward, keeping every layer's input and the ReLU masks
   encode_dirs<T>(a, ray0, dray, LDD);
   __syncthreads();
   for (int row_base = 0; row_base < rows_total; row_base += M) {
     encode_tile<T>(a, ray0, row_base, E, LDE, D, dray, LDD, xs, rayl);
     __syncthreads();
-    mlp_forward<T, true>(a, E, D, P, Q, sc, pal, cta_p0 + row_base,
-                         min(M, rows_total - row_base));
+    mlp_forward<T, true>(a, E, D, P, Q, sc, cta_p0 + row_base, min(M, rows_total - row_base),
+                         masks + (long long)row_base * MASK_WORDS);
     heads<T>(a, P, Q, LDW, row_base, rows_total, sig, rgb);
   }
   __syncthreads();
@@ -176,17 +198,24 @@ __global__ void __launch_bounds__(THREADS) fused_bwd_kernel(BwdArgs a) {
   }
   __syncthreads();
 
-  // 3. the reverse sweep, tile by tile, keeping every layer's output gradient
-  for (int row_base = 0; row_base < rows_total; row_base += M)
-    reverse_sweep<T>(a, a.wt, P, Q, sc, pal, cta_p0 + row_base, min(M, rows_total - row_base),
-                     sig + row_base, rgb + row_base * 3);
+  // 3. the reverse sweep, tile by tile: the tile's mask words back in shared
+  // memory, then every layer's output gradient (kernel B sums them)
+  for (int row_base = 0; row_base < rows_total; row_base += M) {
+    const int rows = min(M, rows_total - row_base);
+    const uint4* src = reinterpret_cast<const uint4*>(masks + (long long)row_base * MASK_WORDS);
+    for (int i = threadIdx.x; i < rows * MASK_WORDS / 4; i += THREADS)
+      reinterpret_cast<uint4*>(mk)[i] = src[i];
+    __syncthreads();
+    reverse_sweep<T>(a, a.wt, P, Q, sc, cta_p0 + row_base, rows, sig + row_base,
+                     rgb + row_base * 3, mk);
+  }
 }
 
-// the plan of one backward: every product and bias sum of JOB_TABLE over
-// the points of whole CTAs (rays past N give zero rows)
+// the plan of one backward: every product of JOB_TABLE over the points of
+// whole CTAs (rays past N give zero rows)
 Plan ray_plan(int n, int s) {
   const int rays = rays_per_cta(s), grid = (n + rays - 1) / rays;
-  return make_plan((long long)grid * rays * s, JOBS);
+  return make_plan((long long)grid * rays * s);
 }
 
 int check_sizes(int n, int s, int position_dim, int direction_dim) {
@@ -206,35 +235,46 @@ int launch(const BwdArgs& a, const Plan& pl, float* partial, float* grads, cudaS
   const int grid = (a.n + a.rays_per_cta - 1) / a.rays_per_cta;
   fused_bwd_kernel<T><<<grid, THREADS, bytes, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  return launch_wgrad<T>(pl, a.scratch, partial, grads, stream);
+  const int rc = launch_wgrad<T>(pl, a.scratch, partial, grads, a.bias_partial, stream);
+  if (rc != 0) return rc;
+  return launch_reduce_rows(a.bias_partial, pl.slices, BIAS_CH, grads + pl.total, stream);
 }
 
 }  // namespace
 
-// out = {points, scratch points per channel (padded), slices, gradient
-// floats}: the caller allocates scratch [3944, out[1]] in the compute dtype,
-// partial [out[2], out[3]] fp32 and grads [out[3]] fp32. Returns 0, or the
-// negative codes of fused_raymarch_bwd for sizes it does not take.
+// out = {points, slices, weight-gradient floats, bias-sum rows (the slices),
+// bias floats (1928), mask words per point (52), scratch channels per point
+// (3944)}: the caller allocates scratch [out[0] * out[6]] in the compute
+// dtype, masks [out[0], out[5]] int32, partial [out[1], out[2]] fp32,
+// bias_partial [out[3], out[4]] fp32 and grads [out[2] + out[4]] fp32.
+// Returns 0, or the negative codes of fused_raymarch_bwd for sizes it does
+// not take.
 extern "C" int fused_raymarch_bwd_sizes(int n, int s, long long* out) {
   const int rc = check_sizes(n, s, 1, 1);
   if (rc != 0) return rc;
   const Plan pl = ray_plan(n, s);
   out[0] = pl.p;
-  out[1] = pl.pal;
-  out[2] = pl.slices;
-  out[3] = pl.total;
+  out[1] = pl.slices;
+  out[2] = pl.total;
+  out[3] = pl.slices;
+  out[4] = BIAS_CH;
+  out[5] = MASK_WORDS;
+  out[6] = CHANNELS;
   return 0;
 }
 
-// Writes the 22 gradients into grads (the blocks of GRAD_BLOCKS). Returns 0
-// on success, a cudaError_t value if a launch failed, or a negative code for
-// arguments the kernel does not take (-1 sizes, -2 S above the per-CTA
-// sample buffer, -3 encoding wider than its padded slot).
+// Writes the 12 weight gradients (the weight blocks of GRAD_BLOCKS), then
+// the 1,928 bias sums in scratch channel order (g_a0..g_a5, g_h, g_r0, the
+// heads' block), into grads. Returns 0 on success, a cudaError_t value if a
+// launch failed, or a negative code for arguments the kernel does not take
+// (-1 sizes, -2 S above the per-CTA sample buffer, -3 encoding wider than
+// its padded slot).
 extern "C" int fused_raymarch_bwd(const void* o, const void* d, const void* ts,
                                   const void* dcolor, const void* dweights, int n, int s,
                                   int position_dim, int direction_dim, int is_bf16,
                                   const void* ws, const void* bs, const void* wts, void* scratch,
-                                  void* partial, void* grads, void* stream) {
+                                  void* masks, void* partial, void* bias_partial, void* grads,
+                                  void* stream) {
   const int rc = check_sizes(n, s, position_dim, direction_dim);
   if (rc != 0) return rc;
   const Plan pl = ray_plan(n, s);
@@ -256,7 +296,9 @@ extern "C" int fused_raymarch_bwd(const void* o, const void* d, const void* ts,
   a.dcolor = static_cast<const float*>(dcolor);
   a.dweights = static_cast<const float*>(dweights);
   a.scratch = scratch;
-  a.pal = pl.pal;
+  a.points = pl.p;
+  a.masks = static_cast<uint32_t*>(masks);
+  a.bias_partial = static_cast<float*>(bias_partial);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
   float* out = static_cast<float*>(grads);

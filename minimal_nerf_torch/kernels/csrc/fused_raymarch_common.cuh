@@ -3,8 +3,9 @@
 // raymarch_mlp_bwd.cu): the layer widths, the kernels' arguments, the tile
 // shapes, the bf16 mma.sync and fp32 FMA dense layers with a caller-given
 // epilogue, the in-kernel positional encodings, the forward layer chain, the
-// density / rgb heads, and the backward's scratch layout and reverse sweep.
-// See fused_raymarch_fwd.cu and fused_raymarch_bwd.cu for the numerics.
+// density / rgb heads, and the backward's scratch layout, ReLU mask bits and
+// reverse sweep. See fused_raymarch_fwd.cu and fused_raymarch_bwd.cu for the
+// numerics.
 
 #pragma once
 
@@ -55,9 +56,11 @@ struct PointArgs : MlpArgs {
   long long p;
 };
 
-// M rows per tile; SUM_ROWS partial column sums per tile in dense(SUM)
+// M rows per tile; SUM_ROWS rows of WIDTH partial column sums that a tile's
+// sums pass through (red): one per warp of dense_fma; dense_mma needs none,
+// the reverse sweep's g_r0 block one (THREADS floats)
 template <class T> struct Tile;
-template <> struct Tile<__nv_bfloat16> { static constexpr int M = 128, PAD = 8, SUM_ROWS = 2; };
+template <> struct Tile<__nv_bfloat16> { static constexpr int M = 128, PAD = 8, SUM_ROWS = 1; };
 template <> struct Tile<float> { static constexpr int M = 64, PAD = 4, SUM_ROWS = 8; };
 
 __device__ __forceinline__ float tof(float v) { return v; }
@@ -88,10 +91,16 @@ inline int rays_per_cta(int s) {
   return rays;
 }
 
+// A dense layer's epilogue gives each output element its stored value:
+// epi.window(row, lo) once per row and range of at most 32 columns from lo
+// that lies in one 32-column word (dense_mma), or 64 columns from a multiple
+// of 64 (dense_fma), then epi(window, col, sum) per element of it.
+
 // the forward layers' epilogue: bias, then ReLU or nothing
 template <bool RELU>
 struct BiasAct {
   const float* bias;
+  __device__ __forceinline__ int window(int, int) const { return 0; }
   __device__ __forceinline__ float operator()(int, int col, float v) const {
     v += __ldg(bias + col);
     return RELU ? fmaxf(v, 0.f) : v;
@@ -108,79 +117,126 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
-// acc[64 rows of this warp][NT n-tiles of 8] += A[rows, k] @ W[k, cols].
-// W is packed as uint2[NOUT/8][k/16][32 lanes]: lane (g, t) of n-tile j and
-// k-step kk holds W^T[j*8+g][kk*16 + t*2 + {0,1}] and [... + 8 + {0,1}].
-template <int NT>
-__device__ __forceinline__ void mma_accumulate(float (&acc)[4][NT][4],
+// four 8x8 b16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8 (16 bytes). TRANS: each matrix transposed.
+template <bool TRANS = false>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// Work a dense layer carries beside its products: side(kk, ksteps) once per
+// k-step (the backward's scratch stores, KeepRows); NoKeep does nothing.
+struct NoKeep {
+  __device__ __forceinline__ void operator()(int, int) const {}
+};
+
+// acc[MT m-tiles of 16 rows][NT n-tiles of 8 from n-tile nt0] +=
+// A[rows, k] @ W[k, cols], and side(kk, ksteps) at each k-step (k >= 32).
+// Each weight fragment is loaded from L2 two k-steps ahead of its products
+// (one step ahead left the warps waiting on L2). W is packed
+// as uint2[NOUT/8][k/16][32 lanes]: lane (g, t) of n-tile j and k-step kk
+// holds W^T[j*8+g][kk*16 + t*2 + {0,1}] and [... + 8 + {0,1}]. A's fragments
+// come from shared memory by ldmatrix: matrices 0-3 are rows 0-7 / 8-15 at
+// k 0-7, then at k 8-15, the order of the mma's A registers (a row stride
+// of 16 bytes times an odd number keeps the 8 rows of a matrix on distinct
+// banks).
+template <int MT, int NT, class Side>
+__device__ __forceinline__ void mma_accumulate(float (&acc)[MT][NT][4],
                                                const __nv_bfloat16* a, int lda, int k,
-                                               const uint2* w, int wm, int wn, int lane) {
+                                               const uint2* w, int nt0, int lane,
+                                               const Side& side) {
   const int ksteps = k / 16;
-  const int g = lane >> 2, t = lane & 3;
-  const uint2* wp = w + (size_t)(wn * NT) * ksteps * 32 + lane;
-  uint2 bcur[NT], bnext[NT];
+  const uint2* wp = w + (size_t)nt0 * ksteps * 32 + lane;
+  const __nv_bfloat16* arow =
+      a + ((lane & 7) + ((lane >> 3) & 1) * 8) * lda + (lane >> 4) * 8;
+  uint2 bcur[NT], bnext[NT], bfar[NT];
 #pragma unroll
   for (int j = 0; j < NT; ++j) bcur[j] = __ldg(wp + (size_t)j * ksteps * 32);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) bnext[j] = __ldg(wp + ((size_t)j * ksteps + 1) * 32);
   for (int kk = 0; kk < ksteps; ++kk) {
     const bool more = kk + 1 < ksteps;
+    if (kk + 2 < ksteps) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) bfar[j] = __ldg(wp + ((size_t)j * ksteps + kk + 2) * 32);
+    }
+    side(kk, ksteps);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      uint32_t af[4];
+      ldmatrix_x4(af, arow + mt * 16 * lda + kk * 16);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_bf16(acc[mt][j], af, bcur[j]);
+    }
     if (more) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) bnext[j] = __ldg(wp + ((size_t)j * ksteps + kk + 1) * 32);
-    }
-    uint32_t af[4][4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const __nv_bfloat16* base = a + (wm * 64 + mt * 16 + g) * lda + kk * 16 + t * 2;
-      af[mt][0] = *reinterpret_cast<const uint32_t*>(base);
-      af[mt][1] = *reinterpret_cast<const uint32_t*>(base + 8 * lda);
-      af[mt][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-      af[mt][3] = *reinterpret_cast<const uint32_t*>(base + 8 * lda + 8);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) mma_bf16(acc[mt][j], af[mt], bcur[j]);
-    if (more) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) bcur[j] = bnext[j];
+      for (int j = 0; j < NT; ++j) {
+        bcur[j] = bnext[j];
+        bnext[j] = bfar[j];
+      }
     }
   }
 }
 
-// out = epi(a1 @ w1 [+ a2 @ w2]) for a 128-row tile; 2 x 4 warps, each 64
-// rows x NOUT/4 columns. epi(row, col, sum) gives the stored value. With
-// SUM, also the fp32 sums of each column's stored values before they are
-// rounded to bf16: warp row wm (64 rows) writes colsum[wm * ld + col].
-template <int NOUT, bool SUM, class Epi>
+// colsum[col] += the partial column sums red[k][col] of the SUM_ROWS groups
+// of rows, in k order; the caller's barrier orders it before the next use
+// of red or colsum
+template <int NOUT, int ROWS>
+__device__ __forceinline__ void add_colsums(const float* red, float* colsum) {
+  __syncthreads();
+  for (int c = threadIdx.x; c < NOUT; c += THREADS) {
+    float s = red[c];
+#pragma unroll
+    for (int k = 1; k < ROWS; ++k) s += red[k * NOUT + c];
+    colsum[c] += s;
+  }
+}
+
+// out = epi(a1 @ w1 [+ a2 @ w2]) for a 128-row tile, with side() spread over
+// the k-steps of a1. Warp w owns every row of the NOUT / 8 columns from
+// w * NOUT / 8, so each weight fragment crosses from L2 once per tile, not
+// once per warp row, and a column's sum stays in one warp. With SUM, also
+// colsum[col] += the fp32 sum of each column's stored values before their
+// rounding to bf16, from one lane per
+// column.
+template <int NOUT, bool SUM, class Epi, class Side>
 __device__ void dense_mma(const __nv_bfloat16* a1, int lda1, int k1, const void* w1,
                           const __nv_bfloat16* a2, int lda2, int k2, const void* w2,
-                          const Epi& epi, __nv_bfloat16* out, int ldo, float* colsum, int ld) {
-  constexpr int NT = NOUT / 32;
+                          const Epi& epi, __nv_bfloat16* out, int ldo, float* colsum,
+                          const Side& side) {
+  constexpr int MT = Tile<__nv_bfloat16>::M / 16, NT = NOUT / 64;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  float acc[4][NT][4];
+  float acc[MT][NT][4];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-  mma_accumulate<NT>(acc, a1, lda1, k1, static_cast<const uint2*>(w1), wm, wn, lane);
+  mma_accumulate<MT, NT>(acc, a1, lda1, k1, static_cast<const uint2*>(w1), warp * NT, lane,
+                         side);
   if (a2 != nullptr)
-    mma_accumulate<NT>(acc, a2, lda2, k2, static_cast<const uint2*>(w2), wm, wn, lane);
+    mma_accumulate<MT, NT>(acc, a2, lda2, k2, static_cast<const uint2*>(w2), warp * NT, lane,
+                           NoKeep{});
   const int g = lane >> 2, t = lane & 3;
   float cs[NT][2];
 #pragma unroll
   for (int j = 0; j < NT; ++j) cs[j][0] = cs[j][1] = 0.f;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    const int row = wm * 64 + mt * 16 + g;
+  for (int mt = 0; mt < MT; ++mt) {
+    const int row = mt * 16 + g;
+    const auto w0 = epi.window(row, warp * NT * 8), w8 = epi.window(row + 8, warp * NT * 8);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const int col = (wn * NT + j) * 8 + t * 2;
-      const float v0 = epi(row, col, acc[mt][j][0]), v1 = epi(row, col + 1, acc[mt][j][1]);
-      const float v2 = epi(row + 8, col, acc[mt][j][2]);
-      const float v3 = epi(row + 8, col + 1, acc[mt][j][3]);
+      const int col = (warp * NT + j) * 8 + t * 2;
+      const float v0 = epi(w0, col, acc[mt][j][0]), v1 = epi(w0, col + 1, acc[mt][j][1]);
+      const float v2 = epi(w8, col, acc[mt][j][2]), v3 = epi(w8, col + 1, acc[mt][j][3]);
       *reinterpret_cast<__nv_bfloat162*>(out + row * ldo + col) = __floats2bfloat162_rn(v0, v1);
       *reinterpret_cast<__nv_bfloat162*>(out + (row + 8) * ldo + col) =
           __floats2bfloat162_rn(v2, v3);
@@ -191,7 +247,7 @@ __device__ void dense_mma(const __nv_bfloat16* a1, int lda1, int k1, const void*
     }
   }
   if constexpr (SUM) {
-    // the 8 lanes of one t hold the same columns of the warp's 64 rows
+    // the 8 lanes of one t hold the same columns of all the tile's rows
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -200,7 +256,7 @@ __device__ void dense_mma(const __nv_bfloat16* a1, int lda1, int k1, const void*
         v += __shfl_xor_sync(FULL, v, 4);
         v += __shfl_xor_sync(FULL, v, 8);
         v += __shfl_xor_sync(FULL, v, 16);
-        if (g == 0) colsum[wm * ld + (wn * NT + j) * 8 + t * 2 + e] = v;
+        if (g == 0) colsum[(warp * NT + j) * 8 + t * 2 + e] += v;
       }
   }
 }
@@ -224,14 +280,18 @@ __device__ __forceinline__ void fma_accumulate(float (&acc)[4][NC], const float*
   }
 }
 
-// out = epi(a1 @ w1 [+ a2 @ w2]) for a 64-row tile; 16 x 16 threads, each
-// 4 rows x NOUT/16 interleaved columns. With SUM, also each column's sums:
-// warp w (8 rows) writes colsum[w * ld + col].
-template <int NOUT, bool SUM, class Epi>
+// out = epi(a1 @ w1 [+ a2 @ w2]) for a 64-row tile, after side() (all of it
+// at once); 16 x 16 threads, each 4 rows x NOUT/16 interleaved columns.
+// With SUM, also colsum[col] += each column's sum (fp32: nothing is
+// rounded), through the partial sums red[SUM_ROWS][NOUT] of the 8 warps (8
+// rows each).
+template <int NOUT, bool SUM, class Epi, class Side>
 __device__ void dense_fma(const float* a1, int lda1, int k1, const void* w1,
                           const float* a2, int lda2, int k2, const void* w2,
-                          const Epi& epi, float* out, int ldo, float* colsum, int ld) {
+                          const Epi& epi, float* out, int ldo, float* colsum, float* red,
+                          const Side& side) {
   constexpr int NC = NOUT / 16;
+  side(0, 1);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float acc[4][NC];
 #pragma unroll
@@ -247,33 +307,40 @@ __device__ void dense_fma(const float* a1, int lda1, int k1, const void* w1,
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int col = tx + 16 * j;
-      const float v = epi(ty * 4 + i, col, acc[i][j]);
-      out[(ty * 4 + i) * ldo + col] = v;
-      if constexpr (SUM) cs[j] += v;
+    for (int q = 0; q < NC / 4; ++q) {
+      // columns tx + 16 j of j in [4q, 4q + 4) lie in [64q, 64q + 64)
+      const auto win = epi.window(ty * 4 + i, 64 * q);
+#pragma unroll
+      for (int j = 4 * q; j < 4 * q + 4; ++j) {
+        const int col = tx + 16 * j;
+        const float v = epi(win, col, acc[i][j]);
+        out[(ty * 4 + i) * ldo + col] = v;
+        if constexpr (SUM) cs[j] += v;
+      }
     }
   if constexpr (SUM) {
     // lanes tx and tx + 16 of a warp hold the same column
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       const float v = cs[j] + __shfl_xor_sync(FULL, cs[j], 16);
-      if ((threadIdx.x & 16) == 0) colsum[(threadIdx.x >> 5) * ld + tx + 16 * j] = v;
+      if ((threadIdx.x & 16) == 0) red[(threadIdx.x >> 5) * NOUT + tx + 16 * j] = v;
     }
+    add_colsums<NOUT, Tile<float>::SUM_ROWS>(red, colsum);
   }
 }
 
-// the dense layer of the compute dtype; SUM adds the column sums (colsum:
-// SUM_ROWS partial rows of stride ld)
-template <int NOUT, class T, bool SUM = false, class Epi>
+// the dense layer of the compute dtype; with SUM, colsum[col] += the column
+// sums (red: SUM_ROWS * NOUT floats of scratch); side: work carried beside
+// the products
+template <int NOUT, class T, bool SUM = false, class Epi, class Side = NoKeep>
 __device__ __forceinline__ void dense(const T* a1, int lda1, int k1, const void* w1,
                                       const T* a2, int lda2, int k2, const void* w2,
                                       const Epi& epi, T* out, int ldo, float* colsum = nullptr,
-                                      int ld = 0) {
+                                      float* red = nullptr, const Side& side = Side()) {
   if constexpr (std::is_same<T, float>::value)
-    dense_fma<NOUT, SUM>(a1, lda1, k1, w1, a2, lda2, k2, w2, epi, out, ldo, colsum, ld);
+    dense_fma<NOUT, SUM>(a1, lda1, k1, w1, a2, lda2, k2, w2, epi, out, ldo, colsum, red, side);
   else
-    dense_mma<NOUT, SUM>(a1, lda1, k1, w1, a2, lda2, k2, w2, epi, out, ldo, colsum, ld);
+    dense_mma<NOUT, SUM>(a1, lda1, k1, w1, a2, lda2, k2, w2, epi, out, ldo, colsum, side);
 }
 
 // ------------------------------------------------------- encoding and heads
@@ -396,8 +463,11 @@ __device__ __forceinline__ float sample_delta(const float* t, int i, int s) {
 
 // -------------------------------------------------- the backward's scratch
 
-// scratch channel blocks ([channel][point]): layer inputs, then layer
-// output gradients (the order of SCRATCH_CHANNELS in fused_raymarch.py)
+// scratch channel blocks: layer inputs, then layer output gradients (the
+// order of SCRATCH_CHANNELS in fused_raymarch.py). Each block is its own
+// row-major matrix [points][block width] (Scratch), so a tile's rows of one
+// layer are one contiguous run of device memory, and kernel B's operand
+// tiles are rows of one matrix.
 enum : int {
   C_E = 0,
   C_ED = C_E + KE,
@@ -422,78 +492,184 @@ enum : int {
   BIAS_CH = CHANNELS - C_GA0,  // one bias sum per gradient channel
 };
 
-// rows [0, rows) of a tile [M, ld] -> scratch channels [ch][p0 + row]
+// The scratch of `points` points: the block of channels [c0, c0 + w) is a
+// matrix [points][w] at base + points * c0, so point p's channel c0 + j
+// lies at base + points * c0 + p * w + j (block widths and starts are
+// multiples of 8: rows are whole 16-byte pieces).
 template <class T>
-__device__ void store_cols(const T* src, int ld, int ch, T* dst, long long pal, long long p0,
-                           int rows) {
-  constexpr int M = Tile<T>::M;
-  for (int idx = threadIdx.x; idx < M * ch; idx += THREADS) {
-    const int c = idx / M, r = idx % M;
-    if (r < rows) dst[c * pal + p0 + r] = src[r * ld + c];
+struct Scratch {
+  T* base;
+  long long points;
+  __device__ __forceinline__ T* row(int c0, int w, long long p) const {
+    return base + points * c0 + p * w;
+  }
+};
+
+// The ReLU masks of one point as bits (bit c % 32 of word c / 32 of a
+// layer: its stored activation c is > 0): a0..a5 in words 8 l .. 8 l + 7,
+// r0 in words MW_R0 .. MW_R0 + 3. 208 bytes per point where the activations
+// themselves take 3,328 in bf16.
+enum : int { MW_R0 = 6 * (WIDTH / 32), MASK_WORDS = MW_R0 + RGB_WIDTH / 32 };
+
+// bit k: element k of a 16-byte piece of T values is > 0
+template <class T>
+__device__ __forceinline__ uint32_t positive_bits(const uint4& v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t bits = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if constexpr (std::is_same<T, float>::value) {
+      bits |= (__uint_as_float(w[k]) > 0.f ? 1u : 0u) << k;
+    } else {  // two bf16, the first in the low half
+      bits |= (__uint_as_float(w[k] << 16) > 0.f ? 1u : 0u) << (2 * k);
+      bits |= (__uint_as_float(w[k] & 0xffff0000u) > 0.f ? 1u : 0u) << (2 * k + 1);
+    }
+  }
+  return bits;
+}
+
+// Rows [0, rows) of a tile [M, ld] of CH channels -> the scratch block rows
+// from dst (a block of width CH), as 16-byte streaming stores (marked for
+// eviction first: only kernel B reads them, long after), the pieces of a
+// row on consecutive lanes. Called as a dense layer's side work,
+// keep(kk, ksteps) stores this thread's share of k-step kk, so the 64 KB of
+// a 256-channel bf16 tile drain while the tensor cores work instead of in
+// one burst from every SM at once; keep(0, 1) stores it all.
+template <class T, int CH>
+struct KeepRows {
+  static constexpr int VEC = 16 / sizeof(T), PER_ROW = CH / VEC;
+  static constexpr int PER_THREAD = Tile<T>::M * PER_ROW / THREADS;  // exact for every CH
+  const T* src;
+  int ld;
+  T* dst;
+  int rows;
+  __device__ __forceinline__ void operator()(int kk, int ksteps) const {
+    const int i0 = kk * PER_THREAD / ksteps, i1 = (kk + 1) * PER_THREAD / ksteps;
+    for (int i = i0; i < i1; ++i) {
+      const int idx = threadIdx.x + i * THREADS, r = idx / PER_ROW, c = idx % PER_ROW;
+      if (r < rows)
+        __stcs(reinterpret_cast<uint4*>(dst + r * CH + c * VEC),
+               *reinterpret_cast<const uint4*>(src + r * ld + c * VEC));
+    }
+  }
+};
+
+// two layers' stores carried by one dense layer
+template <class A, class B>
+struct KeepBoth {
+  A a;
+  B b;
+  __device__ __forceinline__ void operator()(int kk, int ksteps) const {
+    a(kk, ksteps);
+    b(kk, ksteps);
+  }
+};
+
+// the stores of a tile's rows [0, rows) at channel ch0 when KEEP, else none
+template <class T, int CH, bool KEEP>
+__device__ __forceinline__ auto keep_rows(const T* src, int ld, const Scratch<T>& sc,
+                                          long long p0, int ch0, int rows) {
+  if constexpr (KEEP)
+    return KeepRows<T, CH>{src, ld, sc.row(ch0, CH, p0), rows};
+  else
+    return NoKeep{};
+}
+
+// The ReLU mask words (stored value > 0) of rows [0, rows) of a tile [M, ld]
+// (ch channels): mbits[row * MASK_WORDS + w0 + c / 32] (shared or device
+// memory), each thread testing one 16-byte piece of a row, the pieces of a
+// row on consecutive lanes.
+template <class T>
+__device__ void mask_bits(const T* src, int ld, int ch, int rows, uint32_t* mbits, int w0) {
+  constexpr int M = Tile<T>::M, VEC = 16 / sizeof(T), LANES = 32 / VEC;  // pieces per word
+  const int per_row = ch / VEC;
+  // M * per_row is a multiple of THREADS for every masked layer, so all
+  // lanes of a warp take part in the shuffles
+  for (int idx = threadIdx.x; idx < M * per_row; idx += THREADS) {
+    const int r = idx / per_row, c = idx - r * per_row;
+    const uint4 v = *reinterpret_cast<const uint4*>(src + r * ld + c * VEC);
+    uint32_t bits = positive_bits<T>(v) << ((c % LANES) * VEC);
+#pragma unroll
+    for (int off = 1; off < LANES; off <<= 1) bits |= __shfl_xor_sync(FULL, bits, off);
+    if (c % LANES == 0 && r < rows) mbits[r * MASK_WORDS + w0 + c / LANES] = bits;
   }
 }
 
 // The MLP over one tile: the encodings E, D -> h in P, r0 in Q (ping-pong
 // through P and Q, a barrier after each layer). With KEEP, also every
-// layer's input (e, ed, a0..a5, h, r0), rows [0, rows), to the scratch at
-// points p0.. (each store reads a buffer that the next layer only reads).
+// layer's input (e, ed, a0..a5, h, r0), rows [0, rows), to the scratch rows
+// p0.., each stored while the layer that reads it runs (r0 after the last),
+// and the ReLU layers' mask bits to mbits.
 template <class T, bool KEEP = false>
 __device__ __forceinline__ void mlp_forward(const MlpArgs& a, const T* E, const T* D, T* P,
-                                            T* Q, T* sc = nullptr, long long pal = 0,
-                                            long long p0 = 0, int rows = 0) {
+                                            T* Q, Scratch<T> sc = {}, long long p0 = 0,
+                                            int rows = 0, uint32_t* mbits = nullptr) {
   constexpr int PAD = Tile<T>::PAD;
   constexpr int LDW = WIDTH + PAD, LDE = KE + PAD, LDD = KD + PAD;
-  auto keep = [&](const T* src, int ld, int ch, int channel) {
-    if constexpr (KEEP) store_cols<T>(src, ld, ch, sc + (long long)channel * pal, pal, p0, rows);
+  auto keep = [&](const T* src, int ch0) {
+    return keep_rows<T, WIDTH, KEEP>(src, LDW, sc, p0, ch0, rows);
   };
-  keep(E, LDE, KE, C_E);
-  keep(D, LDD, KD, C_ED);
-  dense<WIDTH, T>(E, LDE, KE, a.w[T0], nullptr, 0, 0, nullptr,
-                  BiasAct<true>{a.b[T0B]}, P, LDW);
+  auto masks = [&](const T* src, int ch, int w0) {
+    if constexpr (KEEP) mask_bits<T>(src, LDW, ch, rows, mbits, w0);
+  };
+  dense<WIDTH, T>(E, LDE, KE, a.w[T0], nullptr, 0, 0, nullptr, BiasAct<true>{a.b[T0B]}, P, LDW,
+                  nullptr, nullptr,
+                  KeepBoth<decltype(keep_rows<T, KE, KEEP>(E, LDE, sc, p0, C_E, rows)),
+                           decltype(keep_rows<T, KD, KEEP>(D, LDD, sc, p0, C_ED, rows))>{
+                      keep_rows<T, KE, KEEP>(E, LDE, sc, p0, C_E, rows),
+                      keep_rows<T, KD, KEEP>(D, LDD, sc, p0, C_ED, rows)});
   __syncthreads();
-  keep(P, LDW, WIDTH, C_A0);
-  dense<WIDTH, T>(P, LDW, WIDTH, a.w[T1], nullptr, 0, 0, nullptr,
-                  BiasAct<true>{a.b[T1B]}, Q, LDW);
+  masks(P, WIDTH, 0);
+  dense<WIDTH, T>(P, LDW, WIDTH, a.w[T1], nullptr, 0, 0, nullptr, BiasAct<true>{a.b[T1B]}, Q,
+                  LDW, nullptr, nullptr, keep(P, C_A0));
   __syncthreads();
-  keep(Q, LDW, WIDTH, C_A1);
-  dense<WIDTH, T>(Q, LDW, WIDTH, a.w[T2], nullptr, 0, 0, nullptr,
-                  BiasAct<true>{a.b[T2B]}, P, LDW);
+  masks(Q, WIDTH, 8);
+  dense<WIDTH, T>(Q, LDW, WIDTH, a.w[T2], nullptr, 0, 0, nullptr, BiasAct<true>{a.b[T2B]}, P,
+                  LDW, nullptr, nullptr, keep(Q, C_A1));
   __syncthreads();
-  keep(P, LDW, WIDTH, C_A2);
-  dense<WIDTH, T>(P, LDW, WIDTH, a.w[T3], nullptr, 0, 0, nullptr,
-                  BiasAct<true>{a.b[T3B]}, Q, LDW);
+  masks(P, WIDTH, 16);
+  dense<WIDTH, T>(P, LDW, WIDTH, a.w[T3], nullptr, 0, 0, nullptr, BiasAct<true>{a.b[T3B]}, Q,
+                  LDW, nullptr, nullptr, keep(P, C_A2));
   __syncthreads();
-  keep(Q, LDW, WIDTH, C_A3);
+  masks(Q, WIDTH, 24);
   // skip: concat(a3, e) @ W == a3 @ W_h + e @ W_e
-  dense<WIDTH, T>(Q, LDW, WIDTH, a.w[F0H], E, LDE, KE, a.w[F0E],
-                  BiasAct<true>{a.b[F0B]}, P, LDW);
+  dense<WIDTH, T>(Q, LDW, WIDTH, a.w[F0H], E, LDE, KE, a.w[F0E], BiasAct<true>{a.b[F0B]}, P,
+                  LDW, nullptr, nullptr, keep(Q, C_A3));
   __syncthreads();
-  keep(P, LDW, WIDTH, C_A4);
-  dense<WIDTH, T>(P, LDW, WIDTH, a.w[F1], nullptr, 0, 0, nullptr,
-                  BiasAct<true>{a.b[F1B]}, Q, LDW);
+  masks(P, WIDTH, 32);
+  dense<WIDTH, T>(P, LDW, WIDTH, a.w[F1], nullptr, 0, 0, nullptr, BiasAct<true>{a.b[F1B]}, Q,
+                  LDW, nullptr, nullptr, keep(P, C_A4));
   __syncthreads();
-  keep(Q, LDW, WIDTH, C_A5);
+  masks(Q, WIDTH, 40);
   // h: no activation
-  dense<WIDTH, T>(Q, LDW, WIDTH, a.w[F2], nullptr, 0, 0, nullptr,
-                  BiasAct<false>{a.b[F2B]}, P, LDW);
+  dense<WIDTH, T>(Q, LDW, WIDTH, a.w[F2], nullptr, 0, 0, nullptr, BiasAct<false>{a.b[F2B]}, P,
+                  LDW, nullptr, nullptr, keep(Q, C_A5));
   __syncthreads();
-  keep(P, LDW, WIDTH, C_H);
   // rgb hidden: concat(h, ed) @ W == h @ W_h + ed @ W_d
-  dense<RGB_WIDTH, T>(P, LDW, WIDTH, a.w[R0H], D, LDD, KD, a.w[R0D],
-                      BiasAct<true>{a.b[R0B]}, Q, LDW);
+  dense<RGB_WIDTH, T>(P, LDW, WIDTH, a.w[R0H], D, LDD, KD, a.w[R0D], BiasAct<true>{a.b[R0B]}, Q,
+                      LDW, nullptr, nullptr, keep(P, C_H));
   __syncthreads();
-  keep(Q, LDW, RGB_WIDTH, C_R0);
+  keep_rows<T, RGB_WIDTH, KEEP>(Q, LDW, sc, p0, C_R0, rows)(0, 1);
+  masks(Q, RGB_WIDTH, MW_R0);
 }
 
 // a ReLU layer's input gradient: the product where the layer's stored
-// activation is > 0, else 0
-template <class T>
+// activation is > 0 (its bit in the tile's mask words mk [M][MASK_WORDS],
+// layer words from w0), else 0; rows past `rows` give 0
 struct MaskAct {
-  const T* act;
-  long long pal, p0;
-  int rows;
-  __device__ __forceinline__ float operator()(int row, int col, float v) const {
-    return row < rows && tof(act[col * pal + p0 + row]) > 0.f ? v : 0.f;
+  const uint32_t* mk;
+  int w0, rows;
+  struct Window {
+    unsigned long long bits;  // the 64 columns from lo
+    int lo;                   // a multiple of 32
+  };
+  __device__ __forceinline__ Window window(int row, int lo) const {
+    if (row >= rows) return {0ull, lo};
+    const uint32_t* w = mk + row * MASK_WORDS + w0 + (lo >> 5);
+    return {(unsigned long long)w[0] | ((unsigned long long)w[1] << 32), lo};
+  }
+  __device__ __forceinline__ float operator()(const Window& win, int col, float v) const {
+    return (win.bits >> (col - win.lo)) & 1ull ? v : 0.f;
   }
 };
 
@@ -503,32 +679,50 @@ struct HeadGrad {
   const float* gsig;
   const T* dw;
   int rows;
-  __device__ __forceinline__ float operator()(int row, int col, float v) const {
-    return row < rows ? __fadd_rn(v, __fmul_rn(gsig[row], tof(dw[col]))) : 0.f;
+  struct Window {
+    float g;  // the row's g_sigpre
+    bool in;  // row < rows
+  };
+  __device__ __forceinline__ Window window(int row, int) const {
+    return row < rows ? Window{gsig[row], true} : Window{0.f, false};
+  }
+  __device__ __forceinline__ float operator()(const Window& w, int col, float v) const {
+    return w.in ? __fadd_rn(v, __fmul_rn(w.g, tof(dw[col]))) : 0.f;
   }
 };
 
 // The reverse sweep of one tile whose layer inputs are in the scratch at
-// points p0.. (rows [0, rows)), from the heads' gradients gsig [M] (g_sigpre)
-// and grgb [M, 3] (g_rgbpre), both already rounded to T: keeps every
-// layer's output gradient (g_r0, g_h, g_a5..g_a0, and the heads' block) in
-// the scratch, rounded to T, through products with the transposed weights
-// wt. With SUM, also the fp32 column sums of each gradient before its
-// rounding: row k of bsum [SUM_ROWS][BIAS_CH] (channel c at c - C_GA0)
-// receives the partial sums of the k-th group of rows (see dense).
+// rows p0.. (rows [0, rows)) and whose ReLU masks are in mk [M][MASK_WORDS]
+// (shared memory), from the heads' gradients gsig [M] (g_sigpre) and
+// grgb [M, 3] (g_rgbpre), both already rounded to T: keeps every layer's
+// output gradient (g_r0, g_h, g_a5..g_a0, and the heads' block) in the
+// scratch, rounded to T, through products with the transposed weights wt.
+// With SUM, also bsum[c - C_GA0] += the column sums of each gradient
+// channel c of g_r0 .. g_a0, of the fp32 values before their rounding,
+// through red [SUM_ROWS * WIDTH] floats. Each
+// gradient is stored while the layer that reads it runs (g_a0 after the
+// last), as in mlp_forward<KEEP>.
 template <class T, bool SUM = false>
 __device__ __forceinline__ void reverse_sweep(const MlpArgs& a, const void* const* wt, T* P, T* Q,
-                                              T* sc, long long pal, long long p0, int rows,
-                                              const float* gsig, const float* grgb,
-                                              float* bsum = nullptr) {
+                                              const Scratch<T>& sc, long long p0, int rows,
+                                              const float* gsig,
+                                              const float* grgb, const uint32_t* mk,
+                                              float* bsum = nullptr, float* red = nullptr) {
   constexpr int M = Tile<T>::M, LDW = WIDTH + Tile<T>::PAD;
-  auto chan = [&](int c) { return sc + (long long)c * pal; };
   auto sums = [&](int c) { return SUM ? bsum + (c - C_GA0) : nullptr; };
   const T* r1w = static_cast<const T*>(a.w[R1]);  // [3, RGB_WIDTH]
-  for (int idx = threadIdx.x; idx < M * 8; idx += THREADS) {
-    const int c = idx / M, r = idx % M;
-    if (r < rows)
-      chan(C_HEAD + c)[p0 + r] = fromf<T>(c == 0 ? gsig[r] : (c < 4 ? grgb[r * 3 + c - 1] : 0.f));
+  // the heads' block: one 16-byte piece per row (two in fp32)
+  for (int r = threadIdx.x; r < rows; r += THREADS) {
+    __align__(16) T head[8];
+    head[0] = fromf<T>(gsig[r]);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) head[k + 1] = fromf<T>(grgb[r * 3 + k]);
+#pragma unroll
+    for (int k = 4; k < 8; ++k) head[k] = fromf<T>(0.f);
+    uint4* dst = reinterpret_cast<uint4*>(sc.row(C_HEAD, 8, p0 + r));
+#pragma unroll
+    for (int q = 0; q < (int)sizeof(head) / 16; ++q)
+      __stcs(dst + q, reinterpret_cast<const uint4*>(head)[q]);
   }
   // g_r0 = (g_rgbpre @ r1w^T) masked by r0 > 0; thread i owns column
   // i % RGB_WIDTH of the rows of parity i / RGB_WIDTH
@@ -536,7 +730,7 @@ __device__ __forceinline__ void reverse_sweep(const MlpArgs& a, const void* cons
   for (int idx = threadIdx.x; idx < M * RGB_WIDTH; idx += THREADS) {
     const int r = idx / RGB_WIDTH, j = idx % RGB_WIDTH;
     float v = 0.f;
-    if (r < rows && tof(chan(C_R0 + j)[p0 + r]) > 0.f) {
+    if (r < rows && ((mk[r * MASK_WORDS + MW_R0 + (j >> 5)] >> (j & 31)) & 1u)) {
       const float* g = grgb + r * 3;
       v = __fadd_rn(__fadd_rn(__fmul_rn(g[0], tof(r1w[j])),
                               __fmul_rn(g[1], tof(r1w[RGB_WIDTH + j]))),
@@ -545,39 +739,38 @@ __device__ __forceinline__ void reverse_sweep(const MlpArgs& a, const void* cons
     P[r * LDW + j] = fromf<T>(v);
     if constexpr (SUM) s += v;
   }
-  if constexpr (SUM)
-    bsum[(threadIdx.x / RGB_WIDTH) * BIAS_CH + C_GR0 - C_GA0 + threadIdx.x % RGB_WIDTH] = s;
+  if constexpr (SUM) {
+    red[threadIdx.x] = s;
+    add_colsums<RGB_WIDTH, THREADS / RGB_WIDTH>(red, bsum + (C_GR0 - C_GA0));
+  }
   __syncthreads();
-  store_cols<T>(P, LDW, RGB_WIDTH, chan(C_GR0), pal, p0, rows);
+  auto keep = [&](const T* src, int ch0) {
+    return KeepRows<T, WIDTH>{src, LDW, sc.row(ch0, WIDTH, p0), rows};
+  };
   dense<WIDTH, T, SUM>(P, LDW, RGB_WIDTH, wt[R0HT], nullptr, 0, 0, nullptr,
                        HeadGrad<T>{gsig, static_cast<const T*>(a.w[DW]), rows}, Q, LDW,
-                       sums(C_GH), BIAS_CH);
+                       sums(C_GH), red,
+                       KeepRows<T, RGB_WIDTH>{P, LDW, sc.row(C_GR0, RGB_WIDTH, p0), rows});
   __syncthreads();
-  store_cols<T>(Q, LDW, WIDTH, chan(C_GH), pal, p0, rows);
-  dense<WIDTH, T, SUM>(Q, LDW, WIDTH, wt[F2T], nullptr, 0, 0, nullptr,
-                       MaskAct<T>{chan(C_A5), pal, p0, rows}, P, LDW, sums(C_GA5), BIAS_CH);
+  dense<WIDTH, T, SUM>(Q, LDW, WIDTH, wt[F2T], nullptr, 0, 0, nullptr, MaskAct{mk, 40, rows}, P,
+                       LDW, sums(C_GA5), red, keep(Q, C_GH));
   __syncthreads();
-  store_cols<T>(P, LDW, WIDTH, chan(C_GA5), pal, p0, rows);
-  dense<WIDTH, T, SUM>(P, LDW, WIDTH, wt[F1T], nullptr, 0, 0, nullptr,
-                       MaskAct<T>{chan(C_A4), pal, p0, rows}, Q, LDW, sums(C_GA4), BIAS_CH);
+  dense<WIDTH, T, SUM>(P, LDW, WIDTH, wt[F1T], nullptr, 0, 0, nullptr, MaskAct{mk, 32, rows}, Q,
+                       LDW, sums(C_GA4), red, keep(P, C_GA5));
   __syncthreads();
-  store_cols<T>(Q, LDW, WIDTH, chan(C_GA4), pal, p0, rows);
-  dense<WIDTH, T, SUM>(Q, LDW, WIDTH, wt[F0HT], nullptr, 0, 0, nullptr,
-                       MaskAct<T>{chan(C_A3), pal, p0, rows}, P, LDW, sums(C_GA3), BIAS_CH);
+  dense<WIDTH, T, SUM>(Q, LDW, WIDTH, wt[F0HT], nullptr, 0, 0, nullptr, MaskAct{mk, 24, rows}, P,
+                       LDW, sums(C_GA3), red, keep(Q, C_GA4));
   __syncthreads();
-  store_cols<T>(P, LDW, WIDTH, chan(C_GA3), pal, p0, rows);
-  dense<WIDTH, T, SUM>(P, LDW, WIDTH, wt[T3T], nullptr, 0, 0, nullptr,
-                       MaskAct<T>{chan(C_A2), pal, p0, rows}, Q, LDW, sums(C_GA2), BIAS_CH);
+  dense<WIDTH, T, SUM>(P, LDW, WIDTH, wt[T3T], nullptr, 0, 0, nullptr, MaskAct{mk, 16, rows}, Q,
+                       LDW, sums(C_GA2), red, keep(P, C_GA3));
   __syncthreads();
-  store_cols<T>(Q, LDW, WIDTH, chan(C_GA2), pal, p0, rows);
-  dense<WIDTH, T, SUM>(Q, LDW, WIDTH, wt[T2T], nullptr, 0, 0, nullptr,
-                       MaskAct<T>{chan(C_A1), pal, p0, rows}, P, LDW, sums(C_GA1), BIAS_CH);
+  dense<WIDTH, T, SUM>(Q, LDW, WIDTH, wt[T2T], nullptr, 0, 0, nullptr, MaskAct{mk, 8, rows}, P,
+                       LDW, sums(C_GA1), red, keep(Q, C_GA2));
   __syncthreads();
-  store_cols<T>(P, LDW, WIDTH, chan(C_GA1), pal, p0, rows);
-  dense<WIDTH, T, SUM>(P, LDW, WIDTH, wt[T1T], nullptr, 0, 0, nullptr,
-                       MaskAct<T>{chan(C_A0), pal, p0, rows}, Q, LDW, sums(C_GA0), BIAS_CH);
+  dense<WIDTH, T, SUM>(P, LDW, WIDTH, wt[T1T], nullptr, 0, 0, nullptr, MaskAct{mk, 0, rows}, Q,
+                       LDW, sums(C_GA0), red, keep(P, C_GA1));
   __syncthreads();
-  store_cols<T>(Q, LDW, WIDTH, chan(C_GA0), pal, p0, rows);
+  keep(Q, C_GA0)(0, 1);
 }
 
 }  // namespace

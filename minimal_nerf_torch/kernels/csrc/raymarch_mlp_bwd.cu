@@ -18,24 +18,27 @@
 //
 // Design (the fused backward's, fused_raymarch_bwd.cu, without rays):
 //   A  `points_bwd_kernel`: one CTA per tile of points (128 in bf16, 64 in
-//      fp32). It recomputes the forward, keeping each layer's input, forms
-//      the heads' gradients, then runs the reverse sweep, keeping each
+//      fp32). It recomputes the forward, keeping each layer's input in the
+//      scratch (3,944 channels, 7,888 B per point in bf16, one matrix per
+//      layer, stored while the next layer's products run) and each
+//      ReLU layer's mask as bits in shared memory (26.6 KB for the tile),
+//      forms the heads' gradients, then runs the reverse sweep, keeping each
 //      layer's output gradient (rounded to the compute dtype, as the
-//      products read it) in the feature-major scratch [3,944 channels,
-//      point], 7,888 B per point in bf16. While the sweep stores a gradient
-//      it also sums each column of the tile in fp32 before the rounding (in
-//      the dense layers' epilogue: per warp with shuffles, then in a fixed
-//      order across warps) and writes the tile's 1,928 bias sums to its own
-//      row of a per-CTA buffer.
+//      products read it). The masks never leave the CTA: no epilogue reads
+//      device memory. While the sweep stores a gradient it also sums each
+//      column of the tile in fp32 before the rounding (in the dense layers'
+//      epilogue, within the warp that owns the column) and writes the
+//      tile's 1,928 bias sums to its own row of a per-CTA buffer.
 //   B  `wgrad_*_kernel` and R `reduce_slices` (mlp_wgrad.cuh): the 12
-//      weight products over fixed slices of the points, then the slices
-//      added in a fixed order.
-//   R' `reduce_slices` again: the CTAs' bias sums added in CTA order.
+//      weight products over fixed slices of the points (a tiled GEMM with
+//      cp.async-staged operand tiles in bf16), then the slices added in a
+//      fixed order.
+//   R' `reduce_rows`: the CTAs' bias sums added in a fixed order.
 // No atomics: two launches on the same inputs give bit-identical results.
 //
 // What bounds it: tensor-core operations, 1,347,456 multiply-adds per point
 // (forward recomputed, activation gradients, weight gradients), against
-// ~16 KB of scratch written and read per point in bf16. Ragged edges: rows
+// 7,888 B of scratch written and read per point in bf16. Ragged edges: rows
 // past P are never stored and add zeros to every sum; kernel B reads points
 // past P as zeros.
 
@@ -47,23 +50,37 @@ struct PointBwdArgs : PointArgs {
   const float* dsig;
   const float* drgb;
   const void* wt[7];
-  void* scratch;
-  long long pal;       // points per scratch channel (padded)
+  void* scratch;        // Scratch of p points
   float* bias_partial;  // [CTAs][BIAS_CH]
 };
 
+// bsum[C_HEAD - C_GA0 + k] += the sum over rows [0, rows) of the heads'
+// gradient column k (k = 0: gsig, 1..3: grgb [rows, 3]); warp k sums column k
+__device__ __forceinline__ void head_sums(const float* gsig, const float* grgb, int rows,
+                                          float* bsum) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < 4) {
+    float s = 0.f;
+    for (int r = lane; r < rows; r += 32) s += warp == 0 ? gsig[r] : grgb[r * 3 + warp - 1];
+    s = warp_sum(s);
+    if (lane == 0) bsum[C_HEAD - C_GA0 + warp] += s;
+  }
+}
+
 // the forward's buffers, the tile's head values / gradients sig [M] and
-// rgb [M, 3], and the bias sums' partial rows [SUM_ROWS][BIAS_CH]
+// rgb [M, 3], the bias sums [BIAS_CH], the dense layers' partial column
+// sums [SUM_ROWS][WIDTH] and the tile's mask words [M][MASK_WORDS]
 template <class T>
 constexpr size_t smem_bytes() {
   constexpr int M = Tile<T>::M, PAD = Tile<T>::PAD;
   return sizeof(T) * (size_t)M * (2 * (WIDTH + PAD) + (KE + PAD) + (KD + PAD)) +
-         sizeof(float) * 4 * M + sizeof(float) * Tile<T>::SUM_ROWS * BIAS_CH;
+         sizeof(float) * (4 * M + BIAS_CH + Tile<T>::SUM_ROWS * WIDTH) +
+         sizeof(uint32_t) * M * MASK_WORDS;
 }
 
 template <class T>
 __global__ void __launch_bounds__(THREADS) points_bwd_kernel(PointBwdArgs a) {
-  constexpr int M = Tile<T>::M, PAD = Tile<T>::PAD, SUM_ROWS = Tile<T>::SUM_ROWS;
+  constexpr int M = Tile<T>::M, PAD = Tile<T>::PAD;
   constexpr int LDW = WIDTH + PAD, LDE = KE + PAD, LDD = KD + PAD;
   extern __shared__ __align__(16) unsigned char smem[];
   T* P = reinterpret_cast<T*>(smem);
@@ -73,18 +90,18 @@ __global__ void __launch_bounds__(THREADS) points_bwd_kernel(PointBwdArgs a) {
   float* sig = reinterpret_cast<float*>(D + M * LDD);
   float* rgb = sig + M;
   float* bsum = rgb + 3 * M;
+  float* red = bsum + BIAS_CH;
+  uint32_t* mk = reinterpret_cast<uint32_t*>(red + Tile<T>::SUM_ROWS * WIDTH);
 
-  T* sc = static_cast<T*>(a.scratch);
+  const Scratch<T> sc{static_cast<T*>(a.scratch), a.p};
   const long long p0 = (long long)blockIdx.x * M;
   const int rows = (int)min((long long)M, a.p - p0);
-  // partial rows that no dense layer writes (the head block, g_r0's rows
-  // past the first two) stay zero
-  for (int i = threadIdx.x; i < SUM_ROWS * BIAS_CH; i += THREADS) bsum[i] = 0.f;
+  for (int i = threadIdx.x; i < BIAS_CH; i += THREADS) bsum[i] = 0.f;
 
-  // 1. the forward, keeping every layer's input
+  // 1. the forward, keeping every layer's input and the ReLU masks
   encode_points<T>(a, p0, E, LDE, D, LDD);
   __syncthreads();
-  mlp_forward<T, true>(a, E, D, P, Q, sc, a.pal, p0, rows);
+  mlp_forward<T, true>(a, E, D, P, Q, sc, p0, rows, mk);
   heads<T>(a, P, Q, LDW, 0, rows, sig, rgb);
   __syncthreads();
 
@@ -100,15 +117,8 @@ __global__ void __launch_bounds__(THREADS) points_bwd_kernel(PointBwdArgs a) {
     }
   }
   __syncthreads();
-  // their column sums (warp k < 4: column k of the head block), then the
-  // rounding the products read
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp < 4) {
-    float s = 0.f;
-    for (int r = lane; r < M; r += 32) s += warp == 0 ? sig[r] : rgb[r * 3 + warp - 1];
-    s = warp_sum(s);
-    if (lane == 0) bsum[C_HEAD - C_GA0 + warp] = s;
-  }
+  // their column sums, then the rounding the products read
+  head_sums(sig, rgb, rows, bsum);
   __syncthreads();
   for (int r = threadIdx.x; r < M; r += THREADS) {
     sig[r] = tof(fromf<T>(sig[r]));
@@ -119,16 +129,12 @@ __global__ void __launch_bounds__(THREADS) points_bwd_kernel(PointBwdArgs a) {
 
   // 3. the reverse sweep, keeping every layer's output gradient and its
   // unrounded column sums
-  reverse_sweep<T, true>(a, a.wt, P, Q, sc, a.pal, p0, rows, sig, rgb, bsum);
+  reverse_sweep<T, true>(a, a.wt, P, Q, sc, p0, rows, sig, rgb, mk, bsum, red);
+  __syncthreads();
 
-  // 4. the tile's bias sums, the partial rows added in order
+  // 4. the tile's bias sums
   float* out = a.bias_partial + (long long)blockIdx.x * BIAS_CH;
-  for (int i = threadIdx.x; i < BIAS_CH; i += THREADS) {
-    float s = bsum[i];
-#pragma unroll
-    for (int k = 1; k < SUM_ROWS; ++k) s += bsum[k * BIAS_CH + i];
-    out[i] = s;
-  }
+  for (int i = threadIdx.x; i < BIAS_CH; i += THREADS) out[i] = bsum[i];
 }
 
 int check_sizes(long long p, int position_dim, int direction_dim) {
@@ -153,33 +159,32 @@ int launch(const PointBwdArgs& a, const Plan& pl, float* partial, float* grads,
   const long long grid = ctas<T>(a.p);
   points_bwd_kernel<T><<<(unsigned)grid, THREADS, bytes, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int rc = launch_wgrad<T>(pl, a.scratch, partial, grads, stream);
+  const int rc = launch_wgrad<T>(pl, a.scratch, partial, grads, nullptr, stream);
   if (rc != 0) return rc;
-  reduce_slices<<<(BIAS_CH + 255) / 256, 256, 0, stream>>>(a.bias_partial, (int)grid, BIAS_CH,
-                                                           grads + pl.total);
-  return (int)cudaGetLastError();
+  return launch_reduce_rows(a.bias_partial, grid, BIAS_CH, grads + pl.total, stream);
 }
 
 }  // namespace
 
-// out = {scratch points per channel (padded), slices, weight-gradient
-// floats, CTAs, bias floats (1928)}: the caller allocates scratch
-// [3944, out[0]] in the compute dtype, partial [out[1], out[2]] fp32,
-// bias_partial [out[3], out[4]] fp32 and grads [out[2] + out[4]] fp32.
-// Returns 0, or -1 for p < 1.
+// out = {scratch points, slices, weight-gradient floats, CTAs, bias floats
+// (1928), scratch channels per point (3944)}: the caller allocates scratch
+// [out[0] * out[5]] in the compute dtype,
+// partial [out[1], out[2]] fp32, bias_partial [out[3], out[4]] fp32 and
+// grads [out[2] + out[4]] fp32. Returns 0, or -1 for p < 1.
 extern "C" int raymarch_mlp_bwd_sizes(int p, int is_bf16, long long* out) {
   const int rc = check_sizes(p, 1, 1);
   if (rc != 0) return rc;
-  const Plan pl = make_plan(p, WEIGHT_JOBS);
-  out[0] = pl.pal;
+  const Plan pl = make_plan(p);
+  out[0] = pl.p;
   out[1] = pl.slices;
   out[2] = pl.total;
   out[3] = is_bf16 ? ctas<__nv_bfloat16>(p) : ctas<float>(p);
   out[4] = BIAS_CH;
+  out[5] = CHANNELS;
   return 0;
 }
 
-// Writes the 12 weight gradients (the first 12 blocks of GRAD_BLOCKS), then
+// Writes the 12 weight gradients (the weight blocks of GRAD_BLOCKS), then
 // the 1,928 bias sums in scratch channel order (g_a0..g_a5, g_h, g_r0, the
 // heads' block), into grads. Returns 0 on success, a cudaError_t value if a
 // launch failed, or a negative code for arguments the kernel does not take
@@ -191,7 +196,7 @@ extern "C" int raymarch_mlp_bwd(const void* x, const void* d, const void* dsig,
                                 void* stream) {
   const int rc = check_sizes(p, position_dim, direction_dim);
   if (rc != 0) return rc;
-  const Plan pl = make_plan(p, WEIGHT_JOBS);
+  const Plan pl = make_plan(p);
   PointBwdArgs a;
   a.x = static_cast<const float*>(x);
   a.dir = static_cast<const float*>(d);
@@ -207,7 +212,6 @@ extern "C" int raymarch_mlp_bwd(const void* x, const void* d, const void* dsig,
   a.dsig = static_cast<const float*>(dsig);
   a.drgb = static_cast<const float*>(drgb);
   a.scratch = scratch;
-  a.pal = pl.pal;
   a.bias_partial = static_cast<float*>(bias_partial);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);

@@ -49,12 +49,19 @@ WIDTH, RGB_WIDTH = 256, 128   # the widths the kernels are compiled for
 POS_SLOT, DIR_SLOT = 64, 32   # padded encoding widths in the kernels
 MAX_SAMPLES = 1024            # samples per ray the kernels' buffers hold
 
-# The backward's scratch, feature-major [channel, point] in the compute
-# dtype: every layer's input (e, ed, a0..a5, h, r0), then every layer's
+# The backward's scratch in the compute dtype, SCRATCH_CHANNELS values per
+# point: every layer's input (e, ed, a0..a5, h, r0), then every layer's
 # output gradient (g_a0..g_a5, g_h, g_r0, and the heads' 8-channel block),
-# the channel order of csrc/fused_raymarch_bwd.cu
+# the channel order of csrc/fused_raymarch_common.cuh, each block of
+# channels its own matrix [points, block width]
 SCRATCH_CHANNELS = (POS_SLOT + DIR_SLOT + 7 * WIDTH + RGB_WIDTH
                     + 7 * WIDTH + RGB_WIDTH + 8)  # 3944
+# the backwards' fp32 bias sums: one float per gradient channel of the
+# scratch (g_a0..g_a5, g_h, g_r0, then the heads' block g_sigpre | g_rgbpre
+# | 4 zeros)
+BIAS_CHANNELS = 7 * WIDTH + RGB_WIDTH + 8  # 1928
+# the fused backward's ReLU mask bits per point, as int32 words: a0..a5 and r0
+MASK_WORDS = (6 * WIDTH + RGB_WIDTH) // 32  # 52
 
 
 class FusedMLP(NamedTuple):
@@ -351,13 +358,14 @@ def fused_forward(fm: FusedMLP, o, d, ts, position_dim: int = 10,
     raise ValueError(f"no fused ray-march implementation for device {o.device}")
 
 
-def _bwd_sizes(n: int, s: int, lib) -> Tuple[int, int, int, int]:
-    """``(points, padded points, slices, partial floats)`` of one backward:
-    the kernel's own choice of rays per CTA and point slices."""
+def _bwd_sizes(n: int, s: int, lib) -> Tuple[int, ...]:
+    """``(points, slices, weight-gradient floats, bias-sum rows, bias
+    floats, mask words per point, scratch channels)`` of one backward: the
+    kernel's own choice of rays per CTA and point slices."""
     fn = lib.fused_raymarch_bwd_sizes
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_longlong * 4)()
+    out = (ctypes.c_longlong * 7)()
     rc = fn(n, s, out)
     if rc != 0:
         raise ValueError(f"{BWD_KERNEL} does not take n={n}, s={s} (code {rc})")
@@ -378,21 +386,24 @@ def _launch_bwd(fm: FusedMLP, o, d, ts, dcolor, dweights, position_dim, directio
     if fm.kernel_wts is None or any(w.device != dev for w in fm.kernel_wts):
         raise ValueError(f"transposed weights are not prepared on {dev}")
     if n == 0:
-        return _split_grads(torch.zeros((sum(r * c for r, c in GRAD_BLOCKS),),
-                                        dtype=torch.float32, device=dev), fm)
+        return _split_grads(torch.zeros((GRAD_FLOATS,), dtype=torch.float32, device=dev), fm)
     lib = build.load(BWD_KERNEL)
-    _, p_alloc, slices, total = _bwd_sizes(n, s, lib)
-    if total != sum(r * c for r, c in GRAD_BLOCKS):
-        raise RuntimeError(f"{BWD_KERNEL} writes {total} gradient floats, expected "
-                           f"the {len(GRAD_BLOCKS)} blocks of GRAD_BLOCKS")
-    grads = torch.empty((total,), dtype=torch.float32, device=dev)
-    sdtype = fm.dtype or torch.float32
-    scratch = torch.empty((SCRATCH_CHANNELS, p_alloc), dtype=sdtype, device=dev)
+    points, slices, total, bias_rows, bias, words, channels = _bwd_sizes(n, s, lib)
+    if (total + bias, words, channels) != (GRAD_FLOATS, MASK_WORDS, SCRATCH_CHANNELS):
+        raise RuntimeError(f"{BWD_KERNEL} writes {total} + {bias} gradient floats, {words} "
+                           f"mask words and {channels} scratch channels, expected the blocks "
+                           f"of GRAD_BLOCKS ({GRAD_FLOATS}), {MASK_WORDS} and "
+                           f"{SCRATCH_CHANNELS}")
+    grads = torch.empty((GRAD_FLOATS,), dtype=torch.float32, device=dev)
+    scratch = torch.empty((points, SCRATCH_CHANNELS), dtype=fm.dtype or torch.float32,
+                          device=dev)
+    masks = torch.empty((points, MASK_WORDS), dtype=torch.int32, device=dev)
     partial = torch.empty((slices, total), dtype=torch.float32, device=dev)
+    bias_partial = torch.empty((bias_rows, BIAS_CHANNELS), dtype=torch.float32, device=dev)
 
     fn = lib.fused_raymarch_bwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p, p]
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p, p, p, p]
     fn.restype = i
     (w_ptrs, _kw), (b_ptrs, _kb), (wt_ptrs, _kt) = (
         _ptrs(fm.kernel_ws), _ptrs(fm.kernel_bs), _ptrs(fm.kernel_wts))
@@ -401,7 +412,8 @@ def _launch_bwd(fm: FusedMLP, o, d, ts, dcolor, dweights, position_dim, directio
         rc = fn(o.data_ptr(), d.data_ptr(), ts.data_ptr(), dcolor.data_ptr(),
                 dweights.data_ptr() if dweights is not None else None, n, s, position_dim,
                 direction_dim, int(fm.dtype == torch.bfloat16), w_ptrs, b_ptrs, wt_ptrs,
-                scratch.data_ptr(), partial.data_ptr(), grads.data_ptr(), stream)
+                scratch.data_ptr(), masks.data_ptr(), partial.data_ptr(),
+                bias_partial.data_ptr(), grads.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{BWD_KERNEL} launch failed with code {rc}")
     bwd_launches += 1
@@ -409,20 +421,20 @@ def _launch_bwd(fm: FusedMLP, o, d, ts, dcolor, dweights, position_dim, directio
     return _split_grads(grads, fm)
 
 
-# ``(rows, cols)`` of each block the weight-gradient kernel writes, in its
+# ``(rows, cols)`` of each block both backward kernels write, in their
 # order: the 12 weight products (encodings padded to their slots, the two
-# heads sharing one 8-column gradient block), then the column sums of the 9
-# gradient blocks (32 rows, the first one used)
+# heads sharing one 8-column gradient block), then one row of the
+# BIAS_CHANNELS bias sums in scratch channel order
 GRAD_BLOCKS = ([(POS_SLOT, WIDTH)] + [(WIDTH, WIDTH)] * 4 + [(POS_SLOT, WIDTH)]
                + [(WIDTH, WIDTH)] * 2 + [(WIDTH, 8), (WIDTH, RGB_WIDTH),
                                          (DIR_SLOT, RGB_WIDTH), (RGB_WIDTH, 8)]
-               + [(32, WIDTH)] * 7 + [(32, RGB_WIDTH), (32, 8)])
+               + [(1, BIAS_CHANNELS)])
+GRAD_FLOATS = sum(r * c for r, c in GRAD_BLOCKS)
 
 
-def _weight_grads(flat: torch.Tensor, fm: FusedMLP):
-    """The 12 weight gradients at the head of a backward kernel's flat fp32
-    output (the first 12 blocks of ``GRAD_BLOCKS``), and the offset past
-    them."""
+def _split_grads(flat: torch.Tensor, fm: FusedMLP):
+    """A backward kernel's flat fp32 output (``GRAD_BLOCKS``) as 12 weight
+    and 10 bias gradients."""
     gws, off = [], 0
     for rows, cols in GRAD_BLOCKS[:12]:
         gws.append(flat[off: off + rows * cols].view(rows, cols))
@@ -430,17 +442,10 @@ def _weight_grads(flat: torch.Tensor, fm: FusedMLP):
     pe, de = fm.ws[0].shape[0], fm.ws[10].shape[0]
     gws[0], gws[5], gws[10] = gws[0][:pe], gws[5][:pe], gws[10][:de]
     gws[8], gws[11] = gws[8][:, :1], gws[11][:, 1:4]
-    return gws, off
-
-
-def _split_grads(flat: torch.Tensor, fm: FusedMLP):
-    """The kernel's flat fp32 output as 12 weight and 10 bias gradients."""
-    gws, off = _weight_grads(flat, fm)
-    rows0 = []
-    for rows, cols in GRAD_BLOCKS[12:]:
-        rows0.append(flat[off: off + cols].view(1, cols))
-        off += rows * cols
-    gbs = rows0[:7] + [rows0[8][:, :1], rows0[7], rows0[8][:, 1:4]]
+    b = flat[off: off + BIAS_CHANNELS].view(1, -1)
+    head = b[:, 7 * WIDTH + RGB_WIDTH:]
+    gbs = [b[:, i * WIDTH:(i + 1) * WIDTH] for i in range(7)] + [
+        head[:, :1], b[:, 7 * WIDTH: 7 * WIDTH + RGB_WIDTH], head[:, 1:4]]
     return gws, gbs
 
 

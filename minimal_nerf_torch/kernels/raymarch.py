@@ -46,10 +46,6 @@ bwd_launches = 0
 
 KERNEL = "raymarch_mlp_fwd"
 BWD_KERNEL = "raymarch_mlp_bwd"
-# the backward's fp32 bias sums, per CTA and in total: one float per
-# gradient channel of the scratch (g_a0..g_a5, g_h, g_r0, then the heads'
-# 8-channel block g_sigpre | g_rgbpre | 4 zeros)
-BIAS_CHANNELS = 7 * fr.WIDTH + fr.RGB_WIDTH + 8  # 1928
 # the MLPs an mlp_apply hook keeps packed: a render's coarse and fine, and
 # room for a second network
 _CACHED_MLPS = 4
@@ -223,28 +219,16 @@ def points_forward(fm: fr.FusedMLP, x_pts, d_pts, position_dim: int = 10,
 
 def _bwd_sizes(p: int, is_bf16: bool, lib) -> Tuple[int, ...]:
     """``(scratch points, slices, weight-gradient floats, CTAs, bias
-    floats)`` of one backward: the kernel's own tiling of the points."""
+    floats, scratch channels)`` of one backward: the kernel's own tiling of
+    the points."""
     fn = lib.raymarch_mlp_bwd_sizes
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_longlong * 5)()
+    out = (ctypes.c_longlong * 6)()
     rc = fn(p, int(is_bf16), out)
     if rc != 0:
         raise ValueError(f"{BWD_KERNEL} does not take p={p} (code {rc})")
     return tuple(int(v) for v in out)
-
-
-def _split_point_grads(flat: torch.Tensor, fm: fr.FusedMLP):
-    """The backward kernel's flat fp32 output (the 12 weight blocks of
-    ``fused_raymarch.GRAD_BLOCKS``, then the ``BIAS_CHANNELS`` sums) as 12
-    weight and 10 bias gradients."""
-    gws, off = fr._weight_grads(flat, fm)
-    b = flat[off: off + BIAS_CHANNELS].view(1, -1)
-    w, rw = fr.WIDTH, fr.RGB_WIDTH
-    head = b[:, 7 * w + rw:]
-    gbs = [b[:, i * w:(i + 1) * w] for i in range(7)] + [
-        head[:, :1], b[:, 7 * w: 7 * w + rw], head[:, 1:4]]
-    return gws, gbs
 
 
 def _launch_bwd(fm: fr.FusedMLP, x_pts, d_pts, dsig, drgb, position_dim, direction_dim):
@@ -257,21 +241,21 @@ def _launch_bwd(fm: fr.FusedMLP, x_pts, d_pts, dsig, drgb, position_dim, directi
                            position_dim, direction_dim)
     if fm.kernel_wts is None or any(w.device != dev for w in fm.kernel_wts):
         raise ValueError(f"transposed weights are not prepared on {dev}")
-    wfloats = sum(r * c for r, c in fr.GRAD_BLOCKS[:12])
     if p == 0:
-        return _split_point_grads(torch.zeros((wfloats + BIAS_CHANNELS,), dtype=torch.float32,
-                                              device=dev), fm)
+        return fr._split_grads(torch.zeros((fr.GRAD_FLOATS,), dtype=torch.float32,
+                                           device=dev), fm)
     lib = build.load(BWD_KERNEL)
     is_bf16 = fm.dtype == torch.bfloat16
-    pal, slices, total, ctas, bias = _bwd_sizes(p, is_bf16, lib)
-    if (total, bias) != (wfloats, BIAS_CHANNELS):
-        raise RuntimeError(f"{BWD_KERNEL} writes {total} + {bias} gradient floats, expected "
-                           f"the 12 weight blocks of GRAD_BLOCKS ({wfloats}) + {BIAS_CHANNELS}")
-    grads = torch.empty((total + BIAS_CHANNELS,), dtype=torch.float32, device=dev)
-    scratch = torch.empty((fr.SCRATCH_CHANNELS, pal), dtype=fm.dtype or torch.float32,
+    points, slices, total, ctas, bias, channels = _bwd_sizes(p, is_bf16, lib)
+    if (total + bias, channels) != (fr.GRAD_FLOATS, fr.SCRATCH_CHANNELS):
+        raise RuntimeError(f"{BWD_KERNEL} writes {total} + {bias} gradient floats through "
+                           f"{channels} scratch channels, expected the blocks of GRAD_BLOCKS "
+                           f"({fr.GRAD_FLOATS}) and {fr.SCRATCH_CHANNELS}")
+    grads = torch.empty((fr.GRAD_FLOATS,), dtype=torch.float32, device=dev)
+    scratch = torch.empty((points, fr.SCRATCH_CHANNELS), dtype=fm.dtype or torch.float32,
                           device=dev)
     partial = torch.empty((slices, total), dtype=torch.float32, device=dev)
-    bias_partial = torch.empty((ctas, BIAS_CHANNELS), dtype=torch.float32, device=dev)
+    bias_partial = torch.empty((ctas, fr.BIAS_CHANNELS), dtype=torch.float32, device=dev)
 
     fn = lib.raymarch_mlp_bwd
     ptr, i = ctypes.c_void_p, ctypes.c_int
@@ -288,7 +272,7 @@ def _launch_bwd(fm: fr.FusedMLP, x_pts, d_pts, dsig, drgb, position_dim, directi
     if rc != 0:
         raise RuntimeError(f"{BWD_KERNEL} launch failed with code {rc}")
     bwd_launches += 1
-    return _split_point_grads(grads, fm)
+    return fr._split_grads(grads, fm)
 
 
 def points_backward(fm: fr.FusedMLP, x_pts, d_pts, dsig, drgb, position_dim: int = 10,
