@@ -245,6 +245,24 @@ def bound_ms(fm, n: int, s: int, peak: float, macs: int = 0, io_floats: int = 0)
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def ptxas_report(name: str, entry: str) -> str:
+    """Registers and spills of the kernel entry whose name contains
+    ``entry`` in this run's build of ``csrc/<name>.cu`` (ptxas -v)."""
+    from minimal_nerf_torch.kernels import build
+
+    lines = build.BUILD_LOGS.get(name, "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and entry in line:
+            regs = spill = "?"
+            for nxt in lines[i + 1:i + 5]:
+                if "spill" in nxt:
+                    spill = nxt.split(",", 1)[1].strip()
+                if "registers" in nxt:
+                    regs = nxt.split("Used", 1)[1].split("registers")[0].strip()
+            return f"{entry}: {regs} registers at launch, {spill}"
+    return f"{entry}: not built in this run"
+
+
 def sample_rays(n: int, s: int, gen: torch.Generator, dev):
     """Rays of an orbit view (the main path's geometry) and sorted times."""
     from minimal_nerf_torch.ops import cameras
@@ -348,11 +366,13 @@ def phase_kernels(dev, report):
             lib_ms = cuda_ms(library_chain(fm, RAYS, s, dev))
             b_ms, b_by = bound_ms(fm, RAYS, s, PEAK_BF16 if dtype else PEAK_FP32)
             ok_all &= cok and wok and sep_ok and not missed
+            entry = "fused_fwd_sm90" if dtype else "fused_fwd_kernel"
             print(f"[kernel] {prec} N={RAYS} S={s}: color max_abs={ca:.3e} mean_abs={cm:.3e} "
                   f"weights max_abs={wa:.3e} mean_abs={wm:.3e} (tol atol={atol} rtol={rtol} "
                   f"mean_rtol={mean_rtol}) {'PASS' if cok and wok else 'FAIL'}; ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} "
-                  f"({b_by})", flush=True)
+                  f"({b_by}), {100 * b_ms / ms:.1f}% of the bound's rate; "
+                  f"{ptxas_report('fused_raymarch_fwd', entry)}", flush=True)
             report[(prec, s)] = dict(err=max(ca, wa), ms=ms, plain_ms=plain_ms,
                                      library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     if not ok_all:
@@ -568,6 +588,7 @@ def phase_kernel_mlp(dev, report):
                                   io_floats=10 * RAYS * s)
             ok = sok and rok and sep_ok and not missed
             ok_all &= ok
+            entry = "points_fwd_sm90" if dtype else "points_fwd_kernel"
             print(f"[kernel-mlp] {prec} P={RAYS}x{s}: sigma max_abs={sa:.3e} mean_abs={sm:.3e} "
                   f"(tol atol/rtol/mean_rtol {tols[0]}) rgb max_abs={ra:.3e} mean_abs="
                   f"{rmean:.3e} (tol {tols[1]}); spread (std) sigma={spread[0]:.3e} rgb="
@@ -575,7 +596,9 @@ def phase_kernel_mlp(dev, report):
                   f"{max_at[1]:.3e} (need {SEP_MAX}x below), mean bound sigma={mean_at[0]:.3e} "
                   f"rgb={mean_at[1]:.3e} (need {SEP_MEAN}x below); faulty plain versions "
                   f"passed: {missed or 'none'}; ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}), "
+                  f"{100 * b_ms / ms:.1f}% of the bound's rate; "
+                  f"{ptxas_report('raymarch_mlp_fwd', entry)} "
                   f"{'PASS' if ok else 'FAIL'}", flush=True)
             report[("mlp", prec, s)] = dict(err=max(sa, ra), ms=ms, plain_ms=plain_ms,
                                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
@@ -1419,10 +1442,10 @@ def phase_occ_reference(dev, scene, params, grid, cfg, tcfg):
               note=", occupancy sampler on the CPU's words")
 
 
-FUSED_GROUPS = {"forward kernel": ("fused_fwd_kernel",),
+FUSED_GROUPS = {"forward kernel": ("fused_fwd_sm90",),
                 "backward kernels": ("fused_bwd_kernel", "wgrad_", "reduce_slices",
                                      "reduce_rows")}
-POINT_GROUPS = {"point forward kernel": ("points_fwd_kernel",),
+POINT_GROUPS = {"point forward kernel": ("points_fwd_sm90",),
                 "point backward kernels": ("points_bwd_kernel", "wgrad_", "reduce_slices",
                                            "reduce_rows")}
 

@@ -8,7 +8,8 @@ sampler needs; its backward turns ``dcolor``/``dweights`` into the MLP's
 weight and bias gradients summed over all rays.
 
 - ``fused_forward`` / ``fused_backward`` are the wrappers: for CUDA tensors
-  they launch the hand-written kernels in ``csrc/fused_raymarch_fwd.cu`` and
+  they launch the hand-written kernels in ``csrc/fused_raymarch_fwd.cu``
+  (whose bf16 MLP is ``csrc/mlp_fwd_sm90.cuh``) and
   ``csrc/fused_raymarch_bwd.cu`` (adding one to ``launches`` /
   ``bwd_launches``); for CPU tensors they run ``fused_forward_plain`` /
   ``fused_backward_plain``, the same functions in plain PyTorch with the same
@@ -70,7 +71,9 @@ class FusedMLP(NamedTuple):
     ws: List[torch.Tensor]
     bs: List[torch.Tensor]
     dtype: Optional[torch.dtype]
-    # kernel operands (packed weights, flat biases) for CUDA, else None
+    # kernel operands for CUDA, else None: the weights as the backwards and
+    # the fp32 forwards read them (``_layout``; the bf16 forwards read only
+    # the heads' here), flat biases
     kernel_ws: Optional[List[torch.Tensor]]
     kernel_bs: Optional[List[torch.Tensor]]
     # the transposed weights the backward's reverse sweep multiplies by
@@ -79,10 +82,16 @@ class FusedMLP(NamedTuple):
     # the parameter tensors this was prepared from, in ``flatten_tree``
     # order: gradients flow to them through ``_FusedPass``
     leaves: Tuple[torch.Tensor, ...] = ()
+    # bf16 on CUDA: the forwards' matrices as ``W^T [N, Kp]`` (``FWD_MATRICES``,
+    # ``_pack_kmajor``) and their tensor maps (``FWD_MAPS_BYTES`` of host
+    # memory), encoded once here; else None
+    kernel_fwd_ws: Optional[List[torch.Tensor]] = None
+    kernel_maps: Optional[Any] = None
 
 
 def _pack_mma(w: torch.Tensor, k_pad: int) -> torch.Tensor:
-    """``w [K, N]`` bf16 -> mma.sync B fragments ``[N/8, Kp/16, 32, 4]``.
+    """``w [K, N]`` bf16 -> mma.sync B fragments ``[N/8, Kp/16, 32, 4]``, the
+    layout the backward kernels read.
 
     Lane ``g*4 + t`` of n-tile ``j`` and k-step ``kk`` holds
     ``W^T[j*8 + g][kk*16 + r*8 + t*2 + e]`` for ``r, e in {0, 1}``.
@@ -92,6 +101,44 @@ def _pack_mma(w: torch.Tensor, k_pad: int) -> torch.Tensor:
     wt[:, :k] = w.t()
     return (wt.reshape(n // 8, 8, k_pad // 16, 2, 4, 2)
             .permute(0, 2, 1, 4, 3, 5).contiguous())
+
+
+def _pack_kmajor(w: torch.Tensor, k_pad: int) -> torch.Tensor:
+    """``w [K, N]`` -> ``W^T [N, Kp]``, K zero-padded to ``k_pad``: the
+    K-major matrix a tensor map of the bf16 forwards reads, 64 columns of
+    k per box (``csrc/mlp_fwd_sm90.cuh``)."""
+    k, n = w.shape
+    if k == k_pad:
+        return w.t().contiguous()
+    wt = torch.zeros((n, k_pad), dtype=w.dtype, device=w.device)
+    wt[:, :k] = w.t()
+    return wt
+
+
+# the matrices of the bf16 forwards' tensor maps (``flatten_mlp_params``
+# slots T0, T1, T2, T3, F0H, F0E, F1, F2, R0H, R0D) and their padded K: the
+# encodings' 64 columns of one box (the direction's 24 channels padded to
+# 64, not to DIR_SLOT)
+FWD_MATRICES = (0, 1, 2, 3, 4, 5, 6, 7, 9, 10)
+FWD_K_PAD = {0: 64, 5: 64, 10: 64}
+FWD_MAPS_BYTES = 10 * 128  # one CUtensorMap per matrix
+
+
+def _forward_maps(fwd_ws: List[torch.Tensor]):
+    """The tensor maps of the forwards' matrices, encoded on the host by
+    the fused forward's library (``mlp_fwd_sm90_maps``); raises if the
+    encode fails."""
+    from minimal_nerf_torch.kernels import build
+
+    fn = build.load(KERNEL).mlp_fwd_sm90_maps
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    maps = ctypes.create_string_buffer(FWD_MAPS_BYTES)
+    ptrs, _keep = _ptrs(fwd_ws)
+    rc = fn(ptrs, ctypes.cast(maps, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"encoding the forwards' tensor maps failed with code {rc}")
+    return maps
 
 
 def _pad_rows(w: torch.Tensor, k_pad: int) -> torch.Tensor:
@@ -151,10 +198,24 @@ def prepare_fused_mlp(params: Params, compute_dtype=None) -> FusedMLP:
     dtype = None if compute_dtype == torch.float32 else compute_dtype
     with torch.no_grad():
         ws, bs = flatten_mlp_params(params, dtype)
-        kws = kbs = kwts = None
-        if ws[0].device.type == "cuda":
-            kws, kbs, kwts = _kernel_operands(ws, bs, dtype)
-    return FusedMLP(ws, bs, dtype, kws, kbs, kwts, tuple(flatten_tree(params)))
+        return _prepared(ws, bs, dtype, tuple(flatten_tree(params)))
+
+
+def _forward_operands(ws: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The bf16 forwards' matrices ``W^T [N, Kp]`` in ``FWD_MATRICES`` order."""
+    return [_pack_kmajor(ws[i], FWD_K_PAD.get(i, WIDTH)) for i in FWD_MATRICES]
+
+
+def _prepared(ws, bs, dtype, leaves=()) -> FusedMLP:
+    """The flat weights and biases with the kernels' operands for their
+    device (CUDA only), the bf16 forwards' tensor maps encoded once here."""
+    kws = kbs = kwts = fwd_ws = maps = None
+    if ws[0].device.type == "cuda":
+        kws, kbs, kwts = _kernel_operands(ws, bs, dtype)
+        if dtype == torch.bfloat16:
+            fwd_ws = _forward_operands(ws)
+            maps = _forward_maps(fwd_ws)
+    return FusedMLP(ws, bs, dtype, kws, kbs, kwts, leaves, fwd_ws, maps)
 
 
 def _encode(x: torch.Tensor, dim: int, dtype) -> torch.Tensor:
@@ -303,6 +364,16 @@ def _check_launch(fm: FusedMLP, tensors, position_dim, direction_dim):
     return dev
 
 
+def _maps_arg(fm: FusedMLP, dev):
+    """The forwards' tensor maps as a launch argument: bf16 needs them,
+    prepared on ``dev``; fp32 passes none."""
+    if fm.dtype != torch.bfloat16:
+        return None
+    if fm.kernel_maps is None or any(w.device != dev for w in fm.kernel_fwd_ws):
+        raise ValueError(f"the forwards' tensor maps are not prepared on {dev}")
+    return ctypes.cast(fm.kernel_maps, ctypes.c_void_p)
+
+
 def _check_samples(s: int):
     if not 1 <= s <= MAX_SAMPLES:
         raise ValueError(f"the fused kernel takes 1..{MAX_SAMPLES} samples per ray, got {s}")
@@ -330,14 +401,14 @@ def _launch(fm: FusedMLP, o, d, ts, position_dim, direction_dim):
 
     fn = build.load(KERNEL).fused_raymarch_fwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p, p]
+    fn.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p, p, p]
     fn.restype = i
     (w_ptrs, _keep_w), (b_ptrs, _keep_b) = _ptrs(fm.kernel_ws), _ptrs(fm.kernel_bs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(o.data_ptr(), d.data_ptr(), ts.data_ptr(), n, s, position_dim,
                 direction_dim, int(fm.dtype == torch.bfloat16), w_ptrs, b_ptrs,
-                color.data_ptr(), weights.data_ptr(), stream)
+                _maps_arg(fm, dev), color.data_ptr(), weights.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{KERNEL} launch failed with code {rc}")
     launches += 1

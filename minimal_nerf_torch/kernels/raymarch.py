@@ -189,14 +189,14 @@ def _launch(fm: fr.FusedMLP, x_pts, d_pts, position_dim, direction_dim):
         return sigma, rgb
     fn = build.load(KERNEL).raymarch_mlp_fwd
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr, ptr, i, i, i, i, ptr, ptr, ptr, ptr, ptr]
+    fn.argtypes = [ptr, ptr, i, i, i, i, ptr, ptr, ptr, ptr, ptr, ptr]
     fn.restype = i
     (w_ptrs, _keep_w), (b_ptrs, _keep_b) = fr._ptrs(fm.kernel_ws), fr._ptrs(fm.kernel_bs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x_pts.data_ptr(), d_pts.data_ptr(), p, position_dim, direction_dim,
-                int(fm.dtype == torch.bfloat16), w_ptrs, b_ptrs, sigma.data_ptr(),
-                rgb.data_ptr(), stream)
+                int(fm.dtype == torch.bfloat16), w_ptrs, b_ptrs, fr._maps_arg(fm, dev),
+                sigma.data_ptr(), rgb.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{KERNEL} launch failed with code {rc}")
     launches += 1

@@ -187,6 +187,37 @@ def test_mma_packing_layout():
                         assert flat[j, kk, lane, r * 2 + e] == want
 
 
+def test_kmajor_packing_layout():
+    """The bf16 forwards' matrices: element (n, k) of the packed ``W^T`` is
+    ``W[k, n]``, the padded columns are zero; at full width each matrix has
+    the shape its tensor map is encoded for, and the backward's
+    ``_pack_mma`` layout of the same weights is unchanged."""
+    k, n = 40, 16
+    w = torch.arange(k * n, dtype=torch.float32).reshape(k, n).to(torch.bfloat16)
+    packed = t_fused._pack_kmajor(w, 64)
+    assert packed.shape == (n, 64) and packed.is_contiguous()
+    for nn in range(n):
+        for kk in range(64):
+            assert packed[nn, kk] == (w[kk, nn] if kk < k else 0)
+
+    from minimal_nerf_torch.kernels.raymarch import flatten_mlp_params
+
+    _, tp = _mlp(width=256, rgb_width=128)
+    ws, bs = flatten_mlp_params(tp, torch.bfloat16)
+    fwd = t_fused._forward_operands(ws)
+    # T0, T1, T2, T3, F0H, F0E, F1, F2, R0H, R0D as W^T [N, Kp]
+    assert [tuple(m.shape) for m in fwd] == (
+        [(256, 64)] + [(256, 256)] * 4 + [(256, 64)] + [(256, 256)] * 2
+        + [(128, 256), (128, 64)])
+    for m, i in zip(fwd, t_fused.FWD_MATRICES):
+        kk = ws[i].shape[0]
+        assert m.dtype == torch.bfloat16 and m.is_contiguous()
+        assert torch.equal(m[:, :kk], ws[i].t()) and not m[:, kk:].any()
+    kws, _, _ = t_fused._kernel_operands(ws, bs, torch.bfloat16)
+    for i in (1, 5, 10):
+        assert torch.equal(kws[i], t_fused._pack_mma(ws[i], {5: 64, 10: 32}.get(i, 256)))
+
+
 def test_unsupported_device_raises():
     _, tp = _mlp()
     fm = t_fused.prepare_fused_mlp(tp)

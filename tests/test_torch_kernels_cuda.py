@@ -61,7 +61,10 @@ def _inputs(seed, n, s, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [None, torch.bfloat16])
-@pytest.mark.parametrize("n,s", [(37, 64), (64, 192), (5, 250), (3, 1)])
+# S in {1, 7, 64, 192, 250, 1024}; N not a multiple of the rays per CTA
+# (128 at S = 1 or 7, 2 at S = 64, 192 or 250; 1 at S = 1024)
+@pytest.mark.parametrize("n,s", [(37, 64), (64, 192), (5, 250), (3, 1), (130, 1), (33, 7),
+                                 (63, 192), (3, 1024)])
 def test_fused_kernel_matches_plain(cuda_device, dtype, n, s):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     fm = fr.prepare_fused_mlp(init_nerf_mlp(g, device=cuda_device, gain=HE_GAIN), dtype)
@@ -102,6 +105,55 @@ def test_fused_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         fr.fused_forward(fm, o, d, torch.zeros(4, 2000, device=cuda_device))
     assert fr.launches == 0
+
+
+def _bf16_forward(kind, dev, fm, seed=5):
+    """A bf16 forward kernel's call and its plain version on fixed inputs."""
+    if kind == "fused":
+        o, d, ts = _inputs(seed, 63, 192, dev)
+        return (lambda m: fr.fused_forward(m, o, d, ts)), fr.fused_forward_plain(fm, o, d, ts)
+    x, d = _points(seed, 300 * 128 + 65, dev)
+    return (lambda m: rm.points_forward(m, x, d)), rm.points_forward_plain(fm, x, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fused", "point"])
+def test_bf16_forward_is_deterministic(cuda_device, kind):
+    """Two launches of a bf16 forward give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    fm = fr.prepare_fused_mlp(init_nerf_mlp(g, device=cuda_device, gain=HE_GAIN), torch.bfloat16)
+    run, _ = _bf16_forward(kind, cuda_device, fm)
+    first, second = run(fm), run(fm)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fused", "point"])
+@pytest.mark.parametrize("layer", [0, 3, 5, 7, 9, 10])  # T0, T3, F0E, F2, R0H, R0D
+def test_bf16_forward_reads_every_matrix(cuda_device, kind, layer):
+    """With one matrix zeroed in the kernel's operands (its tensor map among
+    them), a bf16 forward fails the bounds against the plain version of the
+    intact MLP, which the intact kernel meets: each map reaches its layer."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    fm = fr.prepare_fused_mlp(init_nerf_mlp(g, device=cuda_device, gain=HE_GAIN), torch.bfloat16)
+    ws = list(fm.ws)
+    ws[layer] = torch.zeros_like(ws[layer])
+    bad = fr._prepared(ws, fm.bs, fm.dtype)
+    run, plain = _bf16_forward(kind, cuda_device, fm)
+    good, broken = run(fm), run(bad)
+    torch.cuda.synchronize()
+    tols = ((TOL[torch.bfloat16],) * 2 if kind == "fused" else POINT_TOL[torch.bfloat16])
+    for k, p, tol in zip(good, plain, tols):
+        _assert_close(k, p, tol)
+    # the rgb layers (9, 10) leave sigma and the weights as they are
+    failed = []
+    for b, p, tol in zip(broken, plain, tols):
+        try:
+            _assert_close(b, p, tol)
+        except AssertionError:
+            failed.append(True)
+    assert failed
 
 
 # ---------------------------------------------------------------- backward
@@ -263,10 +315,12 @@ def test_fused_pass_gradients_on_the_card(cuda_device):
 
 # P values: a multiple of neither tile (37*64 = 2368 is 18.5 bf16 tiles),
 # a few tiles and a ragged rest, one point
-POINT_SIZES = [37 * 64, 5 * 250, 1]
-# the backward also at several slices of kernel B with a ragged last slice
-# and a ragged last 64-point stage (3 * 4096 + 37), and at 4096 x 64 + 100
-BWD_POINT_SIZES = POINT_SIZES + [3 * 4096 + 37, 4096 * 64 + 100]
+# P not a multiple of the 128-point tile (nor of the 64 rows of one warpgroup)
+POINT_SIZES = [37 * 64, 5 * 250, 1, 129, 300 * 128 + 65]
+# the backward at the first three, at several slices of kernel B with a
+# ragged last slice and a ragged last 64-point stage (3 * 4096 + 37), and at
+# 4096 x 64 + 100
+BWD_POINT_SIZES = [37 * 64, 5 * 250, 1, 3 * 4096 + 37, 4096 * 64 + 100]
 
 
 def _points(seed, p, dev):
