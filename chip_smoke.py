@@ -2,12 +2,15 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --occ-timing [ROOT]
+
 Builds every kernel of the serving and training paths from the sources in
 the checkout (the fused ray-march forward and backward, the point-level MLP
-forward and backward of the ``--kernel pallas`` path, and the occupancy
-grid's probe), holds each against its plain PyTorch version at the main
-paths' shapes (on weights whose outputs depend on the input, with bounds
-shown to reject faulty versions; the probe's bits must be identical), then:
+forward and backward of the ``--kernel pallas`` path, the occupancy grid's
+probe and the fused occupancy sampler), holds each against its plain
+PyTorch version at the main paths' shapes (on weights whose outputs depend
+on the input, with bounds shown to reject faulty versions; the probe's bits
+and the sampler's weights, times and samples must be identical), then:
 
 - ``[main]`` renders two 800x800 orbit frames from a full-width checkpoint
   written by the port and checks that the forward kernel carried the render;
@@ -28,15 +31,22 @@ shown to reject faulty versions; the probe's bits must be identical), then:
   path on the card against the CPU;
 - ``[train-occ]`` trains 100 full-width steps of the fast recipe
   (occupancy-guided coarse sampling, 16 + 48 samples, the fused kernels and
-  the probe kernel) on from the ``[train]`` weights, checks the loss, the
+  the sampler kernel) on from the ``[train]`` weights, checks the loss, the
   grid updates, the occupied fraction and the launch counts, saves a
   checkpoint with its grid and Adam state and renders two frames from it
   through the grid, one with ``--ignore-occupancy``, and one through a grid
   baked from the ``[train]`` checkpoint;
 - ``[occ-reference]`` holds one occupancy step on the card (grid update,
   packed words, loss, gradients, Adam) against the same step on the CPU;
-- ``[profile]`` profiles one frame, one train step, one pallas train step
-  and one occupancy train step for the kernels' and the idle shares.
+- ``[profile]`` profiles one frame, one train step, one pallas train step,
+  one occupancy train step (with the coarse-sampler hook's span) and one
+  16+48 frame through the occupancy grid for the kernels' and the idle
+  shares.
+
+``--occ-timing [ROOT]`` instead times the occupancy path alone (steps,
+frames, the sampler hook per call, the probe wrapper) for the package under
+ROOT, this checkout by default: run on this checkout and on an older one
+unpacked inside the repo, in turns, it compares the two in one call.
 
 Prints one line per phase, the card's name and power limit, a JSON line of
 kernel timings, and as its last line ``{"ok": true, "device": {...}}``.
@@ -57,7 +67,7 @@ from pathlib import Path
 import torch
 
 KERNELS = ["fused_raymarch_fwd", "fused_raymarch_bwd", "raymarch_mlp_fwd", "raymarch_mlp_bwd",
-           "occupancy_probe"]
+           "occupancy_probe", "occupancy_sampler"]
 RAYS = 4096
 SAMPLES = (64, 192)       # coarse pass, then the 64 + 128 sorted union
 HW = 800                  # frame height and width
@@ -95,39 +105,54 @@ POINT_TOL = {"fp32": (TOL["fp32"], TOL["fp32"]),
 SEP_MAX, SEP_MEAN = 3, 100
 
 
+COUNTERS = {"fused_raymarch": ("launches", "bwd_launches", "wgrad_launches"),
+            "raymarch": ("launches", "bwd_launches"), "occupancy_probe": ("launches",),
+            "occupancy_sampler": ("launches",)}
+
+
 @contextlib.contextmanager
 def uncounted():
-    """Launches inside do not count: the kernels' counts are restored after."""
-    from minimal_nerf_torch.kernels import fused_raymarch as fr
-    from minimal_nerf_torch.kernels import occupancy_probe as op
-    from minimal_nerf_torch.kernels import raymarch as rm
+    """Launches inside do not count: the kernels' counts are restored after
+    (those of the kernel modules the imported package has: ``--occ-timing``
+    may time an older checkout)."""
+    import importlib
 
-    before = (fr.launches, fr.bwd_launches, fr.wgrad_launches, rm.launches, rm.bwd_launches,
-              op.launches)
+    saved = []
+    for name, attrs in COUNTERS.items():
+        try:
+            module = importlib.import_module(f"minimal_nerf_torch.kernels.{name}")
+        except ModuleNotFoundError:
+            continue
+        saved += [(module, a, getattr(module, a)) for a in attrs]
     try:
         yield
     finally:
-        (fr.launches, fr.bwd_launches, fr.wgrad_launches, rm.launches, rm.bwd_launches,
-         op.launches) = before
+        for module, a, value in saved:
+            setattr(module, a, value)
+
+
+COUNTED = "fused fwd, bwd, point fwd, bwd, probe, sampler"
 
 
 def counts():
-    """(fused forward, fused backward, point forward, point backward, probe)
-    launches."""
+    """(fused forward, fused backward, point forward, point backward, probe,
+    sampler) launches (``COUNTED``)."""
     from minimal_nerf_torch.kernels import fused_raymarch as fr
     from minimal_nerf_torch.kernels import occupancy_probe as op
+    from minimal_nerf_torch.kernels import occupancy_sampler as osk
     from minimal_nerf_torch.kernels import raymarch as rm
 
-    return fr.launches, fr.bwd_launches, rm.launches, rm.bwd_launches, op.launches
+    return fr.launches, fr.bwd_launches, rm.launches, rm.bwd_launches, op.launches, osk.launches
 
 
 def reset_counts():
     from minimal_nerf_torch.kernels import fused_raymarch as fr
     from minimal_nerf_torch.kernels import occupancy_probe as op
+    from minimal_nerf_torch.kernels import occupancy_sampler as osk
     from minimal_nerf_torch.kernels import raymarch as rm
 
     fr.launches = fr.bwd_launches = fr.wgrad_launches = rm.launches = rm.bwd_launches = 0
-    op.launches = 0
+    op.launches = osk.launches = 0
 
 
 @contextlib.contextmanager
@@ -753,6 +778,192 @@ def phase_kernel_occ(dev, report):
         raise AssertionError("occupancy probe kernel disagrees with its plain version")
 
 
+SAMPLER_BINS, SAMPLER_S = 64, 16  # the fast recipe's 64 bins and 16 coarse samples
+# floor 0.1: the share of samples the card's plain version (a float32 cumsum)
+# puts in another bin than the kernel (the exact prefix sums rounded once),
+# most on the eps = 0 rays, whose u = s / S may equal an exact CDF value
+# (an H100: 7.2e-4 with jitter, 9.3e-4 without)
+MOVED_BIN_SHARE = 5e-3
+
+
+def sampler_inputs(n: int, s: int, g: int, jitter: bool, gen, dev, floor: float = 0.25):
+    """The sampler's inputs at B = 64 on the card: random words (about half
+    of the bits set); rays of the main path's orbit view for half of them,
+    the rest from a camera 7 units out toward the box (their first bins
+    outside it, weight 0); every fourth ray tuned so one bin midpoint lies
+    within a few ulp of a cell boundary (the cell then depends on every
+    rounding); the last sixteenth wholly outside the box (the uniform
+    fallback); eps = 0 on every eighth ray (u on the grid's edges, where a
+    right-sided search differs); frac with jitter."""
+    from minimal_nerf_torch.kernels import occupancy_sampler as osk
+    from minimal_nerf_torch.ops import occupancy as occ
+
+    cfg = occ.OccupancyConfig(resolution=g, num_bins=SAMPLER_BINS, floor=floor,
+                              in_bin_jitter=jitter)
+    consts = osk.bin_constants(cfg, SAMPLER_BINS, 2.0, 6.0)
+    words = random_words(g ** 3 // 32, gen, dev)
+    o, d, _ = sample_rays(n, 1, gen, dev)
+    half = n // 2
+    eye = torch.randn((n - half, 3), generator=gen, device=dev)
+    eye = 7.0 * eye / eye.norm(dim=1, keepdim=True)
+    o[half:] = eye
+    d[half:] = -eye / 7.0 + 0.15 * torch.randn((n - half, 3), generator=gen, device=dev)
+    tuned = torch.arange(0, n, 4, device=dev)
+    b, axis, cell = (torch.randint(lo, hi, (tuned.numel(),), generator=gen, device=dev)
+                     for lo, hi in ((0, SAMPLER_BINS), (0, 3), (1, g)))
+    mids = consts.near + (torch.arange(SAMPLER_BINS, device=dev, dtype=torch.float32) + 0.5) \
+        * consts.width
+    edge = cell.double() / consts.scale - consts.bound
+    o[tuned, axis] = (edge - mids[b].double() * d[tuned, axis].double()).float()
+    o[n - max(1, n // 16):] += 20.0
+    eps = torch.rand((n, 1), generator=gen, device=dev)
+    eps[::8] = 0.0
+    frac = torch.rand((n, s), generator=gen, device=dev) if jitter else None
+    return cfg, words, o.contiguous(), d.contiguous(), eps, frac
+
+
+def sample_bins(weights, eps, s):
+    """Each sample's clamped bin, as the plain version finds it, on the
+    weights' device."""
+    cdf = torch.cumsum(weights, dim=1)
+    cdf = cdf / (cdf[:, -1:] + 1e-10)
+    u = torch.arange(s, dtype=torch.float32, device=weights.device)[None, :] / s + eps / s
+    return torch.clamp(torch.searchsorted(cdf.contiguous(), u.contiguous()),
+                       max=weights.shape[1] - 1)
+
+
+def fma_bin_cells(o_rays, d_rays, cfg, num_bins, near, far):
+    """``bin_cells`` with ``o + mid * d`` rounded once, as an FMA would."""
+    g = cfg.resolution
+    width = (far - near) / num_bins
+    mids = near + (torch.arange(num_bins, dtype=torch.float32, device=o_rays.device) + 0.5) * width
+    pos = (o_rays.double()[:, None, :] + mids.double()[None, :, None]
+           * d_rays.double()[:, None, :]).float()
+    v = torch.floor((pos + cfg.bound) * (g / (2.0 * cfg.bound))).to(torch.int32)
+    inside = torch.all((v >= 0) & (v < g), dim=-1)
+    vc = torch.clamp(v, 0, g - 1)
+    return ((vc[..., 0] * g + vc[..., 1]) * g + vc[..., 2]).contiguous(), inside
+
+
+def sampler_faults():
+    """The plain sampler with one fault each, as (module, attribute,
+    replacement); the kernel must differ from every one of them."""
+    from types import SimpleNamespace
+
+    from minimal_nerf_torch.kernels import occupancy_probe as op
+    from minimal_nerf_torch.ops import occupancy as occ
+
+    search = torch.searchsorted
+    return {
+        "FMA-contracted cell positions": (occ, "bin_cells", fma_bin_cells),
+        "searchsorted right": (torch, "searchsorted",
+                               lambda a, v, right=False: search(a, v, right=True)),
+        "no uniform fallback": (occ, "uniform_fallback", lambda w: w),
+        "no sort": (torch, "sort", lambda t, dim: SimpleNamespace(values=t)),
+        "bits reversed in the word": (
+            op, "probe_bits_plain",
+            lambda w, lin: ((w[(lin >> 5).long()] >> (31 - (lin & 31))) & 1).to(torch.int32)),
+    }
+
+
+def phase_kernel_occ_sampler(dev, report):
+    """The fused occupancy sampler against its plain version
+    (``occupancy_sample_plain``, the PyTorch math of ``query_bin_weights`` +
+    ``occupancy_coarse_samples``) on the card: weights, ts and samples must
+    be identical at floor 0.25 for G in {64, 128}, S in {16, 64}, jitter on
+    and off, N in {4096, 4095, 5}; at floor 0.1 the kernel must equal the
+    plain version on the CPU (both round each exact CDF prefix once) and
+    the share of samples in another bin than the card's plain version puts
+    them (a float32 cumsum) is shown and bounded; faulty plain versions must
+    differ; times
+    at the fast recipe's 4096 rays x 64 bins x 16 samples, G=64, jitter."""
+    from minimal_nerf_torch.kernels import occupancy_sampler as osk
+    from minimal_nerf_torch.ops import occupancy as occ
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    near, far = 2.0, 6.0
+    ok_all, worst = True, 0.0
+    for g in (64, 128):
+        bad = {}
+        for s in (16, 64):
+            for jitter in (True, False):
+                for n in (RAYS, RAYS - 1, 5):
+                    cfg, words, o, d, eps, frac = sampler_inputs(n, s, g, jitter, gen, dev)
+                    with uncounted():
+                        before = osk.launches
+                        k = occ.occupancy_sample(words, o, d, eps, frac, cfg, s, near, far,
+                                                 with_weights=True)
+                        launched = osk.launches - before
+                    p = occ.occupancy_sample_plain(words, o, d, eps, frac, cfg, s, near, far)
+                    mism = [int((a != b).sum()) for a, b in zip(k, p)]
+                    worst = max(worst, *((a - b).abs().max().item() for a, b in zip(k, p)))
+                    ok_all &= mism == [0, 0, 0] and launched == 1
+                    if any(mism):
+                        bad[(s, jitter, n)] = mism
+        print(f"[kernel-occ-sampler] G={g}, B={SAMPLER_BINS}, floor 0.25: samples/ts/weights "
+              f"mismatches against the plain version over S in (16, 64) x jitter on/off x N in "
+              f"({RAYS}, {RAYS - 1}, 5): {bad or 'none'} (must be none) "
+              f"{'PASS' if not bad else 'FAIL'}", flush=True)
+    # floor 0.1: the kernel against the plain version on the CPU, bit for bit,
+    # and the share of the card's plain version's times that differ
+    shares, same = {}, {}
+    for jitter in (True, False):
+        cfg, words, o, d, eps, frac = sampler_inputs(RAYS, SAMPLER_S, 64, jitter, gen, dev, 0.1)
+        with uncounted():
+            k = occ.occupancy_sample(words, o, d, eps, frac, cfg, SAMPLER_S, near, far,
+                                     with_weights=True)
+        cpu = [None if a is None else a.cpu() for a in (words, o, d, eps, frac)]
+        p_cpu = occ.occupancy_sample_plain(*cpu[:5], cfg, SAMPLER_S, near, far)
+        same[jitter] = all(torch.equal(a.cpu(), b) for a, b in zip(k, p_cpu))
+        shares[jitter] = (sample_bins(k[2], eps, SAMPLER_S).cpu()
+                          != sample_bins(p_cpu[2], cpu[3], SAMPLER_S)).float().mean().item()
+        ok_all &= same[jitter] and shares[jitter] <= MOVED_BIN_SHARE
+    print(f"[kernel-occ-sampler] G=64, floor 0.1: kernel equal to the plain version on the CPU "
+          f"(its cumsum rounds each exact prefix once, as the kernel's): jitter "
+          f"{same[True]}, no jitter {same[False]}; share of samples in another bin than the "
+          f"plain version on the card puts them (its float32 cumsum leaves a CDF value an ulp "
+          f"off; u on exact fractions s/S on the eps = 0 rays): jitter {shares[True]:.2e}, no "
+          f"jitter {shares[False]:.2e} (bound {MOVED_BIN_SHARE})", flush=True)
+    # faulty plain versions, at the main path's shapes with jitter
+    cfg, words, o, d, eps, frac = sampler_inputs(RAYS, SAMPLER_S, 64, True, gen, dev)
+    with uncounted():
+        k = occ.occupancy_sample(words, o, d, eps, frac, cfg, SAMPLER_S, near, far,
+                                 with_weights=True)
+    faults = {}
+    for name, (module, attr, faulty) in sampler_faults().items():
+        with wrapped(module, attr, lambda orig, f=faulty: f):
+            p = occ.occupancy_sample_plain(words, o, d, eps, frac, cfg, SAMPLER_S, near, far)
+        faults[name] = int((k[1] != p[1]).sum()) + int((k[2] != p[2]).sum())
+    caught = all(m > 0 for m in faults.values())
+    print(f"[kernel-occ-sampler] faulty plain versions' mismatches (times + weights) {faults} "
+          f"(each must be > 0) {'PASS' if caught else 'FAIL'}", flush=True)
+
+    consts = osk.bin_constants(cfg, SAMPLER_BINS, near, far)
+    kernel = lambda: osk.sample(words, o, d, eps, frac, consts, SAMPLER_S)  # noqa: E731
+    plain = lambda: occ.occupancy_sample_plain(  # noqa: E731
+        words, o, d, eps, frac, cfg, SAMPLER_S, near, far)
+    with uncounted():
+        ms, plain_ms = device_ms(kernel), device_ms(plain)
+        call_ms = cuda_ms(kernel, warmup=10, reps=200)
+        plain_call_ms = cuda_ms(plain, warmup=3, reps=50)
+    # bytes: o, d, eps and frac read once, ts and samples written once, the
+    # word table once
+    io = RAYS * (4 * 3 * 2 + 4 + 4 * SAMPLER_S + 4 * SAMPLER_S * 4) + 4 * words.numel()
+    b_ms = 1e3 * io / HBM_BYTES_PER_S
+    print(f"[kernel-occ-sampler] G=64 N={RAYS} B={SAMPLER_BINS} S={SAMPLER_S} jitter: device "
+          f"ms={ms:.5f} plain_ms={plain_ms:.5f} (device time of its kernels) library_ms=none (no "
+          f"single PyTorch call computes it) bound_ms={b_ms:.5f} (bytes: {io} B at 3.35 TB/s); "
+          f"call_ms={call_ms:.5f} (CUDA events over 200 back-to-back wrapper calls), the plain "
+          f"version's {plain_call_ms:.5f}; {ptxas_report('occupancy_sampler', 'sampler_kernel')}",
+          flush=True)
+    report["occ_sampler"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                                 bound_by="bytes", err=worst, call_ms=call_ms)
+    if not ok_all:
+        raise AssertionError("occupancy sampler kernel disagrees with its plain version")
+    if not caught:
+        raise AssertionError("a faulty plain sampler matched the kernel")
+
+
 def phase_main_path(dev, tmp: Path):
     from minimal_nerf_torch.kernels import fused_raymarch as fr
     from minimal_nerf_torch.models.nerf import NeRFConfig, init_nerf_network
@@ -1088,8 +1299,8 @@ def hold_step(tag: str, dev, cfg, tcfg, kernel: str, params, batch, uniforms, wa
           and p_max <= 2.0 * lr * 1.001 and p_mean <= 0.05 * lr
           and ran == [want, (0,) * len(want)])
     print(f"[{tag}] one step, {batch['origin'].shape[0]} rays, bf16, --kernel {kernel}{note}, "
-          f"card (kernels) vs CPU (plain), shared weights, batch and draws: launches (fused "
-          f"fwd, bwd, point fwd, bwd, probe) card {ran[0]} cpu {ran[1]} (want {want}, none); "
+          f"card (kernels) vs CPU (plain), shared weights, batch and draws: launches "
+          f"({COUNTED}) card {ran[0]} cpu {ran[1]} (want {want}, none); "
           f"loss card {card_loss:.6f} cpu {cpu_loss:.6f} (rel {loss_rel:.2e}, tol 1e-3); "
           f"gradients worst over the leaves max_rel={max(e[0] for e in errs):.3e} mean_rel="
           f"{max(e[1] for e in errs):.3e} (bounds {BWD_TOL['bf16'][0]} / {BWD_TOL['bf16'][1]}); "
@@ -1115,7 +1326,7 @@ def phase_train_reference(dev, scene, bias: float, kernel: str = "fused"):
     batch = {k: batch[k] for k in ("origin", "direc", "rgb")}
     # the card's step went through this path's kernels (2 passes each way),
     # the CPU's through none
-    want = (2, 2, 0, 0, 0) if kernel == "fused" else (0, 0, 2, 2, 0)
+    want = (2, 2, 0, 0, 0, 0) if kernel == "fused" else (0, 0, 2, 2, 0, 0)
     hold_step("train-reference" if kernel == "fused" else f"{kernel}-reference", dev, cfg, tcfg,
               kernel, init_train_params(dev, cfg, bias), batch,
               train_uniforms(n, cfg, gen, dev), want)
@@ -1223,8 +1434,7 @@ def phase_pallas_reference(dev, scene, bias: float):
                           mlp_apply=rm.make_mlp_kernel_apply(), uniforms=to_cpu(uniforms))
     # same weights, draws and rounding points: the kernel and the plain
     # version differ only in the order of fp32 sums (see TOL)
-    ok, msg = ran == (0, 0, 2, 0, 0), [f"card launches (fused fwd, bwd, point fwd, bwd, probe) "
-                                       f"{ran}"]
+    ok, msg = ran == (0, 0, 2, 0, 0, 0), [f"card launches ({COUNTED}) {ran}"]
     for k in ("coarse_rgb_rays", "fine_rgb_rays"):
         diff = (card[k].cpu() - ref[k]).abs()
         ok &= bool(torch.isfinite(card[k]).all()) and diff.max().item() <= 1e-3
@@ -1277,6 +1487,7 @@ def phase_train_occ(dev, tmp: Path, scene, start_params, uniform_ckpt: Path):
     sample. The ``[train]`` weights' field is already sparse."""
     from minimal_nerf_torch.kernels import fused_raymarch as fr
     from minimal_nerf_torch.kernels import occupancy_probe as op
+    from minimal_nerf_torch.kernels import occupancy_sampler as osk
     from minimal_nerf_torch.models.mlp import map_params
     from minimal_nerf_torch.models.nerf import NeRFConfig
     from minimal_nerf_torch.ops import occupancy as occ
@@ -1323,12 +1534,13 @@ def phase_train_occ(dev, tmp: Path, scene, start_params, uniform_ckpt: Path):
             times.append(time.perf_counter() - t0)
             fractions.append(metrics["occ_fraction"].item())
     launched = dict(fwd=fr.launches, bwd=fr.bwd_launches, wgrad=fr.wgrad_launches,
-                    probe=op.launches)
+                    probe=op.launches, sampler=osk.launches)
     live_end = live_share()
     ms = 1e3 * sorted(times)[len(times) // 2]
     first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
     want_updates = len(range(0, TRAIN_STEPS, occ_cfg.update_every))
-    want = dict(fwd=2 * TRAIN_STEPS, bwd=2 * TRAIN_STEPS, wgrad=2 * TRAIN_STEPS, probe=TRAIN_STEPS)
+    want = dict(fwd=2 * TRAIN_STEPS, bwd=2 * TRAIN_STEPS, wgrad=2 * TRAIN_STEPS, probe=0,
+                sampler=TRAIN_STEPS)
     ok = (all(math.isfinite(x) for x in losses) and last < first
           and len(updates) == want_updates and launched == want
           and all(f == 1.0 for f in fractions[:OCC_WARMUP]) and 0.0 < fractions[-1] < 1.0)
@@ -1356,12 +1568,12 @@ def phase_train_occ(dev, tmp: Path, scene, start_params, uniform_ckpt: Path):
                 and leaves[0].shape == grid.shape and (leaves[0] == grid.cpu().numpy()).all())
     chunks = math.ceil(HW * HW / RAYS)
     frame, ran, ms_frame = render_counted(ckpt, dev, timed=True)
-    frame_ok = ran == (2 * chunks, 0, 0, 0, chunks)
+    frame_ok = ran == (2 * chunks, 0, 0, 0, 0, chunks)
     frame_means = [float(frame.mean())]
     for options, want_ran in (
-            (dict(ignore_occupancy=True), (2 * chunks, 0, 0, 0, 0)),
+            (dict(ignore_occupancy=True), (2 * chunks, 0, 0, 0, 0, 0)),
             (dict(bake_occupancy=True, coarse=16, fine=48, ckpt=uniform_ckpt),
-             (2 * chunks, 0, 0, 0, chunks))):
+             (2 * chunks, 0, 0, 0, 0, chunks))):
         other, other_ran, _ = render_counted(options.pop("ckpt", ckpt), dev, **options)
         frame_ok &= other_ran == want_ran and other.shape == (HW, HW, 3)
         frame_means.append(float(other.mean()))
@@ -1370,15 +1582,15 @@ def phase_train_occ(dev, tmp: Path, scene, start_params, uniform_ckpt: Path):
     print(f"[train-occ] checkpoint {ckpt.name}: {header['num_leaves']} leaves (want 123: the "
           f"grid at leaf 0), Adam count {int(leaves[1])} (want {TRAIN_STEPS}); 2 frames "
           f"{HW}x{HW} through its grid (--kernel auto): ms/frame={ms_frame:.1f} (the second) "
-          f"rays/s={HW * HW / (ms_frame / 1e3):.0f}, launches of the second (fused fwd, bwd, "
-          f"point fwd, bwd, probe) {ran[:5]} (want probe {chunks} = 1 per chunk, fused fwd "
-          f"{2 * chunks}); then one frame with --ignore-occupancy {ran[5:10]} (want probe 0) and "
-          f"one with --bake-occupancy -c 16 -f 48 from {uniform_ckpt.name} {ran[10:]}; frame "
+          f"rays/s={HW * HW / (ms_frame / 1e3):.0f}, launches of the second ({COUNTED}) "
+          f"{ran[:6]} (want sampler {chunks} = 1 per chunk, probe 0, fused fwd {2 * chunks}); "
+          f"then one frame with --ignore-occupancy {ran[6:12]} (want sampler 0) and one with "
+          f"--bake-occupancy -c 16 -f 48 from {uniform_ckpt.name} {ran[12:]}; frame "
           f"means {[round(m, 2) for m in frame_means]} {'PASS' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("render from the occupancy checkpoint failed")
-    return (dict(ms=ms, ms_frame=ms_frame, counts=launched, frame_probes=ran[4]), step_fn, params,
-            state, grid, cfg, tcfg)
+    return (dict(ms=ms, ms_frame=ms_frame, counts=launched, frame_samplers=ran[5], ckpt=ckpt),
+            step_fn, params, state, grid, cfg, tcfg)
 
 
 def phase_occ_reference(dev, scene, params, grid, cfg, tcfg):
@@ -1436,7 +1648,7 @@ def phase_occ_reference(dev, scene, params, grid, cfg, tcfg):
     if not caught:
         raise AssertionError("a faulty occupancy grid update passed the bounds")
     hold_step("occ-reference", dev, cfg, tcfg, "fused", params, batch,
-              train_uniforms(n, cfg, gen, dev, occupancy=True), (2, 2, 0, 0, 1),
+              train_uniforms(n, cfg, gen, dev, occupancy=True), (2, 2, 0, 0, 0, 1),
               coarse_sampler=lambda device: occ.make_occupancy_sampler(cpu_words.to(device),
                                                                        occ_cfg),
               note=", occupancy sampler on the CPU's words")
@@ -1450,7 +1662,51 @@ POINT_GROUPS = {"point forward kernel": ("points_fwd_sm90",),
                                            "reduce_rows")}
 
 
-OCC_GROUPS = dict(FUSED_GROUPS, **{"probe kernel": ("probe_kernel",)})
+OCC_GROUPS = dict(FUSED_GROUPS, **{"sampler kernel": ("sampler_kernel",)})
+# a frame through the grid: the forward kernel and the occupancy kernels of
+# this checkout or an older one (``--occ-timing``)
+FRAME_OCC_GROUPS = {"forward kernel": ("fused_fwd_sm90",), "sampler kernel": ("sampler_kernel",),
+                    "probe kernel": ("probe_kernel",)}
+
+
+@contextlib.contextmanager
+def timed_sampler_hooks():
+    """Time every call of every coarse-sampler hook that
+    ``ops.occupancy.make_occupancy_sampler`` makes inside: CUDA events
+    around the call (its device span, which includes the device's waits for
+    the host's launches) and the host's clock (the call's host time, no
+    synchronisation). Yields the list of ``(start, end, host seconds)``."""
+    from minimal_nerf_torch.ops import occupancy as occ
+
+    calls = []
+
+    def around(make):
+        def make_timed(*args, **kwargs):
+            hook = make(*args, **kwargs)
+
+            def timed(*a, **k):
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                t0 = time.perf_counter()
+                start.record()
+                out = hook(*a, **k)
+                end.record()
+                calls.append((start, end, time.perf_counter() - t0))
+                return out
+            return timed
+        return make_timed
+
+    with wrapped(occ, "make_occupancy_sampler", around):
+        yield calls
+
+
+def hook_stats(calls):
+    """(median device span ms, median host ms, summed device span ms) of
+    ``timed_sampler_hooks``' calls."""
+    torch.cuda.synchronize()
+    spans = sorted(a.elapsed_time(b) for a, b, _ in calls)
+    hosts = sorted(1e3 * h for _, _, h in calls)
+    return spans[len(spans) // 2], hosts[len(hosts) // 2], sum(spans)
 
 
 def profile_shares(label: str, fn, groups=FUSED_GROUPS):
@@ -1504,13 +1760,13 @@ def event_spans(events):
     return sum(a.elapsed_time(b) for a, b in events)
 
 
-def phase_profile(ckpt: Path, dev, train_step, pallas_step, occ_step):
+def phase_profile(ckpt: Path, dev, train_step, pallas_step, occ_step, occ_ckpt: Path):
     """One more frame of the render path, one more train step, one more
     step of the pallas path and one more occupancy step (one without a grid
     update, as 15 of every 16 are); for the last, also the device span of
-    ``query_bin_weights`` (CUDA events around each call) and its share
-    beside the probe kernel's."""
-    from minimal_nerf_torch.ops import occupancy as occ
+    the coarse-sampler hook (CUDA events around each call) beside the
+    sampler kernel's time; then one 16+48 frame through the ``[train-occ]``
+    checkpoint's grid, with its 157 hook calls."""
     from minimal_nerf_torch.render import render_views
 
     profile_shares(f"1 frame {HW}x{HW}",
@@ -1528,42 +1784,132 @@ def phase_profile(ckpt: Path, dev, train_step, pallas_step, occ_step):
           flush=True)
     profile_shares(f"1 train step ({RAYS} rays)", train_step)
     profile_shares(f"1 pallas train step ({RAYS} rays)", pallas_step, POINT_GROUPS)
-    events = []
-
-    def timed(f):
-        def run(*args, **kwargs):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = f(*args, **kwargs)
-            end.record()
-            events.append((start, end))
-            return out
-        return run
-
-    with wrapped(occ, "query_bin_weights", timed):
+    with timed_sampler_hooks() as calls:
         wall_us, group_us = profile_shares(f"1 occupancy train step ({RAYS} rays, 16+48)",
                                            occ_step, OCC_GROUPS)
-    qbw_ms, probe_ms = event_spans(events), group_us["probe kernel"] / 1e3
-    wall_ms = wall_us / 1e3
-    print(f"[profile] that occupancy step's query_bin_weights: {len(events)} call(s), device "
-          f"span {qbw_ms:.3f} ms ({100 * qbw_ms / wall_ms:.1f}% of wall; CUDA events around the "
-          f"call): probe kernel {probe_ms:.3f} ms ({100 * probe_ms / wall_ms:.2f}% of wall), "
-          f"the rest of query_bin_weights {qbw_ms - probe_ms:.3f} ms "
-          f"({100 * (qbw_ms - probe_ms) / wall_ms:.1f}% of wall)", flush=True)
+    span_ms, host_ms, _ = hook_stats(calls)
+    kernel_ms, wall_ms = group_us["sampler kernel"] / 1e3, wall_us / 1e3
+    print(f"[profile] that occupancy step's coarse-sampler hook: {len(calls)} call(s), device "
+          f"span {span_ms:.3f} ms ({100 * span_ms / wall_ms:.2f}% of wall; CUDA events around "
+          f"the call, its two draws included), host {host_ms:.3f} ms; sampler kernel "
+          f"{kernel_ms:.4f} ms ({100 * kernel_ms / wall_ms:.3f}% of wall)", flush=True)
+    with timed_sampler_hooks() as calls:
+        wall_us, group_us = profile_shares(
+            f"1 frame {HW}x{HW} at 16+48 through the grid (checkpoint load included)",
+            lambda: list(render_views(str(occ_ckpt), rays=RAYS, num_poses=1, height=HW,
+                                      width=HW, device=dev)), FRAME_OCC_GROUPS)
+    span_ms, host_ms, total_ms = hook_stats(calls)
+    print(f"[profile] that frame's coarse-sampler hook: {len(calls)} calls, median device span "
+          f"{span_ms:.4f} ms and host {host_ms:.4f} ms per call, {total_ms:.2f} ms of span in "
+          f"all ({100 * total_ms / (wall_us / 1e3):.1f}% of wall); sampler kernel "
+          f"{group_us['sampler kernel'] / 1e3:.3f} ms in all", flush=True)
 
 
-def main() -> int:
+OCC_TIMING_STEPS = 64
+
+
+def occ_timing(dev, root: Path) -> int:
+    """``python3 chip_smoke.py --occ-timing [ROOT]``: the fast recipe's
+    occupancy path of the package under ROOT (this checkout by default; an
+    older checkout unpacked in the repo, such as the parent commit's) timed
+    alone, so that two checkouts compare in one call, in turns: its kernels
+    built, OCC_TIMING_STEPS occupancy steps at 16+48 from the seeded init
+    (density bias +0.5, warmup cut to 32) with the median ms/step and the
+    coarse-sampler hook's span per call, then a checkpoint and three 16+48
+    frames through its grid (the last two timed), the hook per frame, one
+    profiled frame, and the probe wrapper's call time. Prints one
+    ``[occ-timing]`` line per measurement."""
+    from minimal_nerf_torch.kernels import build
+    from minimal_nerf_torch.kernels import occupancy_probe as op
+    from minimal_nerf_torch.models.nerf import NeRFConfig
+    from minimal_nerf_torch.ops import occupancy as occ
+    from minimal_nerf_torch.render import render_views
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.checkpoint import checkpoint_name, save_checkpoint
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    tree = Path(occ.__file__).resolve().parents[2]
+    if tree != root:
+        raise AssertionError(f"imported the package from {tree}, not {root}")
+    names = [k for k in KERNELS if (build.CSRC / f"{k}.cu").is_file()]
+    t0 = time.perf_counter()
+    build.build_all(names)
+    print(f"[occ-timing] tree {root}: built {names} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    scene = make_train_scene(dev)
+    cfg = NeRFConfig(coarse_samples=16, fine_samples=48)
+    tcfg = TrainConfig(occupancy=True, occ_warmup_steps=OCC_WARMUP)
+    occ_cfg = tcfg.occupancy_config
+    params = init_train_params(dev, cfg, 0.5)
+    mlp_apply, render_fn = loop.kernel_hooks(tcfg.kernel, dev)
+    step_fn = loop.make_train_step(cfg, tcfg, loop.scene_static(scene), render_fn=render_fn,
+                                   device=dev, mlp_apply=mlp_apply, occupancy_cfg=occ_cfg)
+    state, grid = loop.adam_init(params), occ.init_grid(occ_cfg, dev)
+    times = []
+    with timed_sampler_hooks() as calls:
+        for step in range(OCC_TIMING_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, grid, _ = step_fn(params, state, grid, scene.images, scene.poses,
+                                             step, 0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    steady = sorted(times[8:])
+    span_ms, host_ms, _ = hook_stats(calls[8:])
+    print(f"[occ-timing] {OCC_TIMING_STEPS} occupancy steps ({RAYS} rays, 16+48, bf16): median "
+          f"ms/step={1e3 * steady[len(steady) // 2]:.3f} over steps 8.., min "
+          f"{1e3 * steady[0]:.3f}; coarse-sampler hook per call: device span {span_ms:.4f} ms, "
+          f"host {host_ms:.4f} ms (median)", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = save_checkpoint(Path(tmp) / checkpoint_name("occ", 1, OCC_TIMING_STEPS), params,
+                               OCC_TIMING_STEPS, cfg.to_dict(), tcfg.to_dict(), opt_state=state,
+                               grid=grid)
+        chunks = math.ceil(HW * HW / RAYS)
+        with timed_sampler_hooks() as calls:
+            frames = iter(render_views(str(ckpt), rays=RAYS, num_poses=3, height=HW, width=HW,
+                                       device=dev))
+            next(frames)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for frame in frames:
+                pass
+            torch.cuda.synchronize()
+            frame_ms = 1e3 * (time.perf_counter() - t0) / 2
+        span_ms, host_ms, total_ms = hook_stats(calls[-2 * chunks:])
+        print(f"[occ-timing] 16+48 frames {HW}x{HW} through the grid: ms/frame={frame_ms:.1f} "
+              f"(frames 2 and 3), mean {float(frame.mean()):.2f}; coarse-sampler hook: "
+              f"{len(calls)} calls in 3 frames, per call device span {span_ms:.4f} ms and host "
+              f"{host_ms:.4f} ms (median), {total_ms / 2:.2f} ms of span per frame", flush=True)
+        profile_shares(f"occ-timing: 1 frame {HW}x{HW} at 16+48 through the grid",
+                       lambda: list(render_views(str(ckpt), rays=RAYS, num_poses=1, height=HW,
+                                                 width=HW, device=dev)), FRAME_OCC_GROUPS)
+    o, d, _ = sample_rays(RAYS, 1, torch.Generator(device=dev).manual_seed(8), dev)
+    words = random_words(64 ** 3 // 32, torch.Generator(device=dev).manual_seed(9), dev)
+    lin, _ = occ.bin_cells(o, d, occ.OccupancyConfig(), OCC_BINS, 2.0, 6.0)
+    with uncounted():
+        call_ms = cuda_ms(lambda: op.probe_bits(words, lin), warmup=10, reps=200)
+    print(f"[occ-timing] probe wrapper call_ms={call_ms:.5f} ({RAYS}x{OCC_BINS} probes, G=64; "
+          f"CUDA events over 200 back-to-back calls)", flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    from minimal_nerf_torch.kernels import build
-
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"[card] {card}", flush=True)
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
+    if argv[:1] == ["--occ-timing"]:
+        root = Path(argv[1] if len(argv) > 1 else Path(__file__).parent).resolve()
+        sys.path.insert(0, str(root))
+        return occ_timing(dev, root)
+    from minimal_nerf_torch.kernels import build
+
     t0 = time.perf_counter()
     build.build_all(KERNELS)
     print(f"[build] {KERNELS} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1581,6 +1927,7 @@ def main() -> int:
     phase_kernel_mlp(dev, report)
     phase_kernel_mlp_bwd(dev, report)
     phase_kernel_occ(dev, report)
+    phase_kernel_occ_sampler(dev, report)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = phase_main_path(dev, Path(tmp))
         phase_reference(dev, ckpt)
@@ -1599,7 +1946,7 @@ def main() -> int:
                       lambda: p_step_fn(p_params, p_state, scene.images, scene.poses,
                                         TRAIN_STEPS, 0),
                       lambda: o_step_fn(o_params, o_state, o_grid, scene.images, scene.poses,
-                                        TRAIN_STEPS + 1, 0))
+                                        TRAIN_STEPS + 1, 0), occ_train["ckpt"])
 
     def entry(name, replaces, shapes, launches):
         # one 4096-ray chunk or step of the main paths: S=64 and S=192, bf16
@@ -1611,7 +1958,8 @@ def main() -> int:
                 "plain_ms": sum(r["plain_ms"] for r in shapes),
                 "bound_ms": sum(r["bound_ms"] for r in shapes),
                 "bound_by": shapes[-1]["bound_by"],
-                "library_ms": sum(r["library_ms"] for r in shapes)}
+                "library_ms": (None if any(r["library_ms"] is None for r in shapes)
+                               else sum(r["library_ms"] for r in shapes))}
 
     kernels = [
         entry("fused_raymarch_fwd", "minimal_nerf_tpu/kernels/fused_raymarch.py:175",
@@ -1623,9 +1971,13 @@ def main() -> int:
         entry("raymarch_mlp_bwd", "minimal_nerf_tpu/kernels/raymarch.py:277",
               [report[("mlp-bwd", "bf16", s)] for s in SAMPLES], pallas["counts"]["bwd"]),
         # one 4096-ray chunk or step's 4096 x 64 probes at G=64; launches in
-        # the 100 occupancy steps (one per step)
+        # the 100 occupancy steps: none since the sampler took the path
         entry("occupancy_probe", "minimal_nerf_tpu/kernels/occupancy_probe.py:44",
               [report["occ"]], occ_train["counts"]["probe"]),
+        # one 4096-ray chunk or step at 64 bins x 16 samples, G=64, jitter;
+        # launches in the 100 occupancy steps (one per step)
+        entry("occupancy_sampler", "minimal_nerf_tpu/kernels/occupancy_probe.py:44",
+              [report["occ_sampler"]], occ_train["counts"]["sampler"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

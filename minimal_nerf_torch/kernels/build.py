@@ -5,18 +5,23 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 keyed by the content of the source and of the shared ``csrc/*.cuh`` headers,
 so an edited source or header rebuilds. The build runs at
 first use, never at import, and several sources build in parallel
-(``build_all``). ``_build/`` is listed in ``.gitignore``.
+(``build_all``). ``_build/`` is listed in ``.gitignore``. A wrapper takes
+its C function through ``function``, which sets its ``argtypes`` once, and
+enters ``on_device`` around the call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -24,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: Dict[tuple, object] = {}
 # the compiler's report (registers, shared memory, spills) of each build
 BUILD_LOGS: Dict[str, str] = {}
 
@@ -78,3 +84,26 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
+    """The C function ``symbol`` of ``csrc/<name>.cu``'s library (built
+    first if needed), its ``argtypes`` and ``restype`` set once per loaded
+    library (``kernels/variants.py`` swaps libraries in ``_LIBS``)."""
+    lib = load(name)
+    hit = _FUNCTIONS.get((name, symbol))
+    if hit is None or hit[0] is not lib:
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        hit = _FUNCTIONS[(name, symbol)] = (lib, fn)
+    return hit[1]
+
+
+def on_device(dev: torch.device):
+    """``torch.cuda.device(dev)`` where ``dev`` is not the current CUDA
+    device, else a context that does nothing: a launch on the current device
+    skips switching the device twice per call."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

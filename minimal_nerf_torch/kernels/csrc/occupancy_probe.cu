@@ -19,22 +19,19 @@
 // table (a workaround for the TPU's missing gather unit). One thread takes 4
 // consecutive probes with one 16-byte load of lin and one 16-byte store of
 // bits (scalar accesses for a ragged tail or unaligned pointers) and reads
-// each word through the read-only path (__ldg). No padding of P to blocks.
+// each word through the read-only path (__ldg; occupancy_common.cuh, shared
+// with the fused sampler). No padding of P to blocks.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "occupancy_common.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int PER_THREAD = 4;
-
-__device__ __forceinline__ int probe(const unsigned* __restrict__ words, long long n_bits,
-                                     int idx) {
-  if (idx < 0 || (long long)idx >= n_bits) return 0;
-  return (int)((__ldg(words + (idx >> 5)) >> (idx & 31)) & 1u);
-}
 
 __global__ void __launch_bounds__(THREADS)
     probe_kernel(const unsigned* __restrict__ words, long long n_bits,
@@ -44,14 +41,14 @@ __global__ void __launch_bounds__(THREADS)
   if (vec && i0 + PER_THREAD <= p) {
     const int4 v = __ldg(reinterpret_cast<const int4*>(lin + i0));
     int4 r;
-    r.x = probe(words, n_bits, v.x);
-    r.y = probe(words, n_bits, v.y);
-    r.z = probe(words, n_bits, v.z);
-    r.w = probe(words, n_bits, v.w);
+    r.x = occupancy_bit(words, n_bits, v.x);
+    r.y = occupancy_bit(words, n_bits, v.y);
+    r.z = occupancy_bit(words, n_bits, v.z);
+    r.w = occupancy_bit(words, n_bits, v.w);
     *reinterpret_cast<int4*>(bits + i0) = r;
   } else {
     const long long end = i0 + PER_THREAD < p ? i0 + PER_THREAD : p;
-    for (long long i = i0; i < end; ++i) bits[i] = probe(words, n_bits, __ldg(lin + i));
+    for (long long i = i0; i < end; ++i) bits[i] = occupancy_bit(words, n_bits, __ldg(lin + i));
   }
 }
 

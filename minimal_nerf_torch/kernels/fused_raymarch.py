@@ -399,12 +399,10 @@ def _launch(fm: FusedMLP, o, d, ts, position_dim, direction_dim):
     if n == 0:
         return color, weights
 
-    fn = build.load(KERNEL).fused_raymarch_fwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p, p, p]
-    fn.restype = i
+    fn = build.function(KERNEL, "fused_raymarch_fwd", [p, p, p, i, i, i, i, i, p, p, p, p, p, p])
     (w_ptrs, _keep_w), (b_ptrs, _keep_b) = _ptrs(fm.kernel_ws), _ptrs(fm.kernel_bs)
-    with torch.cuda.device(dev):
+    with build.on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(o.data_ptr(), d.data_ptr(), ts.data_ptr(), n, s, position_dim,
                 direction_dim, int(fm.dtype == torch.bfloat16), w_ptrs, b_ptrs,
@@ -429,13 +427,14 @@ def fused_forward(fm: FusedMLP, o, d, ts, position_dim: int = 10,
     raise ValueError(f"no fused ray-march implementation for device {o.device}")
 
 
-def _bwd_sizes(n: int, s: int, lib) -> Tuple[int, ...]:
+def _bwd_sizes(n: int, s: int) -> Tuple[int, ...]:
     """``(points, slices, weight-gradient floats, bias-sum rows, bias
     floats, mask words per point, scratch channels)`` of one backward: the
     kernel's own choice of rays per CTA and point slices."""
-    fn = lib.fused_raymarch_bwd_sizes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
-    fn.restype = ctypes.c_int
+    from minimal_nerf_torch.kernels import build
+
+    fn = build.function(BWD_KERNEL, "fused_raymarch_bwd_sizes",
+                        [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)])
     out = (ctypes.c_longlong * 7)()
     rc = fn(n, s, out)
     if rc != 0:
@@ -458,8 +457,7 @@ def _launch_bwd(fm: FusedMLP, o, d, ts, dcolor, dweights, position_dim, directio
         raise ValueError(f"transposed weights are not prepared on {dev}")
     if n == 0:
         return _split_grads(torch.zeros((GRAD_FLOATS,), dtype=torch.float32, device=dev), fm)
-    lib = build.load(BWD_KERNEL)
-    points, slices, total, bias_rows, bias, words, channels = _bwd_sizes(n, s, lib)
+    points, slices, total, bias_rows, bias, words, channels = _bwd_sizes(n, s)
     if (total + bias, words, channels) != (GRAD_FLOATS, MASK_WORDS, SCRATCH_CHANNELS):
         raise RuntimeError(f"{BWD_KERNEL} writes {total} + {bias} gradient floats, {words} "
                            f"mask words and {channels} scratch channels, expected the blocks "
@@ -472,13 +470,12 @@ def _launch_bwd(fm: FusedMLP, o, d, ts, dcolor, dweights, position_dim, directio
     partial = torch.empty((slices, total), dtype=torch.float32, device=dev)
     bias_partial = torch.empty((bias_rows, BIAS_CHANNELS), dtype=torch.float32, device=dev)
 
-    fn = lib.fused_raymarch_bwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p, p, p, p]
-    fn.restype = i
+    fn = build.function(BWD_KERNEL, "fused_raymarch_bwd",
+                        [p, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p, p, p, p])
     (w_ptrs, _kw), (b_ptrs, _kb), (wt_ptrs, _kt) = (
         _ptrs(fm.kernel_ws), _ptrs(fm.kernel_bs), _ptrs(fm.kernel_wts))
-    with torch.cuda.device(dev):
+    with build.on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(o.data_ptr(), d.data_ptr(), ts.data_ptr(), dcolor.data_ptr(),
                 dweights.data_ptr() if dweights is not None else None, n, s, position_dim,

@@ -5,8 +5,13 @@ cell indices ``lin`` (int32, any shape) and the packed occupancy words
 (``ops.occupancy.pack_occupancy``, ``[G^3 // 32]`` int32 holding the JAX
 ``uint32`` bit pattern) it returns ``(words[lin >> 5] >> (lin & 31)) & 1`` as
 int32 0/1 in ``lin``'s shape. An index outside ``[0, 32 * n_words)`` gives 0,
-as the TPU kernel's zero-padded table does; ``query_bin_weights`` clips its
-indices, so the main path never makes one.
+as the TPU kernel's zero-padded table does; ``bin_cells`` clips its
+indices, so the plain sampler never makes one. The main path no longer
+launches this kernel: the fused sampler (``kernels/occupancy_sampler.py``)
+probes through the same device function (``csrc/occupancy_common.cuh``).
+This wrapper stays as the counterpart of the JAX public
+``probe_bits_pallas``; the plain sampler reads its bits through
+``probe_bits_plain``.
 
 - ``probe_bits`` is the wrapper: for CUDA tensors it launches the
   hand-written kernel in ``csrc/occupancy_probe.cu`` (adding one to
@@ -27,6 +32,8 @@ import torch
 launches = 0
 
 KERNEL = "occupancy_probe"
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_void_p]
 
 
 def probe_bits_plain(occ_words: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
@@ -59,11 +66,8 @@ def _launch(occ_words: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
     bits = torch.empty_like(lin)
     if lin.numel() == 0:
         return bits
-    fn = build.load(KERNEL).occupancy_probe
-    ptr, ll = ctypes.c_void_p, ctypes.c_longlong
-    fn.argtypes = [ptr, ll, ptr, ptr, ll, ptr]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(lin.device):
+    fn = build.function(KERNEL, KERNEL, _ARGTYPES)
+    with build.on_device(lin.device):
         stream = torch.cuda.current_stream(lin.device).cuda_stream
         rc = fn(occ_words.data_ptr(), occ_words.shape[0], lin.data_ptr(), bits.data_ptr(),
                 lin.numel(), stream)

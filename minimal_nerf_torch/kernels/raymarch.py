@@ -187,12 +187,11 @@ def _launch(fm: fr.FusedMLP, x_pts, d_pts, position_dim, direction_dim):
     rgb = torch.empty((p, 3), dtype=torch.float32, device=dev)
     if p == 0:
         return sigma, rgb
-    fn = build.load(KERNEL).raymarch_mlp_fwd
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr, ptr, i, i, i, i, ptr, ptr, ptr, ptr, ptr, ptr]
-    fn.restype = i
+    fn = build.function(KERNEL, "raymarch_mlp_fwd",
+                        [ptr, ptr, i, i, i, i, ptr, ptr, ptr, ptr, ptr, ptr])
     (w_ptrs, _keep_w), (b_ptrs, _keep_b) = fr._ptrs(fm.kernel_ws), fr._ptrs(fm.kernel_bs)
-    with torch.cuda.device(dev):
+    with build.on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x_pts.data_ptr(), d_pts.data_ptr(), p, position_dim, direction_dim,
                 int(fm.dtype == torch.bfloat16), w_ptrs, b_ptrs, fr._maps_arg(fm, dev),
@@ -217,13 +216,14 @@ def points_forward(fm: fr.FusedMLP, x_pts, d_pts, position_dim: int = 10,
     raise ValueError(f"no point-level MLP implementation for device {x_pts.device}")
 
 
-def _bwd_sizes(p: int, is_bf16: bool, lib) -> Tuple[int, ...]:
+def _bwd_sizes(p: int, is_bf16: bool) -> Tuple[int, ...]:
     """``(scratch points, slices, weight-gradient floats, CTAs, bias
     floats, scratch channels)`` of one backward: the kernel's own tiling of
     the points."""
-    fn = lib.raymarch_mlp_bwd_sizes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
-    fn.restype = ctypes.c_int
+    from minimal_nerf_torch.kernels import build
+
+    fn = build.function(BWD_KERNEL, "raymarch_mlp_bwd_sizes",
+                        [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)])
     out = (ctypes.c_longlong * 6)()
     rc = fn(p, int(is_bf16), out)
     if rc != 0:
@@ -244,9 +244,8 @@ def _launch_bwd(fm: fr.FusedMLP, x_pts, d_pts, dsig, drgb, position_dim, directi
     if p == 0:
         return fr._split_grads(torch.zeros((fr.GRAD_FLOATS,), dtype=torch.float32,
                                            device=dev), fm)
-    lib = build.load(BWD_KERNEL)
     is_bf16 = fm.dtype == torch.bfloat16
-    points, slices, total, ctas, bias, channels = _bwd_sizes(p, is_bf16, lib)
+    points, slices, total, ctas, bias, channels = _bwd_sizes(p, is_bf16)
     if (total + bias, channels) != (fr.GRAD_FLOATS, fr.SCRATCH_CHANNELS):
         raise RuntimeError(f"{BWD_KERNEL} writes {total} + {bias} gradient floats through "
                            f"{channels} scratch channels, expected the blocks of GRAD_BLOCKS "
@@ -257,13 +256,12 @@ def _launch_bwd(fm: fr.FusedMLP, x_pts, d_pts, dsig, drgb, position_dim, directi
     partial = torch.empty((slices, total), dtype=torch.float32, device=dev)
     bias_partial = torch.empty((ctas, fr.BIAS_CHANNELS), dtype=torch.float32, device=dev)
 
-    fn = lib.raymarch_mlp_bwd
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr, ptr, ptr, ptr, i, i, i, i, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
-    fn.restype = i
+    fn = build.function(BWD_KERNEL, "raymarch_mlp_bwd",
+                        [ptr, ptr, ptr, ptr, i, i, i, i, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr])
     (w_ptrs, _kw), (b_ptrs, _kb), (wt_ptrs, _kt) = (
         fr._ptrs(fm.kernel_ws), fr._ptrs(fm.kernel_bs), fr._ptrs(fm.kernel_wts))
-    with torch.cuda.device(dev):
+    with build.on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x_pts.data_ptr(), d_pts.data_ptr(), dsig.data_ptr(), drgb.data_ptr(), p,
                 position_dim, direction_dim, int(is_bf16), w_ptrs, b_ptrs, wt_ptrs,

@@ -10,14 +10,21 @@ count per ray stays fixed; the grid changes where the samples land).
   pattern in ``int32`` (bit ``i & 31`` of word ``i >> 5`` is cell ``i``). An
   arithmetic right shift followed by ``& 1`` reads any bit, bit 31 included;
   ``words.numpy().view(np.uint32)`` gives the JAX words.
-- **The probe.** ``query_bin_weights`` reads one bit per ray bin through
-  ``kernels/occupancy_probe.probe_bits``: the hand-written kernel on a CUDA
-  tensor, its plain version on a CPU tensor. The JAX package's
+- **The sampler.** The coarse-sampler hook (``make_occupancy_sampler``)
+  draws ``eps`` and, with in-bin jitter, ``frac``, then calls
+  ``occupancy_sample``: on a CUDA tensor one launch of the hand-written
+  kernel ``kernels/occupancy_sampler.py`` (cells, probe, weights, inverse
+  CDF, in-bin placement, sort, samples), on a CPU tensor its plain version
+  ``occupancy_sample_plain`` (``query_bin_weights_plain`` then
+  ``occupancy_coarse_samples``, the JAX functions' math); any other device
+  raises. ``query_bin_weights`` takes the kernel's weights output on the
+  card. The standalone probe ``kernels/occupancy_probe.probe_bits`` (the
+  counterpart of the JAX ``probe_bits_pallas``) stays; the plain versions
+  read the bits through its plain version. The JAX package's
   ``probe_method`` names (``"auto"``, ``"gather"``, ``"onehot"``,
   ``"pallas"``) stay accepted config values, since checkpoints carry them,
-  but pick nothing here: they choose among lowerings of the same bits on the
-  TPU (``"onehot"`` works around its missing gather unit), and every one of
-  them computes those bits through the one probe in the port.
+  but pick nothing here: they choose among lowerings of the same bits on
+  the TPU (``"onehot"`` works around its missing gather unit).
 - **Draws.** ``occupancy_coarse_samples`` takes a ``torch.Generator`` or the
   pre-drawn ``(eps [N, 1], frac [N, S])``; ``update_grid_ema`` the jitter
   ``[G^3, 3]``, in ``[0, 1)`` as ``jax.random.uniform`` gives them, so tests
@@ -33,7 +40,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from minimal_nerf_torch.kernels import occupancy_probe
+from minimal_nerf_torch.kernels import occupancy_probe, occupancy_sampler
 from minimal_nerf_torch.models.mlp import nerf_mlp_apply
 from minimal_nerf_torch.ops.rendering import draw_uniform
 from minimal_nerf_torch.training.checkpoint import flatten_tree
@@ -138,6 +145,24 @@ def bin_cells(o_rays: torch.Tensor, d_rays: torch.Tensor, cfg: OccupancyConfig,
     return ((vc[..., 0] * g + vc[..., 1]) * g + vc[..., 2]).contiguous(), in_bounds
 
 
+def uniform_fallback(weights: torch.Tensor) -> torch.Tensor:
+    """``weights [N, B]`` with every row that has no positive sum replaced
+    by ones."""
+    return torch.where(torch.sum(weights, dim=1, keepdim=True) > 0, weights,
+                       torch.ones_like(weights))
+
+
+def query_bin_weights_plain(occ_words: torch.Tensor, o_rays: torch.Tensor,
+                            d_rays: torch.Tensor, cfg: OccupancyConfig, num_bins: int,
+                            near: float, far: float) -> torch.Tensor:
+    """``query_bin_weights`` in plain PyTorch on any device: ``bin_cells``,
+    the plain probe, the weights and the uniform fallback."""
+    lin, in_bounds = bin_cells(o_rays, d_rays, cfg, num_bins, near, far)
+    occ = (occupancy_probe.probe_bits_plain(occ_words, lin) != 0) & in_bounds
+    weights = torch.where(occ, 1.0, torch.where(in_bounds, cfg.floor, 0.0)).float()
+    return uniform_fallback(weights)
+
+
 def query_bin_weights(occ_words: torch.Tensor, o_rays: torch.Tensor, d_rays: torch.Tensor,
                       cfg: OccupancyConfig, num_bins: int, near: float, far: float,
                       ) -> torch.Tensor:
@@ -145,12 +170,19 @@ def query_bin_weights(occ_words: torch.Tensor, o_rays: torch.Tensor, d_rays: tor
     uniform bins of ``[near, far]``, probed at each bin's midpoint
     (``bin_cells``): occupied bins weigh 1, unoccupied in-bounds bins
     ``cfg.floor``, bins outside the grid's box 0; a ray with no positive
-    weight falls back to uniform weights."""
-    lin, in_bounds = bin_cells(o_rays, d_rays, cfg, num_bins, near, far)
-    occ = (occupancy_probe.probe_bits(occ_words, lin) != 0) & in_bounds
-    weights = torch.where(occ, 1.0, torch.where(in_bounds, cfg.floor, 0.0)).float()
-    any_mass = torch.sum(weights, dim=1, keepdim=True) > 0
-    return torch.where(any_mass, weights, torch.ones_like(weights))
+    weight falls back to uniform weights.
+
+    CUDA tensors go through one launch of the sampler kernel (its weights
+    alone), CPU tensors through ``query_bin_weights_plain``; any other
+    device raises."""
+    if o_rays.device.type == "cuda":
+        consts = occupancy_sampler.bin_constants(cfg, num_bins, near, far)
+        return occupancy_sampler.sample(occ_words, o_rays, d_rays, None, None, consts, 0,
+                                        with_weights=True)[2]
+    if o_rays.device.type == "cpu":
+        occupancy_sampler.check_inputs(occ_words, o_rays, d_rays, None, None, cfg.resolution, 0)
+        return query_bin_weights_plain(occ_words, o_rays, d_rays, cfg, num_bins, near, far)
+    raise ValueError(f"no occupancy sampler implementation for device {o_rays.device}")
 
 
 def occupancy_coarse_samples(o_rays: torch.Tensor, d_rays: torch.Tensor,
@@ -176,8 +208,7 @@ def occupancy_coarse_samples(o_rays: torch.Tensor, d_rays: torch.Tensor,
 
     # an all-zero row falls back to uniform (query_bin_weights already
     # guarantees this; the function stays total)
-    bw = bin_weights.to(dtype)
-    bw = torch.where(torch.sum(bw, dim=1, keepdim=True) > 0, bw, torch.ones_like(bw))
+    bw = uniform_fallback(bin_weights.to(dtype))
     cdf = torch.cumsum(bw, dim=1)
     cdf = cdf / (cdf[:, -1:] + 1e-10)
 
@@ -201,15 +232,66 @@ def occupancy_coarse_samples(o_rays: torch.Tensor, d_rays: torch.Tensor,
     return o_rays[:, None, :] + ts * d_rays[:, None, :], ts
 
 
+def occupancy_sample_plain(occ_words: torch.Tensor, o_rays: torch.Tensor,
+                           d_rays: torch.Tensor, eps: torch.Tensor,
+                           frac: Optional[torch.Tensor], cfg: OccupancyConfig,
+                           num_samples: int, near: float, far: float,
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the sampler kernel, on any device:
+    ``query_bin_weights_plain`` over ``cfg.num_bins`` bins, then
+    ``occupancy_coarse_samples`` on the draws ``eps [N, 1]`` and ``frac [N,
+    S]`` (read only with ``cfg.in_bin_jitter``). Returns ``(samples [N, S,
+    3], ts [N, S, 1], weights [N, B])``."""
+    weights = query_bin_weights_plain(occ_words, o_rays, d_rays, cfg, cfg.num_bins, near, far)
+    samples, ts = occupancy_coarse_samples(o_rays, d_rays, weights, num_samples, near, far,
+                                           in_bin_jitter=cfg.in_bin_jitter,
+                                           uniforms=(eps, frac))
+    return samples, ts, weights
+
+
+def occupancy_sample(occ_words: torch.Tensor, o_rays: torch.Tensor, d_rays: torch.Tensor,
+                     eps: torch.Tensor, frac: Optional[torch.Tensor], cfg: OccupancyConfig,
+                     num_samples: int, near: float, far: float, with_weights: bool = False,
+                     ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The occupancy coarse samples of rays ``o, d [N, 3]`` on the draws
+    ``eps [N, 1]`` and, exactly when ``cfg.in_bin_jitter``, ``frac [N, S]``:
+    ``(samples [N, S, 3], ts [N, S, 1], weights [N, B] if with_weights else
+    None)``. CUDA tensors go through one launch of the sampler kernel, CPU
+    tensors through ``occupancy_sample_plain``; any other device raises."""
+    if (frac is not None) != cfg.in_bin_jitter:
+        raise ValueError(f"frac is drawn exactly with in-bin jitter (in_bin_jitter="
+                         f"{cfg.in_bin_jitter}, frac {'given' if frac is not None else 'None'})")
+    if o_rays.device.type == "cuda":
+        consts = occupancy_sampler.bin_constants(cfg, cfg.num_bins, near, far)
+        return occupancy_sampler.sample(occ_words, o_rays, d_rays, eps, frac, consts,
+                                        num_samples, with_weights)
+    if o_rays.device.type == "cpu":
+        occupancy_sampler.check_inputs(occ_words, o_rays, d_rays, eps, frac, cfg.resolution,
+                                       num_samples)
+        samples, ts, weights = occupancy_sample_plain(occ_words, o_rays, d_rays, eps, frac,
+                                                      cfg, num_samples, near, far)
+        return samples, ts, weights if with_weights else None
+    raise ValueError(f"no occupancy sampler implementation for device {o_rays.device}")
+
+
 def make_occupancy_sampler(occ_words: torch.Tensor, cfg: OccupancyConfig) -> Callable:
     """A ``coarse_sampler`` hook (signature of
     ``rendering.generate_coarse_samples``) concentrating the coarse samples
-    in the occupied bins of the packed grid ``occ_words``."""
+    in the occupied bins of the packed grid ``occ_words``: it draws ``eps
+    [N, 1]`` and then, with in-bin jitter, ``frac [N, S]`` from
+    ``generator`` (or takes ``uniforms = (eps, frac)``), and calls
+    ``occupancy_sample`` on the rays made contiguous (a batch's origins are
+    its camera's position expanded, ``ops.cameras.rays_for_pixels``)."""
     def sampler(o_rays, d_rays, num_samples, near, far, generator=None, uniforms=None):
-        weights = query_bin_weights(occ_words, o_rays, d_rays, cfg, cfg.num_bins, near, far)
-        return occupancy_coarse_samples(o_rays, d_rays, weights, num_samples, near, far,
-                                        in_bin_jitter=cfg.in_bin_jitter, generator=generator,
-                                        uniforms=uniforms)
+        eps_u, frac_u = uniforms if uniforms is not None else (None, None)
+        o_rays, d_rays = o_rays.contiguous(), d_rays.contiguous()
+        n = o_rays.shape[0]
+        eps = draw_uniform((n, 1), o_rays, generator, eps_u)
+        frac = (draw_uniform((n, num_samples), o_rays, generator, frac_u)
+                if cfg.in_bin_jitter else None)
+        samples, ts, _ = occupancy_sample(occ_words, o_rays, d_rays, eps, frac, cfg,
+                                          num_samples, near, far)
+        return samples, ts
 
     return sampler
 

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (the fused ray-march forward and backward, the
-point-level MLP forward and backward, the occupancy probe) against their
-plain PyTorch versions, on a card.
+point-level MLP forward and backward, the occupancy probe and the fused
+occupancy sampler) against their plain PyTorch versions, on a card.
 
 Marked ``cuda``: they skip without a card. This file imports neither JAX nor
 the JAX package, so it also runs where only PyTorch is installed:
@@ -8,14 +8,18 @@ the JAX package, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
 from minimal_nerf_torch.kernels import fused_raymarch as fr
 from minimal_nerf_torch.kernels import occupancy_probe as op
+from minimal_nerf_torch.kernels import occupancy_sampler as osk
 from minimal_nerf_torch.kernels import raymarch as rm
 from minimal_nerf_torch.models.mlp import init_nerf_mlp
+from minimal_nerf_torch.ops import occupancy as occ
 
 # the bounds of chip_smoke.py: every element |k - p| <= atol + rtol * |p|,
 # and mean |k - p| <= mean_rtol * mean |p|. fp32: same rounding points, other
@@ -40,7 +44,7 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     fr.launches = fr.bwd_launches = fr.wgrad_launches = 0
     rm.launches = rm.bwd_launches = 0
-    op.launches = 0
+    op.launches = osk.launches = 0
     return torch.device("cuda")
 
 
@@ -538,3 +542,166 @@ def test_probe_kernel_rejects_bad_inputs(cuda_device):
         with pytest.raises(ValueError):
             op.probe_bits(bad_words, bad_lin)
     assert op.launches == 0
+
+
+def _sampler_inputs(seed, n, s, g, jitter, dev, floor=0.25):
+    """The sampler's inputs at B = 64: words with about half of the bits
+    set; rays from a camera 7 units out toward the box (their first bins
+    outside it, weight 0), a quarter of them tuned so one bin midpoint lies
+    within a few ulp of a cell boundary (the cell then depends on every
+    rounding), the last sixteenth wholly outside (the uniform fallback);
+    eps = 0 on every eighth ray (u on the grid's edges, where a right-sided
+    search differs); frac with jitter."""
+    cfg = occ.OccupancyConfig(resolution=g, num_bins=64, floor=floor, in_bin_jitter=jitter)
+    consts = osk.bin_constants(cfg, 64, 2.0, 6.0)
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2 ** 32, size=g ** 3 // 32, dtype=np.uint32).view(np.int32)
+    eye = rng.normal(size=(n, 3))
+    eye = 7.0 * eye / np.linalg.norm(eye, axis=1, keepdims=True)
+    d = -eye / 7.0 + rng.normal(size=(n, 3)) * 0.15
+    o, d = eye.astype(np.float32), d.astype(np.float32)
+    tuned = np.arange(0, n, 4)
+    b = rng.integers(0, 64, size=tuned.size)
+    axis = rng.integers(0, 3, size=tuned.size)
+    f = np.float32
+    mids = f(consts.near) + (np.arange(64, dtype=f) + f(0.5)) * f(consts.width)
+    edge = rng.integers(1, g, size=tuned.size) / np.float64(consts.scale) - consts.bound
+    o[tuned, axis] = (edge - np.float64(mids[b]) * d[tuned, axis]).astype(f)
+    o[n - max(1, n // 16):] += 20.0
+    eps = rng.random((n, 1)).astype(f)
+    eps[::8] = 0.0
+    frac = rng.random((n, s)).astype(f) if jitter else None
+    t = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa: E731
+    return cfg, t(words), t(o), t(d), t(eps), t(frac)
+
+
+def _fma_bin_cells(o_rays, d_rays, cfg, num_bins, near, far):
+    """``bin_cells`` with ``o + mid * d`` rounded once, as an FMA would."""
+    g = cfg.resolution
+    width = (far - near) / num_bins
+    mids = near + (torch.arange(num_bins, dtype=torch.float32, device=o_rays.device) + 0.5) * width
+    pos = (o_rays.double()[:, None, :] + mids.double()[None, :, None]
+           * d_rays.double()[:, None, :]).float()
+    v = torch.floor((pos + cfg.bound) * (g / (2.0 * cfg.bound))).to(torch.int32)
+    inside = torch.all((v >= 0) & (v < g), dim=-1)
+    vc = torch.clamp(v, 0, g - 1)
+    return ((vc[..., 0] * g + vc[..., 1]) * g + vc[..., 2]).contiguous(), inside
+
+
+# the plain sampler with one fault each (module attribute, replacement);
+# the kernel must differ from every one of them
+SAMPLER_FAULTS = {
+    "FMA-contracted cell positions": (occ, "bin_cells", _fma_bin_cells),
+    "searchsorted right": (torch, "searchsorted",
+                           lambda a, v, right=False, _f=torch.searchsorted: _f(a, v, right=True)),
+    "no uniform fallback": (occ, "uniform_fallback", lambda w: w),
+    "no sort": (torch, "sort", lambda t, dim: SimpleNamespace(values=t)),
+    "bits reversed in the word": (
+        op, "probe_bits_plain",
+        lambda w, lin: ((w[(lin >> 5).long()] >> (31 - (lin & 31))) & 1).to(torch.int32)),
+}
+
+
+def _plain_sample(cfg, words, o, d, eps, frac, s):
+    return occ.occupancy_sample_plain(words, o, d, eps, frac, cfg, s, 2.0, 6.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [64, 128])
+@pytest.mark.parametrize("jitter", [True, False])
+@pytest.mark.parametrize("s", [16, 64])
+@pytest.mark.parametrize("n", [4096, 4095, 5])
+def test_sampler_kernel_matches_plain(cuda_device, n, s, jitter, g):
+    """Weights, ts and samples identical to the plain version on the card at
+    floor 0.25 (every CDF prefix exact in float), in one launch."""
+    cfg, words, o, d, eps, frac = _sampler_inputs(n + s + g, n, s, g, jitter, cuda_device)
+    got_s, got_t, got_w = occ.occupancy_sample(words, o, d, eps, frac, cfg, s, 2.0, 6.0,
+                                               with_weights=True)
+    want_s, want_t, want_w = _plain_sample(cfg, words, o, d, eps, frac, s)
+    torch.cuda.synchronize()
+    assert osk.launches == 1 and op.launches == 0
+    assert got_t.shape == (n, s, 1) and got_s.shape == (n, s, 3) and got_w.shape == (n, 64)
+    assert torch.equal(got_w, want_w) and torch.equal(got_t, want_t)
+    assert torch.equal(got_s, want_s)
+    assert set(want_w.unique().tolist()) == {0.0, 0.25, 1.0}
+
+
+def _bins(weights, eps, s):
+    """Each sample's clamped bin, as the plain version finds it, on the
+    weights' device."""
+    cdf = torch.cumsum(weights, dim=1)
+    cdf = cdf / (cdf[:, -1:] + 1e-10)
+    u = torch.arange(s, dtype=torch.float32, device=weights.device)[None, :] / s + eps / s
+    return torch.clamp(torch.searchsorted(cdf.contiguous(), u.contiguous()),
+                       max=weights.shape[1] - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jitter", [True, False])
+@pytest.mark.parametrize("s", [16, 64])
+def test_sampler_kernel_at_a_floor_not_exact_in_binary(cuda_device, s, jitter):
+    """At floor 0.1 the kernel's CDF (the exact prefix sums, rounded once)
+    is the CPU cumsum's: the kernel equals the plain version on the CPU bit
+    for bit. The plain version on the card sums in float32, so some CDF
+    values are an ulp apart and a u within that of an edge takes the next
+    bin; the eps = 0 rays put u on exact fractions (s / S), where an exact
+    CDF value often lies. The share of samples whose bin differs from the
+    card's plain version is bounded: at most 5 in 1000 (chip_smoke.py's
+    inputs on an H100: 7.2e-4 and 9.3e-4)."""
+    cfg, words, o, d, eps, frac = _sampler_inputs(7 + s, 4096, s, 64, jitter, cuda_device,
+                                                  floor=0.1)
+    got_s, got_t, got_w = occ.occupancy_sample(words, o, d, eps, frac, cfg, s, 2.0, 6.0,
+                                               with_weights=True)
+    cpu = [None if a is None else a.cpu() for a in (words, o, d, eps, frac)]
+    want_s, want_t, want_w = _plain_sample(cfg, *cpu, s)
+    assert torch.equal(got_w.cpu(), want_w) and torch.equal(got_t.cpu(), want_t)
+    assert torch.equal(got_s.cpu(), want_s)
+    moved = (_bins(got_w, eps, s).cpu() != _bins(want_w, cpu[3], s)).float().mean().item()
+    assert moved <= 5e-3, moved
+
+
+@pytest.mark.cuda
+def test_sampler_weights_and_hook_on_the_card(cuda_device):
+    """``query_bin_weights`` on a CUDA tensor is one launch (the weights
+    alone); the hook draws eps then frac from its generator and launches
+    once, giving the plain version's samples on those draws."""
+    cfg, words, o, d, _, _ = _sampler_inputs(3, 4096, 16, 64, True, cuda_device)
+    got = occ.query_bin_weights(words, o, d, cfg, 64, 2.0, 6.0)
+    assert osk.launches == 1
+    assert torch.equal(got, occ.query_bin_weights_plain(words, o, d, cfg, 64, 2.0, 6.0))
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    samples, ts = occ.make_occupancy_sampler(words, cfg)(o, d, 16, 2.0, 6.0, generator=gen)
+    assert osk.launches == 2 and op.launches == 0
+    again = torch.Generator(device=cuda_device).manual_seed(5)
+    eps = torch.rand((4096, 1), generator=again, device=cuda_device)
+    frac = torch.rand((4096, 16), generator=again, device=cuda_device)
+    want_s, want_t, _ = _plain_sample(cfg, words, o, d, eps, frac, 16)
+    assert torch.equal(ts, want_t) and torch.equal(samples, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", list(SAMPLER_FAULTS))
+def test_sampler_kernel_differs_from_faulty_plain_versions(cuda_device, monkeypatch, fault):
+    cfg, words, o, d, eps, frac = _sampler_inputs(11, 4096, 16, 64, True, cuda_device)
+    got_s, got_t, got_w = occ.occupancy_sample(words, o, d, eps, frac, cfg, 16, 2.0, 6.0,
+                                               with_weights=True)
+    module, name, faulty = SAMPLER_FAULTS[fault]
+    monkeypatch.setattr(module, name, faulty)
+    want_s, want_t, want_w = _plain_sample(cfg, words, o, d, eps, frac, 16)
+    mismatches = int((got_t != want_t).sum()) + int((got_w != want_w).sum())
+    assert mismatches > 0, fault
+
+
+@pytest.mark.cuda
+def test_sampler_kernel_rejects_bad_inputs(cuda_device):
+    cfg, words, o, d, eps, frac = _sampler_inputs(2, 64, 16, 64, True, cuda_device)
+    consts = osk.bin_constants(cfg, 64, 2.0, 6.0)
+    bad = [dict(words=words.long()), dict(words=words.cpu()), dict(o=o.double()),
+           dict(d=d.t().contiguous().t()), dict(eps=eps[:, 0]), dict(frac=frac[:, :8]),
+           dict(consts=consts._replace(num_bins=257)), dict(s=257, frac=None)]
+    for change in bad:
+        a = dict(words=words, o=o, d=d, eps=eps, frac=frac, consts=consts, s=16)
+        a.update(change)
+        with pytest.raises(ValueError):
+            osk.sample(a["words"], a["o"], a["d"], a["eps"], a["frac"], a["consts"], a["s"])
+    assert osk.launches == 0
