@@ -38,6 +38,13 @@ and the sampler's weights, times and samples must be identical), then:
   baked from the ``[train]`` checkpoint;
 - ``[occ-reference]`` holds one occupancy step on the card (grid update,
   packed words, loss, gradients, Adam) against the same step on the CPU;
+- ``[trainer]``, with imageio and PIL hidden, writes the ``[train]`` scene
+  (20 train and 2 val frames) as a PNG tree and reads it back exactly, then
+  runs the train CLI (``train.main``) on it: 220 steps at the production
+  defaults with a validation and a save at step 200, a resume with ``-l
+  auto`` to step 240, and 200 steps of ``--fast``; it checks the loss,
+  metrics.csv's columns, the checkpoints, the val view and every kernel's
+  launches, and prints the trainer's ms/step beside ``[train]``'s;
 - ``[profile]`` profiles one frame, one train step, one pallas train step,
   one occupancy train step (with the coarse-sampler hook's span) and one
   16+48 frame through the occupancy grid for the kernels' and the idle
@@ -1140,22 +1147,32 @@ def phase_render_cli(dev, ckpt: Path, tmp: Path):
 
 
 TRAIN_FRAMES, TRAIN_STEPS = 20, 100
+VAL_FRAMES = 2
+# metrics.csv's columns, in order, of the JAX Trainer's run through the fused
+# kernels with a validation, uniform and with occupancy (the card has no JAX:
+# tests/test_torch_trainer.py holds these against the JAX Trainer's file)
+TRAINER_COLUMNS = ["step", "grad_2.0_norm_total", "lr", "train_coarse_loss", "train_fine_loss",
+                   "train_loss", "iterations_per_sec", "rays_per_sec", "train iteration speed",
+                   "wall_seconds", "val_coarse_loss", "val_fine_loss", "val_loss", "val_seconds",
+                   "ckpt_seconds"]
+TRAINER_FAST_COLUMNS = TRAINER_COLUMNS[:3] + ["occ_fraction"] + TRAINER_COLUMNS[3:]
 
 
 def make_train_scene(dev):
-    """The procedural ``random_object`` scene: 20 train frames at 800x800,
-    rendered on the card by the port's ``data/procedural.py``."""
+    """The procedural ``random_object`` scene: 20 train and 2 val frames at
+    800x800, rendered on the card by the port's ``data/procedural.py``;
+    returns split -> ``SyntheticScene``."""
     from minimal_nerf_torch.data.procedural import make_procedural_scene
 
     t0 = time.perf_counter()
-    scenes, _ = make_procedural_scene((("train", TRAIN_FRAMES),), height=HW, width=HW,
-                                      scene="object", seed=0, chunk=8192, device=dev)
+    scenes, _ = make_procedural_scene((("train", TRAIN_FRAMES), ("val", VAL_FRAMES)), height=HW,
+                                      width=HW, scene="object", seed=0, chunk=8192, device=dev)
     torch.cuda.synchronize()
     scene = scenes["train"]
-    print(f"[train] scene: {TRAIN_FRAMES} frames {HW}x{HW} made on the card in "
-          f"{time.perf_counter() - t0:.1f} s; image mean {scene.images.float().mean().item():.2f}",
-          flush=True)
-    return scene
+    print(f"[train] scene: {TRAIN_FRAMES} train and {VAL_FRAMES} val frames {HW}x{HW} made on "
+          f"the card in {time.perf_counter() - t0:.1f} s; train image mean "
+          f"{scene.images.float().mean().item():.2f}", flush=True)
+    return scenes
 
 
 def init_train_params(dev, cfg, density_bias: float = 0.0):
@@ -1246,6 +1263,170 @@ def phase_train(dev, tmp: Path, scene):
     if not ok:
         raise AssertionError("render from the trained checkpoint failed")
     return dict(ms=ms, losses=losses, counts=counts, bias=bias, ckpt=ckpt), step_fn, params, state
+
+
+def read_csv(path: Path):
+    import csv
+
+    with open(path, newline="") as f:
+        reader = csv.DictReader(f)
+        return reader.fieldnames, list(reader)
+
+
+def run_train_cli(argv, occ_updates=None):
+    """``train.main(argv)`` with the launch counts set to 0 just before;
+    returns the last Trainer, the wall seconds and the counts after
+    (``counts()`` order). ``occ_updates`` collects a 1 per grid update."""
+    from minimal_nerf_torch import train
+    from minimal_nerf_torch.ops import occupancy as occ
+
+    count = lambda f: lambda *a, **k: occ_updates.append(1) or f(*a, **k)  # noqa: E731
+    with (wrapped(occ, "update_grid_ema", count) if occ_updates is not None
+          else contextlib.nullcontext()):
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return trainer, wall, counts()
+
+
+def phase_trainer(dev, tmp: Path, scenes, train_ms: float):
+    """``python -m minimal_nerf_torch.train full`` on the card, with imageio
+    and PIL hidden: the ``[train]`` scene written as a PNG tree and read
+    back exactly; ``-s 220`` at the production defaults (fused, 64+128,
+    4096 rays, bf16; a validation at step 200, epoch 10, with both val
+    frames' losses and one 800x800 view); ``-l auto -s 240``; ``--fast -s
+    200`` (occupancy, 16+48) with the warmup cut to 32 steps. Checks the
+    loss, metrics.csv's columns (the JAX Trainer's), the checkpoints, the
+    val PNG and every kernel's launches; prints the trainer's ms/step from
+    its CSV beside ``[train]``'s, and its boundary timings."""
+    from minimal_nerf_torch.data.procedural import save_scene_tree
+    from minimal_nerf_torch.data.synthetic import SyntheticScene
+    from minimal_nerf_torch.training.checkpoint import read_header
+    from minimal_nerf_torch.utils import imageio as mio
+
+    tree, root = tmp / "tree", tmp / "runs"
+    chunks = math.ceil(HW * HW / RAYS)
+    with hidden_modules("imageio", "imageio.v2", "PIL", "PIL.Image"):
+        backend = mio._backend()[0]
+        t0 = time.perf_counter()
+        save_scene_tree(scenes, tree)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = {split: SyntheticScene.load(tree, split, device=dev) for split in scenes}
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        same = all(torch.equal(loaded[k].images, v.images) and torch.equal(loaded[k].poses,
+                                                                           v.poses)
+                   and loaded[k].focal == v.focal for k, v in scenes.items())
+        size = sum(f.stat().st_size for f in tree.rglob("*.png"))
+        ok = same and backend == "builtin"
+        print(f"[trainer] tree of {sum(v.num_frames for v in scenes.values())} frames "
+              f"{HW}x{HW} ({size / 2**20:.1f} MiB of PNG, image packages hidden: backend "
+              f"{backend}) written in {write_s:.2f} s, read back onto the card in {read_s:.2f} "
+              f"s; decoded pixels, poses and focal equal the scene's: {same} "
+              f"{'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("the scene tree did not read back as written")
+
+        base = ["-rd", str(root), "--log-every", "20"]
+        steps, val_step = 220, 10 * TRAIN_FRAMES
+        trainer, wall, launched = run_train_cli(
+            ["-n", "trainer", "-s", str(steps)] + base + ["full", "-b", str(tree)])
+        run = root / "trainer"
+        head, rows = read_csv(run / "metrics.csv")
+        train_rows = [r for r in rows if r["train_loss"]]
+        val_row = next(r for r in rows if r["val_loss"])
+        loss = [float(r["train_loss"]) for r in train_rows]
+        first, last = sum(loss[:3]) / 3, sum(loss[-3:]) / 3
+        ckpts = sorted(p.name for p in (run / "checkpoints").glob("*.ckpt"))
+        want_ckpts = [f"model=trainer-epoch={val_step // TRAIN_FRAMES}-step={val_step}.ckpt",
+                      f"model=trainer-epoch={steps // TRAIN_FRAMES}-step={steps}.ckpt"]
+        views = list((run / "images").glob(f"recon-val*-{val_step}.png"))
+        view_shape = mio.imread(views[0]).shape if len(views) == 1 else None
+        val_fwd = 2 * VAL_FRAMES + 2 * chunks
+        want = (2 * steps + val_fwd, 2 * steps, 0, 0, 0, 0)
+        ok = (head == TRAINER_COLUMNS and all(math.isfinite(x) for x in loss) and last < first
+              and ckpts == want_ckpts and view_shape == (HW, HW, 3) and launched == want
+              and int(val_row["step"]) == val_step and trainer.final_state[3] == steps)
+        # steady rows: past the first window and before the validation
+        steady = [r for r in train_rows if 20 < int(r["step"]) <= val_step]
+        med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+        ms = 1e3 * med([float(r["train iteration speed"]) for r in steady])
+        print(f"[trainer] train.main -s {steps} --log-every 20 full -b TREE (fused, 64+128, "
+              f"4096 rays, bf16, 20 frames per epoch) in {wall:.1f} s: loss mean of the first "
+              f"3 rows {first:.5f} > last 3 {last:.5f}: {last < first}; metrics.csv columns "
+              f"equal the JAX Trainer's: {head == TRAINER_COLUMNS}; checkpoints {ckpts}; val "
+              f"view {[v.name for v in views]} decodes to {view_shape}; launches ({COUNTED}) "
+              f"{launched} (want {want}: 2 per step, + {val_fwd} forward in the validation = "
+              f"{VAL_FRAMES} val frames x 2 + {chunks} chunks x 2) "
+              f"{'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("the train CLI's run is not as expected")
+        print(f"[trainer] {card_line()}: steady ms/step={ms:.2f} rays/s="
+              f"{RAYS / (ms / 1e3):.0f} (median of the CSV's {len(steady)} rows of 20 steps "
+              f"at steps 40-{val_step}, no sync between steps) against [train]'s "
+              f"hand-driven median {train_ms:.2f} ms/step (synced per step) in this call: "
+              f"trainer overhead {ms - train_ms:+.2f} ms/step; validation at step {val_step}: "
+              f"val_seconds={float(val_row['val_seconds']):.3f} ckpt_seconds="
+              f"{float(val_row['ckpt_seconds']):.4f}; tree write {write_s:.2f} s, read "
+              f"{read_s:.2f} s", flush=True)
+
+        resumed, wall, launched = run_train_cli(
+            ["-n", "trainer", "-s", str(steps + 20), "-l", "auto"] + base
+            + ["full", "-b", str(tree)])
+        _, rows = read_csv(run / "metrics.csv")
+        want = (40, 40, 0, 0, 0, 0)
+        new_ckpt = run / "checkpoints" / (f"model=trainer-epoch={(steps + 20) // TRAIN_FRAMES}"
+                                          f"-step={steps + 20}.ckpt")
+        ok = (str(resumed.resume_ckpt).endswith(want_ckpts[-1]) and launched == want
+              and new_ckpt.is_file() and [r["step"] for r in rows][-2:] == [str(steps),
+                                                                            str(steps + 20)]
+              and resumed.final_state[3] == steps + 20)
+        print(f"[trainer] train.main -l auto -s {steps + 20}: resumed from "
+              f"{Path(resumed.resume_ckpt).name}, {wall:.1f} s, launches {launched} (want "
+              f"{want}: 20 steps), wrote {new_ckpt.name}: {new_ckpt.is_file()}, CSV history "
+              f"kept ({len(rows)} rows) {'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("the train CLI did not resume as expected")
+
+        updates = []
+        fast_steps = val_step
+        fast, wall, launched = run_train_cli(
+            ["-n", "trainer-fast", "-s", str(fast_steps)] + base
+            + ["full", "-b", str(tree), "--fast", "--occ-warmup-steps", str(OCC_WARMUP)],
+            occ_updates=updates)
+        run = root / "trainer-fast"
+        head, rows = read_csv(run / "metrics.csv")
+        ckpt = run / "checkpoints" / f"model=trainer-fast-epoch=10-step={fast_steps}.ckpt"
+        leaves = read_header(ckpt)["num_leaves"] if ckpt.is_file() else None
+        cfg = fast.train_config
+        want_updates = len(range(0, fast_steps, cfg.occ_update_every))
+        want = (2 * fast_steps + val_fwd, 2 * fast_steps, 0, 0, 0,
+                fast_steps + VAL_FRAMES + chunks)
+        fracs = [float(r["occ_fraction"]) for r in rows if r["occ_fraction"]]
+        ok = (head == TRAINER_FAST_COLUMNS and launched == want and len(updates) == want_updates
+              and leaves == 123 and (fast.nerf_config.coarse_samples,
+                                     fast.nerf_config.fine_samples) == (16, 48)
+              and cfg.occupancy and all(0.0 < f <= 1.0 for f in fracs))
+        steady = [r for r in rows if r["train_loss"] and 20 < int(r["step"]) <= fast_steps]
+        ms = 1e3 * med([float(r["train iteration speed"]) for r in steady])
+        val_row = next(r for r in rows if r["val_loss"])
+        print(f"[trainer] train.main -s {fast_steps} full --fast --occ-warmup-steps "
+              f"{OCC_WARMUP} (occupancy G={cfg.occ_resolution}, 16+48, steps_per_call "
+              f"{cfg.steps_per_call} run one per call) in {wall:.1f} s: grid updates "
+              f"{len(updates)} (want {want_updates}); occ_fraction per row "
+              f"{[round(f, 4) for f in fracs]}; launches ({COUNTED}) {launched} (want {want}: "
+              f"the sampler once per step and per validation chunk, {VAL_FRAMES} + {chunks}); "
+              f"{ckpt.name}: {leaves} leaves (want 123); columns equal the JAX Trainer's: "
+              f"{head == TRAINER_FAST_COLUMNS}; steady ms/step={ms:.2f} rays/s="
+              f"{RAYS / (ms / 1e3):.0f}; val_seconds={float(val_row['val_seconds']):.3f} "
+              f"ckpt_seconds={float(val_row['ckpt_seconds']):.4f} {'PASS' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError("the train CLI's --fast run is not as expected")
+
 
 
 def train_uniforms(n: int, cfg, gen, dev, occupancy: bool = False):
@@ -1932,7 +2113,8 @@ def main(argv=None) -> int:
         ckpt, launches = phase_main_path(dev, Path(tmp))
         phase_reference(dev, ckpt)
         phase_render_cli(dev, ckpt, Path(tmp))
-        scene = make_train_scene(dev)
+        scenes = make_train_scene(dev)
+        scene = scenes["train"]
         train, step_fn, params, state = phase_train(dev, Path(tmp), scene)
         phase_train_reference(dev, scene, train["bias"])
         pallas, p_step_fn, p_params, p_state = phase_train_pallas(dev, Path(tmp), scene,
@@ -1941,6 +2123,7 @@ def main(argv=None) -> int:
         occ_train, o_step_fn, o_params, o_state, o_grid, o_cfg, o_tcfg = phase_train_occ(
             dev, Path(tmp), scene, params, train["ckpt"])
         phase_occ_reference(dev, scene, o_params, o_grid, o_cfg, o_tcfg)
+        phase_trainer(dev, Path(tmp), scenes, train["ms"])
         phase_profile(ckpt, dev,
                       lambda: step_fn(params, state, scene.images, scene.poses, TRAIN_STEPS, 0),
                       lambda: p_step_fn(p_params, p_state, scene.images, scene.poses,

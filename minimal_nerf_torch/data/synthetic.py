@@ -1,12 +1,13 @@
-"""Blender-style scenes held in memory, and per-step ray-batch sampling.
+"""Blender-style scenes: loading, and per-step ray-batch sampling.
 
-Counterpart of the in-memory parts of ``minimal_nerf_tpu/data/synthetic.py``:
-``num_rays`` random pixels of ONE frame per batch, with the reference's
-center-crop warmup (margins ``H//4``, ``W//4``), rays generated only for the
-sampled pixels. Images stay uint8 ``[F, H, W, 3]`` on the device and a batch
-gathers its pixels directly (the JAX package's u32 word packing is a TPU
-gather workaround and is not ported). ``SyntheticScene.load`` (PNG trees) is
-not ported yet: the card's machine has no PNG decoder.
+Counterpart of ``minimal_nerf_tpu/data/synthetic.py``: a split is parsed
+from ``transforms_{split}.json`` and its PNG frames decoded once
+(``SyntheticScene.load``, through the port's own PNG decoder); a batch is
+``num_rays`` random pixels of ONE frame, with the reference's center-crop
+warmup (margins ``H//4``, ``W//4``), rays generated only for the sampled
+pixels. Images stay uint8 ``[F, H, W, 3]`` on the device and a batch gathers
+its pixels directly (the JAX package's u32 word packing is a TPU gather
+workaround and is not ported).
 
 Random draws come from a ``torch.Generator``, or from given coordinates so
 tests can replay the JAX draws.
@@ -15,8 +16,11 @@ tests can replay the JAX draws.
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from minimal_nerf_torch.ops import cameras
@@ -64,6 +68,35 @@ class SyntheticScene:
     @property
     def width(self) -> int:
         return self.images.shape[2]
+
+    @classmethod
+    def load(cls, base_dir, split: str, device="cuda") -> "SyntheticScene":
+        """Parse ``transforms_{split}.json`` and decode every frame's PNG
+        (``utils.imageio.imread``: alpha dropped, gray expanded), then put
+        ``images`` and ``poses`` on ``device``. ``split`` is ``"train"``,
+        ``"val"`` or ``"test"``."""
+        from minimal_nerf_torch import resolve_device
+        from minimal_nerf_torch.utils import imageio as mio
+
+        dev = resolve_device(device)
+        base = Path(base_dir)
+        with open(base / f"transforms_{split}.json") as f:
+            meta = json.load(f)
+        images = np.stack([mio.imread(base / (frame["file_path"].lstrip("./") + ".png"))
+                           for frame in meta["frames"]])
+        poses = np.stack([np.asarray(frame["transform_matrix"], dtype=np.float32)
+                          for frame in meta["frames"]])
+        camera_angle_x = float(meta["camera_angle_x"])
+        return cls(images=torch.from_numpy(images).to(dev),
+                   poses=torch.from_numpy(poses).to(dev),
+                   focal=cameras.focal_from_angle(images.shape[2], camera_angle_x),
+                   camera_angle_x=camera_angle_x, split=split, base_dir=str(base_dir))
+
+    def frame_rays(self, frame_idx: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """All ``H x W`` rays of one frame, ``[H, W, 3]`` each, on the
+        scene's device (for view reconstruction and scoring)."""
+        return cameras.get_rays(self.height, self.width, self.focal,
+                                self.poses[frame_idx].cpu(), device=self.images.device)
 
 
 def ray_batch_from_arrays(frame_idx, num_rays: int, height: int, width: int, focal: float,

@@ -16,7 +16,8 @@ occupancy run keeps its density-EMA grid in the optimizer-state slot,
 the file has 123 leaves. ``save_checkpoint`` writes the train step's Adam
 state (``{"count", "mu", "nu"}``, the schedule's count equal to Adam's) or,
 without one, zero moments and counts; the file loads, and resumes, in the
-JAX package.
+JAX package. ``save_checkpoint_async`` copies the state to the host and
+writes it on a background thread.
 """
 
 from __future__ import annotations
@@ -24,10 +25,13 @@ from __future__ import annotations
 import io
 import json
 import re
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def flatten_tree(tree) -> List[Any]:
@@ -106,6 +110,54 @@ def save_checkpoint(path, params, step: int, nerf_config_dict: Dict[str, Any],
     tmp.write_bytes(buf.getvalue())
     tmp.replace(path)
     return path
+
+
+def host_copy(tensors: List[Any]) -> List[np.ndarray]:
+    """fp32 numpy copies of ``tensors``, those on one device fetched in ONE
+    device-to-host copy (concatenated there first). The copies are complete
+    when this returns."""
+    out: List[Any] = [None] * len(tensors)
+    by_device: Dict[Any, List[int]] = {}
+    for i, t in enumerate(tensors):
+        by_device.setdefault(t.device, []).append(i)
+    for idx in by_device.values():
+        flat = [tensors[i].detach().reshape(-1).float() for i in idx]
+        host = (flat[0] if len(flat) == 1 else torch.cat(flat)).cpu().numpy()
+        offsets = np.cumsum([0] + [f.numel() for f in flat])
+        for j, i in enumerate(idx):
+            out[i] = host[offsets[j]:offsets[j + 1]].reshape(tuple(tensors[i].shape))
+    return out
+
+
+_SAVE_POOL: Optional[ThreadPoolExecutor] = None
+_SAVE_POOL_LOCK = threading.Lock()
+
+
+def save_checkpoint_async(path, params, opt_state, step: int, nerf_config_dict: Dict[str, Any],
+                          train_config_dict: Dict[str, Any],
+                          extra: Optional[Dict[str, Any]] = None, grid=None) -> Future[Path]:
+    """``save_checkpoint`` without waiting for the file: ``params``, the
+    Adam state and ``grid`` (tensors) are copied to the host BEFORE this
+    returns, since the train step updates them in place; serialisation and
+    the write then run on a one-worker thread pool, so saves land in the
+    order they were asked for. ``.result()`` of the returned future joins
+    the write and raises if it failed."""
+    global _SAVE_POOL
+    with _SAVE_POOL_LOCK:
+        if _SAVE_POOL is None:
+            _SAVE_POOL = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt")
+    p_leaves, mu, nu = (flatten_tree(t) for t in (params, opt_state["mu"], opt_state["nu"]))
+    head = [] if grid is None else [grid]
+    host = host_copy(head + p_leaves + mu + nu)
+    host_grid = host[0] if head else None
+    host = host[len(head):]
+    n = len(p_leaves)
+    host_params = unflatten_tree(params, host[:n])
+    host_opt = {"count": int(opt_state["count"]),
+                "mu": unflatten_tree(opt_state["mu"], host[n:2 * n]),
+                "nu": unflatten_tree(opt_state["nu"], host[2 * n:])}
+    return _SAVE_POOL.submit(save_checkpoint, path, host_params, step, nerf_config_dict,
+                             train_config_dict, extra, host_opt, host_grid)
 
 
 def _ckpt_file(path) -> Path:

@@ -1,4 +1,5 @@
-"""The train step: batch sampling, hierarchical render, loss, Adam, LR.
+"""The train and eval steps: batch sampling, hierarchical render, loss,
+Adam, LR.
 
 Counterpart of ``minimal_nerf_tpu/training/loop.py`` (single device; the
 multi-step scan and data parallelism are not ported yet). PyTorch runs
@@ -17,7 +18,9 @@ moments map onto the checkpoint's leaves without reshaping.
 
 Random draws: each step derives its generators from ``(seed, step)``; the
 per-epoch frame permutation from ``(seed, epoch)`` alone, so every step of an
-epoch sees the same permutation and visits each frame exactly once.
+epoch sees the same permutation and visits each frame exactly once. The
+validation of val frame ``idx`` at ``step`` draws from ``(seed, step + idx)``
+on a stream of its own.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ Params = Dict[str, Any]
 # stream tags separating the generators derived from one seed; the grid
 # update's jitter has its own, so enabling occupancy perturbs no other draw
 _PERM_STREAM, _BATCH_STREAM, _RENDER_STREAM, _OCC_STREAM = 0x5EED, 1, 2, 0x0CC
+_VAL_STREAM = 0x7A1
 
 
 @dataclasses.dataclass
@@ -202,6 +206,14 @@ def loss_and_grads(params: Params, nerf_cfg: NeRFConfig, batch: Dict[str, Any],
             unflatten_tree(params, list(grads)))
 
 
+def resolve_kernel(kernel: str, device="cuda") -> str:
+    """``"auto"`` is ``"fused"`` on a CUDA device and ``"xla"`` (the plain
+    path) elsewhere; any other choice is kept."""
+    if kernel == "auto":
+        return "fused" if torch.device(device).type == "cuda" else "xla"
+    return kernel
+
+
 def kernel_hooks(kernel: str, device="cuda") -> Tuple[Optional[Callable], Callable]:
     """``(mlp_apply, render_fn)`` of a ``--kernel`` choice for the train step
     (``train_nerf.py:261-282``: ``resolve_kernel``, ``make_mlp_apply``,
@@ -216,8 +228,7 @@ def kernel_hooks(kernel: str, device="cuda") -> Tuple[Optional[Callable], Callab
     from minimal_nerf_torch.kernels.raymarch import make_mlp_kernel_apply
     from minimal_nerf_torch.models.nerf import render_rays
 
-    if kernel == "auto":
-        kernel = "fused" if torch.device(device).type == "cuda" else "xla"
+    kernel = resolve_kernel(kernel, device)
     if kernel == "fused":
         return None, make_fused_render_fn()
     if kernel == "pallas":
@@ -304,3 +315,71 @@ def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
         return params, opt_state, grid, dict(metrics, occ_fraction=occ_fraction)
 
     return occ_step_fn
+
+
+def make_eval_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, mlp_apply=None,
+                   render_fn=None, occupancy_cfg=None) -> Callable:
+    """The validation losses of one ray batch (JAX ``make_eval_step``):
+    ``eval_fn(params, origin, direc, rgb, generator, occ_words=None,
+    uniforms=None) -> {"val_loss", "val_coarse_loss", "val_fine_loss"}``,
+    device scalars, no gradient.
+
+    ``render_fn`` is the hierarchical render (default: the plain
+    ``models.nerf.render_rays``, as in JAX) and ``mlp_apply`` its MLP hook.
+    With ``occupancy_cfg`` the coarse samples follow the packed grid
+    ``occ_words`` through the train step's sampler
+    (``ops.occupancy.make_occupancy_sampler``): a uniform-sampled validation
+    of an occupancy-trained model would be a train/val sampling mismatch.
+    ``uniforms`` replaces the render's draws.
+    """
+    from minimal_nerf_torch.models.nerf import render_rays
+
+    render = render_fn or render_rays
+
+    @torch.no_grad()
+    def eval_fn(params, origin, direc, rgb, generator=None, occ_words=None, uniforms=None):
+        sampler = (occ.make_occupancy_sampler(occ_words, occupancy_cfg)
+                   if occupancy_cfg is not None else None)
+        out = render(params, nerf_cfg, origin, direc, generator,
+                     compute_dtype=train_cfg.compute_dtype, mlp_apply=mlp_apply,
+                     coarse_sampler=sampler, uniforms=uniforms)
+        coarse_loss = torch.mean((out["coarse_rgb_rays"] - rgb) ** 2)
+        fine_loss = torch.mean((out["fine_rgb_rays"] - rgb) ** 2)
+        return {"val_loss": coarse_loss + fine_loss, "val_coarse_loss": coarse_loss,
+                "val_fine_loss": fine_loss}
+
+    return eval_fn
+
+
+def make_batched_eval_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig,
+                           val_static: SceneStatic, mlp_apply=None, render_fn=None,
+                           occupancy_cfg=None) -> Callable:
+    """The validation losses averaged over EVERY val frame (JAX
+    ``make_batched_eval_step``; reference ``nerf_model.py:171-197``).
+
+    ``eval_all(params, images, poses, step, seed, occ_words=None,
+    coords=None, uniforms=None) -> {"val_loss", "val_coarse_loss",
+    "val_fine_loss"}``: the means over frames as device scalars (the caller
+    fetches them once). Frame ``idx`` samples ``num_rays`` pixels of the
+    whole frame (no crop) and renders them through ``make_eval_step``, its
+    draws from ``step_generator(seed, step + idx, _VAL_STREAM)``; the frames
+    run as a Python loop. ``coords[idx] = (xs, ys)`` and ``uniforms[idx]``
+    replace frame ``idx``'s draws.
+    """
+    eval_fn = make_eval_step(nerf_cfg, train_cfg, mlp_apply, render_fn, occupancy_cfg)
+
+    def eval_all(params, images, poses, step: int, seed: int, occ_words=None, coords=None,
+                 uniforms=None):
+        per_frame = []
+        for idx in range(val_static.num_frames):
+            gen = step_generator(seed, step + idx, _VAL_STREAM, images.device)
+            batch = ray_batch_from_arrays(idx, train_cfg.num_rays, val_static.height,
+                                          val_static.width, val_static.focal, images, poses,
+                                          generator=gen,
+                                          coords=None if coords is None else coords[idx])
+            per_frame.append(eval_fn(params, batch["origin"], batch["direc"], batch["rgb"],
+                                     gen, occ_words,
+                                     None if uniforms is None else uniforms[idx]))
+        return {k: torch.mean(torch.stack([m[k] for m in per_frame])) for k in per_frame[0]}
+
+    return eval_all

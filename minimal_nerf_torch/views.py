@@ -111,22 +111,64 @@ def render_poses_batched(render_chunk: Callable, poses, height: int, width: int,
             yield _to_uint8(torch.cat(out)).reshape(height, width, 3).cpu().numpy()
 
 
-def make_fine_render_chunk(params, config: NeRFConfig, compute_dtype=None,
-                           mlp_apply=None, render_fn=None,
-                           coarse_sampler=None) -> Callable:
-    """The standard ``render_chunk``: hierarchical render, fine color out.
-
-    ``render_fn`` overrides the render (e.g. ``make_fused_render_fn()``);
-    the default is the plain ``models.nerf.render_rays``.
-    """
+def make_param_render_chunk(config: NeRFConfig, compute_dtype=None, mlp_apply=None,
+                            render_fn=None, coarse_sampler=None) -> Callable:
+    """A render chunk taking the parameters as an argument,
+    ``render_chunk_p(params, o, d, generator) -> fine rgb``: the
+    hierarchical render (``render_fn``, default the plain
+    ``models.nerf.render_rays``) with its fine color out. For parameters
+    that change between views (the trainer's validation, which updates them
+    in place; the fused render's packing cache follows the update)."""
     render = render_fn or render_rays
 
-    def render_chunk(o, d, generator):
+    def render_chunk_p(params, o, d, generator):
         out = render(params, config, o, d, generator, compute_dtype=compute_dtype,
                      mlp_apply=mlp_apply, coarse_sampler=coarse_sampler)
         return out["fine_rgb_rays"]
 
-    return render_chunk
+    return render_chunk_p
+
+
+def make_occ_param_render_chunk(config: NeRFConfig, occ_cfg, compute_dtype=None,
+                                mlp_apply=None, render_fn=None) -> Callable:
+    """``render_chunk_p((params, occ_words), o, d, generator)``: the render
+    chunk of ``make_param_render_chunk`` with the coarse samples following
+    the packed occupancy grid ``occ_words`` (``ops.occupancy.pack_occupancy``)
+    passed beside the parameters, for a grid that changes between views."""
+    from minimal_nerf_torch.ops import occupancy as occ
+
+    render = render_fn or render_rays
+
+    def render_chunk_p(state, o, d, generator):
+        params, occ_words = state
+        out = render(params, config, o, d, generator, compute_dtype=compute_dtype,
+                     mlp_apply=mlp_apply,
+                     coarse_sampler=occ.make_occupancy_sampler(occ_words, occ_cfg))
+        return out["fine_rgb_rays"]
+
+    return render_chunk_p
+
+
+def view_reconstruction_with_params(render_chunk_p: Callable, params, all_o_rays: torch.Tensor,
+                                    all_d_rays: torch.Tensor, chunk: int = 4096,
+                                    seed: int = 0) -> np.ndarray:
+    """``view_reconstruction`` of ``render_chunk_p`` with ``params`` (the
+    render chunk's state) passed to every chunk."""
+    return view_reconstruction(lambda o, d, g: render_chunk_p(params, o, d, g), all_o_rays,
+                               all_d_rays, chunk=chunk, seed=seed)
+
+
+def make_fine_render_chunk(params, config: NeRFConfig, compute_dtype=None,
+                           mlp_apply=None, render_fn=None,
+                           coarse_sampler=None) -> Callable:
+    """The standard ``render_chunk``: ``make_param_render_chunk`` with
+    ``params`` bound. ``render_fn`` overrides the render (e.g.
+    ``make_fused_render_fn()``); the default is the plain
+    ``models.nerf.render_rays``.
+    """
+    render_chunk_p = make_param_render_chunk(config, compute_dtype, mlp_apply, render_fn,
+                                             coarse_sampler)
+    return lambda o, d, generator: render_chunk_p(params, o, d, generator)
 
 
 def orbit_views(render_chunk: Callable, height: int = 800, width: int = 800,

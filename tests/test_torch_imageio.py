@@ -2,9 +2,13 @@
 decoded with PIL: exact frames up to 256 colors, the stated quantizer error
 beyond, the delay and loop blocks, and the render CLI with no image
 package importable. ``chip_smoke.py``'s block walker is held against the
-same files."""
+same files. The port's PNG reader and writer against PIL: every colour
+type under every row filter, PIL's own files, and the features it refuses."""
 
+import io
+import struct
 import sys
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -98,13 +102,18 @@ def test_lzw_matches_pil_decoding_of_a_long_run(tmp_path, builtin):
     np.testing.assert_array_equal(got[1], stripes)
 
 
-def test_backend_falls_back_to_the_builtin_writer(monkeypatch):
+def test_backend_falls_back_to_the_builtin_writer(monkeypatch, tmp_path):
+    """Without imageio and PIL a PNG is still written (by the port's own
+    encoder); another format raises."""
     monkeypatch.setitem(sys.modules, "imageio", None)
     monkeypatch.setitem(sys.modules, "imageio.v2", None)
     monkeypatch.setitem(sys.modules, "PIL", None)
     assert mio._backend() == ("builtin", None)
+    image = np.arange(12, dtype=np.uint8).reshape(2, 2, 3)
+    mio.imwrite(tmp_path / "x.png", image)
+    np.testing.assert_array_equal(mio.imread(tmp_path / "x.png"), image)
     with pytest.raises(ImportError):
-        mio.imwrite("x.png", np.zeros((2, 2, 3), dtype=np.uint8))
+        mio.imwrite(tmp_path / "x.jpg", image)
 
 
 def test_gif_walker_reads_both_writers(tmp_path, builtin):
@@ -152,3 +161,104 @@ def test_render_cli_writes_gif_without_an_image_package(tmp_path, monkeypatch):
         err = np.abs(a.astype(int) - b.astype(int)).reshape(-1, 3).max(axis=0)
         assert all(e <= q for e, q in zip(err, mio.QUANT_MAX_ERR))
     assert Path(out).read_bytes()[:6] == b"GIF89a"
+
+
+# ----------------------------------------------------------------- PNG
+
+_PIL_MODES = {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}
+
+
+def _png_image(channels, seed=0, h=29, w=31):
+    """Noise with flat patches and ramps, so every filter sees runs,
+    gradients and jumps."""
+    rng = np.random.default_rng(seed + channels)
+    img = rng.integers(0, 256, size=(h, w, channels), dtype=np.uint8)
+    img[3:11, 4:20] = rng.integers(0, 256, size=channels, dtype=np.uint8)
+    img[14:] = (np.arange(w)[None, :, None] * 9 + np.arange(h - 14)[:, None, None] * 5
+                + np.arange(channels)[None, None, :] * 60) % 256
+    return img
+
+
+def _pil_rgb(data: bytes) -> np.ndarray:
+    with Image.open(io.BytesIO(data)) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+@pytest.mark.parametrize("filter_type", range(5), ids=mio.PNG_FILTERS)
+@pytest.mark.parametrize("channels", [1, 2, 3, 4], ids=["gray", "gray_alpha", "rgb", "rgba"])
+def test_imread_equals_pil_for_every_colour_type_and_filter(tmp_path, channels, filter_type):
+    """The port's encoder with a forced row filter: PIL decodes the file to
+    the image itself, and ``imread`` gives what PIL's ``convert("RGB")``
+    gives (alpha dropped, gray repeated), bit for bit."""
+    img = _png_image(channels)
+    data = mio.encode_png(img, filter_type)
+    with Image.open(io.BytesIO(data)) as im:
+        assert im.mode == _PIL_MODES[channels]
+        raw = np.asarray(im)
+    np.testing.assert_array_equal(raw.reshape(img.shape), img)
+    path = tmp_path / "a.png"
+    path.write_bytes(data)
+    got = mio.imread(path)
+    assert got.shape == img.shape[:2] + (3,) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, _pil_rgb(data))
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4], ids=["gray", "gray_alpha", "rgb", "rgba"])
+def test_imread_equals_pil_on_files_pil_wrote(tmp_path, channels):
+    """PIL's own files (its adaptive filters, several IDAT chunks when
+    large) read the same through ``imread`` as through PIL."""
+    img = _png_image(channels, seed=5, h=150, w=170)
+    path = tmp_path / "p.png"
+    Image.fromarray(img[..., 0] if channels == 1 else img, _PIL_MODES[channels]).save(path)
+    np.testing.assert_array_equal(mio.imread(path), _pil_rgb(path.read_bytes()))
+
+
+def test_pil_reads_imwrite_output(tmp_path):
+    img = _png_image(3, seed=9, h=64, w=48)
+    mio.imwrite(tmp_path / "w.png", img)
+    with Image.open(tmp_path / "w.png") as im:
+        assert im.mode == "RGB"
+        np.testing.assert_array_equal(np.asarray(im), img)
+
+
+def _with_header(data: bytes, **fields) -> bytes:
+    """``data`` with IHDR fields replaced (and its CRC made right)."""
+    names = ("width", "height", "depth", "color_type", "compression", "filter", "interlace")
+    values = dict(zip(names, struct.unpack(">IIBBBBB", data[16:29])), **fields)
+    ihdr = mio.png_chunk(b"IHDR", struct.pack(">IIBBBBB", *values.values()))
+    return data[:8] + ihdr + data[33:]
+
+
+@pytest.mark.parametrize("case", ["16-bit", "palette", "interlaced", "bad CRC", "bad filter",
+                                  "truncated", "not a PNG"])
+def test_unsupported_png_raises(tmp_path, case):
+    """A PNG the port does not decode raises a ValueError naming why, and
+    never returns pixels."""
+    img = _png_image(3, h=8, w=8)
+    data = mio.encode_png(img)
+    if case == "16-bit":
+        buf = io.BytesIO()
+        Image.fromarray(img[..., 0].astype(np.uint16) * 257).save(buf, format="PNG")
+        data, match = buf.getvalue(), "bit depth 16"
+        assert data[24] == 16
+    elif case == "palette":
+        buf = io.BytesIO()
+        Image.fromarray(img).convert("P").save(buf, format="PNG")
+        data, match = buf.getvalue(), "palette"
+    elif case == "interlaced":
+        data, match = _with_header(data, interlace=1), "interlaced"
+    elif case == "bad CRC":
+        data, match = data[:40] + bytes([data[40] ^ 1]) + data[41:], "bad CRC"
+    elif case == "bad filter":
+        raw = bytearray(zlib.decompress(data[41:-16]))
+        raw[0] = 7
+        idat = mio.png_chunk(b"IDAT", zlib.compress(bytes(raw)))
+        data, match = data[:33] + idat + mio.png_chunk(b"IEND", b""), "filter type 7"
+    elif case == "truncated":
+        data, match = data[:-20], "truncated|IEND"
+    else:
+        data, match = b"GIF89a" + data[6:], "signature"
+    path = tmp_path / "bad.png"
+    path.write_bytes(data)
+    with pytest.raises(ValueError, match=match):
+        mio.imread(path)
