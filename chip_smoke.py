@@ -15,8 +15,9 @@ and the sampler's weights, times and samples must be identical), then:
 - ``[main]`` renders two 800x800 orbit frames from a full-width checkpoint
   written by the port and checks that the forward kernel carried the render;
 - ``[reference]`` holds a small render on the card against the CPU;
-- ``[render-cli]`` runs the render CLI (``render.main``) for 2 poses at
-  64x64 and walks the blocks of the gif it writes;
+- ``[render-cli]`` runs the render CLI (``render.main``) for 4 poses at
+  64x64, at ``--frames-per-dispatch`` 8 and 1 (the same bytes), and walks
+  the blocks of the gifs it writes;
 - ``[train]`` trains 100 full-width steps on a procedural scene made on the
   card, checks the loss falls and the kernels' launch counts, saves a
   checkpoint and renders a frame from it;
@@ -39,13 +40,24 @@ and the sampler's weights, times and samples must be identical), then:
 - ``[occ-reference]`` holds one occupancy step on the card (grid update,
   packed words, loss, gradients, Adam) against the same step on the CPU;
 - ``[trainer]``, with imageio and PIL hidden, writes the ``[train]`` scene
-  (20 train and 2 val frames) as a PNG tree and reads it back exactly, then
+  (20 train, 2 val and 4 test frames) as a PNG tree and reads it back exactly, then
   runs the train CLI (``train.main``) on it: 220 steps at the production
   defaults with a validation and a save at step 200, a resume with ``-l
   auto`` to step 240, and 200 steps of ``--fast``; it checks the loss,
   metrics.csv's columns, the checkpoints, the val view and every kernel's
   launches, and prints the trainer's ms/step beside ``[train]``'s;
-- ``[profile]`` profiles one frame, one train step, one pallas train step,
+- ``[score]``, with imageio and PIL hidden, runs the score CLI
+  (``score.main``) on that tree's test split for the trainer's 64+128
+  checkpoint at ``--frames-per-dispatch`` 1 and 8 (the same scores; the
+  card's metrics against the numpy version on the same frames), its
+  ``--fast`` checkpoint, the ``[train-pallas]`` one and the seeded init,
+  each by launch count, times a scored frame's sweep and metrics, and runs
+  one sweep with its metrics with the device's syncs made errors;
+- ``[convert]`` exports the trainer's checkpoint to the reference's
+  PyTorch Lightning format and back (``convert_ckpt.main``) and renders the
+  same frame from both;
+- ``[profile]`` profiles one frame, a 4-frame orbit at
+  ``--frames-per-dispatch`` 1 and 8, one train step, one pallas train step,
   one occupancy train step (with the coarse-sampler hook's span) and one
   16+48 frame through the occupancy grid for the kernels' and the idle
   shares.
@@ -1105,49 +1117,61 @@ def hidden_modules(*names):
 
 def phase_render_cli(dev, ckpt: Path, tmp: Path):
     """``python -m minimal_nerf_torch.render`` as a user calls it, on the
-    card: 2 poses at 64x64 from the ``[main]`` checkpoint through
+    card: 4 poses at 64x64 from the ``[main]`` checkpoint through
     ``render.main``, which writes ``{save_dir}/{epoch}-360.gif`` with
     whatever image package the machine has, else the port's own GIF
-    writer; once as the machine is and once with imageio and PIL hidden,
-    each file's blocks walked."""
+    writer; once as the machine is and twice with imageio and PIL hidden,
+    at ``--frames-per-dispatch`` 8 (the default) and 1, which must write the
+    same bytes; each file's blocks walked."""
     from minimal_nerf_torch import render
     from minimal_nerf_torch.kernels import fused_raymarch as fr
     from minimal_nerf_torch.utils import imageio as mio
 
-    poses, size = 2, 64
+    poses, size = 4, 64
+    hidden = lambda: hidden_modules("imageio", "imageio.v2", "PIL", "PIL.Image")  # noqa: E731
     want_launches = poses * math.ceil(size * size / RAYS) * 2
-    for packages, context in (("as installed", contextlib.nullcontext()),
-                              ("hidden", hidden_modules("imageio", "imageio.v2", "PIL",
-                                                        "PIL.Image"))):
-        save_dir = tmp / "recons" / packages.replace(" ", "_")
+    written = {}
+    for packages, fpd, context in (("as installed", 8, contextlib.nullcontext()),
+                                   ("hidden", 8, hidden()), ("hidden", 1, hidden())):
+        save_dir = tmp / "recons" / f"{packages.replace(' ', '_')}_{fpd}"
         with context:
             backend = mio._backend()[0]
             reset_counts()
-            out = render.main(["-c", str(ckpt), "-r", str(RAYS), "-p", str(poses), "--height",
-                               str(size), "--width", str(size), "-s", str(save_dir)])
             torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render.main(["-c", str(ckpt), "-r", str(RAYS), "-p", str(poses), "--height",
+                               str(size), "--width", str(size), "-s", str(save_dir),
+                               "--frames-per-dispatch", str(fpd)])
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / poses
         launches = fr.launches
-        w, h, images, loop, trailer = gif_blocks(out.read_bytes())
+        data = out.read_bytes()
+        written[(packages, fpd)] = data
+        w, h, images, loop, trailer = gif_blocks(data)
         want_path = save_dir / f"{render.epoch_tag(str(ckpt))}-360.gif"
         ok = (out == want_path and (w, h) == (size, size) and len(images) == poses
               and loop == 0 and trailer and launches == want_launches
               and (packages != "hidden" or backend == "builtin")
               and all(d == 10 and im[:4] == (0, 0, size, size) and im[5] > 0
                       for d, im in images))
-        print(f"[render-cli] render.main -p {poses} --height {size} --width {size} on the card, "
-              f"image packages {packages} (backend: {backend}) wrote {out.name} "
-              f"({out.stat().st_size} bytes): GIF89a {w}x{h}, {len(images)} image descriptors "
+        same = fpd == 8 or data == written[(packages, 8)]
+        print(f"[render-cli] render.main -p {poses} --height {size} --width {size} "
+              f"--frames-per-dispatch {fpd} on the card, image packages {packages} (backend: "
+              f"{backend}) wrote {out.name} ({len(data)} bytes"
+              + ("" if fpd == 8 else f", the same bytes as at 8: {same}")
+              + f") in {ms:.1f} ms per pose (the CLI's wall: checkpoint load, render and gif): "
+              f"GIF89a {w}x{h}, {len(images)} image descriptors "
               f"(want {poses}) at {[im[:4] for _, im in images]}, local tables "
               f"{[im[4] for _, im in images]} entries, LZW bytes {[im[5] for _, im in images]}, "
               f"delays {[d for d, _ in images]} cs (want 10), loop {loop} (want 0), trailer "
               f"last: {trailer}; fused forward launches {launches} (want {want_launches}) "
-              f"{'PASS' if ok else 'FAIL'}", flush=True)
-        if not ok:
+              f"{'PASS' if ok and same else 'FAIL'}", flush=True)
+        if not (ok and same):
             raise AssertionError("the render CLI's gif is not as expected")
 
 
 TRAIN_FRAMES, TRAIN_STEPS = 20, 100
-VAL_FRAMES = 2
+VAL_FRAMES, TEST_FRAMES = 2, 4
 # metrics.csv's columns, in order, of the JAX Trainer's run through the fused
 # kernels with a validation, uniform and with occupancy (the card has no JAX:
 # tests/test_torch_trainer.py holds these against the JAX Trainer's file)
@@ -1159,19 +1183,31 @@ TRAINER_FAST_COLUMNS = TRAINER_COLUMNS[:3] + ["occ_fraction"] + TRAINER_COLUMNS[
 
 
 def make_train_scene(dev):
-    """The procedural ``random_object`` scene: 20 train and 2 val frames at
-    800x800, rendered on the card by the port's ``data/procedural.py``;
-    returns split -> ``SyntheticScene``."""
+    """The procedural ``random_object`` scene: 20 train, 2 val and 4 test
+    frames at 800x800, rendered on the card by the port's
+    ``data/procedural.py``; returns split -> ``SyntheticScene``. The test
+    split is drawn last: the train and val frames must equal those of the
+    scene made without it."""
     from minimal_nerf_torch.data.procedural import make_procedural_scene
 
+    splits = (("train", TRAIN_FRAMES), ("val", VAL_FRAMES), ("test", TEST_FRAMES))
+    make = lambda s: make_procedural_scene(s, height=HW, width=HW, scene="object",  # noqa: E731
+                                           seed=0, chunk=8192, device=dev)[0]
     t0 = time.perf_counter()
-    scenes, _ = make_procedural_scene((("train", TRAIN_FRAMES), ("val", VAL_FRAMES)), height=HW,
-                                      width=HW, scene="object", seed=0, chunk=8192, device=dev)
+    scenes = make(splits)
     torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    without = make(splits[:2])
+    same = all(torch.equal(without[k].images, scenes[k].images)
+               and torch.equal(without[k].poses, scenes[k].poses) for k in without)
     scene = scenes["train"]
-    print(f"[train] scene: {TRAIN_FRAMES} train and {VAL_FRAMES} val frames {HW}x{HW} made on "
-          f"the card in {time.perf_counter() - t0:.1f} s; train image mean "
-          f"{scene.images.float().mean().item():.2f}", flush=True)
+    print(f"[train] scene: {TRAIN_FRAMES} train, {VAL_FRAMES} val and {TEST_FRAMES} test frames "
+          f"{HW}x{HW} made on the card in {secs:.1f} s; train image mean "
+          f"{scene.images.float().mean().item():.2f}; train and val frames equal to those of "
+          f"the scene made without the test split: {same} {'PASS' if same else 'FAIL'}",
+          flush=True)
+    if not same:
+        raise AssertionError("the test split changed the train or val frames")
     return scenes
 
 
@@ -1429,6 +1465,169 @@ def phase_trainer(dev, tmp: Path, scenes, train_ms: float):
 
 
 
+# the torch metrics on the card against the numpy version on the host, on
+# the same frames: both sum integer-valued float64 window terms exactly, so
+# they differ only in the order of the final means (~1e-16 relative)
+METRIC_RTOL = 1e-9
+
+
+def phase_score(dev, tmp: Path, init_ckpt: Path, pallas_ckpt: Path):
+    """``python -m minimal_nerf_torch.score`` as a user calls it, on the
+    card, with imageio and PIL hidden, on the tree ``[trainer]`` wrote (its
+    4-frame 800x800 test split): the trainer's 220-step 64+128 checkpoint
+    at ``--frames-per-dispatch`` 1 and 8 (the same scores and frames; the
+    card's metrics against the numpy version on those frames), its ``--fast``
+    checkpoint (the sampler kernel) and the ``[train-pallas]`` checkpoint
+    (the point forward kernel), each by launch count; the seeded init
+    ``[main]`` wrote must score a lower PSNR than the trained checkpoint.
+    Then the time per scored frame split into the sweep alone and the
+    metrics, and one sweep with its metrics under
+    ``torch.cuda.set_sync_debug_mode("error")``: no wait for the device
+    from the first chunk to the last metric."""
+    import numpy as np
+
+    from minimal_nerf_torch import score, views
+    from minimal_nerf_torch.data.synthetic import SyntheticScene
+    from minimal_nerf_torch.inference import build_render_chunk
+    from minimal_nerf_torch.ops import image_metrics as im
+
+    tree, runs = tmp / "tree", tmp / "runs"
+    trained = runs / "trainer" / "checkpoints" / "model=trainer-epoch=11-step=220.ckpt"
+    fast = runs / "trainer-fast" / "checkpoints" / "model=trainer-fast-epoch=10-step=200.ckpt"
+    chunks, n = math.ceil(HW * HW / RAYS), TEST_FRAMES
+
+    def scored(ckpt, fpd=8):
+        """``score.main`` with the counts set to 0 just before and read just
+        after; returns the scores, the frames, the counts and the wall s."""
+        frames = []
+
+        def around(sweep):
+            def capturing(*args, **kwargs):
+                for frame in sweep(*args, **kwargs):
+                    frames.append(frame)
+                    yield frame
+            return capturing
+
+        with wrapped(views, "render_poses_batched", around):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = score.main(["-c", str(ckpt), "-r", str(RAYS), "-b", str(tree),
+                                 "--frames-per-dispatch", str(fpd)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return scores, frames, counts(), wall
+
+    with hidden_modules("imageio", "imageio.v2", "PIL", "PIL.Image"):
+        scene = SyntheticScene.load(tree, "test", dev)
+        gts = scene.images.cpu().numpy()
+        results = {fpd: scored(trained, fpd) for fpd in (1, 8)}
+        (s1, f1, c1, w1), (s8, f8, c8, w8) = results[1], results[8]
+        same_frames = len(f1) == len(f8) == n and all(torch.equal(a, b) for a, b in zip(f1, f8))
+        plain = (float(np.mean([im.peak_signal_noise_ratio(g, f.cpu().numpy())
+                                for g, f in zip(gts, f8)])),
+                 float(np.mean([im.structural_similarity(g, f.cpu().numpy())
+                                for g, f in zip(gts, f8)])))
+        gaps = [abs(a - b) / abs(b) for a, b in zip(s8, plain)]
+        want = (2 * chunks * n, 0, 0, 0, 0, 0)
+        ok = (s1 == s8 and same_frames and c1 == c8 == want and max(gaps) <= METRIC_RTOL
+              and all(math.isfinite(x) for x in s8))
+        print(f"[score] score.main -r {RAYS} -b TREE ({n} test frames {HW}x{HW}) on "
+              f"{trained.name} (64+128, fused): --frames-per-dispatch 1 psnr={s1[0]!r} "
+              f"ssim={s1[1]!r}, 8 psnr={s8[0]!r} ssim={s8[1]!r}, identical: {s1 == s8}; frames "
+              f"identical: {same_frames}; numpy version on the host on the same frames "
+              f"psnr={plain[0]!r} ssim={plain[1]!r}, relative gaps {gaps[0]:.2e} / "
+              f"{gaps[1]:.2e} (bound {METRIC_RTOL}); launches ({COUNTED}) {c1} and {c8} (want "
+              f"{want}: {n} frames x {chunks} chunks x 2 passes) {'PASS' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError("the score of the trained checkpoint is not as expected")
+
+        cases = {"--fast": (fast, (2 * chunks * n, 0, 0, 0, 0, chunks * n)),
+                 "pallas": (pallas_ckpt, (0, 0, 2 * chunks * n, 0, 0, 0)),
+                 "seeded init": (init_ckpt, want)}
+        other = {}
+        for label, (ckpt, want_c) in cases.items():
+            s, frames, c, wall = scored(ckpt)
+            other[label] = s
+            ok = c == want_c and len(frames) == n and all(math.isfinite(x) for x in s)
+            if label == "seeded init":
+                ok &= s[0] < s8[0]
+            print(f"[score] score.main on the {label} checkpoint {Path(ckpt).name}: psnr="
+                  f"{s[0]!r} ssim={s[1]!r} in {wall:.2f} s; launches ({COUNTED}) {c} (want "
+                  f"{want_c})" + (f"; below the trained checkpoint's psnr {s8[0]:.4f}: "
+                                  f"{s[0] < s8[0]}" if label == "seeded init" else "")
+                  + f" {'PASS' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"the score of the {label} checkpoint is not as expected")
+
+        render_chunk, _, _ = build_render_chunk(str(trained), RAYS, device=dev)
+        sweep = lambda fpd: list(views.render_poses_batched(  # noqa: E731
+            render_chunk, scene.poses, HW, HW, scene.focal, chunk=RAYS,
+            frames_per_dispatch=fpd, device=dev, device_frames=True))
+        pairs = list(zip(scene.images, f8))
+        with uncounted():
+            sweep_ms = {fpd: cuda_ms(lambda: sweep(fpd), warmup=1, reps=2) / n for fpd in (1, 8)}
+            metric_ms = cuda_ms(lambda: [(im.psnr(g, f), im.ssim(g, f)) for g, f in pairs],
+                                warmup=1, reps=3) / n
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                sums = [(im.psnr(g, f), im.ssim(g, f)) for g, f in zip(scene.images, sweep(8))]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        again = [0.0, 0.0]
+        for pair in sums:  # in order, as score.main sums them (no compensated sum())
+            again = [a + x.item() for a, x in zip(again, pair)]
+        again = tuple(a / n for a in again)
+        print(f"[score] {card_line()}: per scored frame, --frames-per-dispatch 1: "
+              f"{1e3 * w1 / n:.1f} ms of score.main's wall (checkpoint and test split load "
+              f"included), the sweep alone {sweep_ms[1]:.1f} ms; 8: {1e3 * w8 / n:.1f} ms, the "
+              f"sweep alone {sweep_ms[8]:.1f} ms; the metrics (PSNR + SSIM, float64 on the card) "
+              f"{metric_ms:.2f} ms (CUDA events over 3 x {n} frames); one sweep with its metrics "
+              f"under sync debug mode 'error' raised nothing and gives the same scores: "
+              f"{again == s8} {'PASS' if again == s8 else 'FAIL'}", flush=True)
+        if again != s8:
+            raise AssertionError("the sync-free sweep's scores differ from score.main's")
+
+
+def phase_convert(dev, tmp: Path):
+    """``python -m minimal_nerf_torch.convert_ckpt``: the trainer's 220-step
+    checkpoint exported to the reference's PyTorch Lightning format and
+    converted back; the round trip's weights equal the original's, and its
+    frame through the fused kernel is bit-identical."""
+    from minimal_nerf_torch import convert_ckpt
+    from minimal_nerf_torch.training.checkpoint import load_checkpoint
+
+    src = tmp / "runs" / "trainer" / "checkpoints" / "model=trainer-epoch=11-step=220.ckpt"
+    pl, back = tmp / "convert" / "pl.ckpt", tmp / "convert" / "model=back-epoch=11-step=220.ckpt"
+    pl.parent.mkdir()
+    t0 = time.perf_counter()
+    convert_ckpt.main(["--reverse", "-i", str(src), "-o", str(pl)])
+    convert_ckpt.main(["-i", str(pl), "-o", str(back)])
+    secs = time.perf_counter() - t0
+    payload = torch.load(pl, map_location="cpu", weights_only=False)
+    (_, a), (hb, b) = load_checkpoint(src), load_checkpoint(back)
+    # the last 40 leaves are the params (before them the Adam state)
+    same = all((a[len(a) - 40 + i] == b[len(b) - 40 + i]).all() for i in range(40))
+    chunks = math.ceil(HW * HW / RAYS)
+    frames = [render_counted(p, dev) for p in (src, back)]
+    equal = all(f[0].shape == (HW, HW, 3) for f in frames) and (frames[0][0] ==
+                                                                frames[1][0]).all()
+    want = (2 * chunks, 0, 0, 0, 0, 0)
+    ok = bool(same and equal and hb["num_leaves"] == 122 and hb["step"] == 220
+              and payload["global_step"] == 220 and len(payload["state_dict"]) == 40
+              and all(f[1] == want for f in frames))
+    print(f"[convert] convert_ckpt --reverse {src.name} -> PL (40 tensors, global_step "
+          f"{payload['global_step']}, epoch {payload['epoch']}) and back -> {back.name} "
+          f"({hb['num_leaves']} leaves, step {hb['step']}) in {secs:.2f} s: weights equal: "
+          f"{bool(same)}; a frame {HW}x{HW} of each through the fused kernel (launches "
+          f"{[f[1] for f in frames]}, want {want} each) bit-identical: {bool(equal)} "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the checkpoint's round trip through the PL format changed it")
+
+
 def train_uniforms(n: int, cfg, gen, dev, occupancy: bool = False):
     """Shared draws of one render: the coarse sampler's (uniform jitter, or
     the occupancy sampler's eps and in-bin jitter) and the fine sampler's."""
@@ -1522,7 +1721,6 @@ def phase_train_pallas(dev, tmp: Path, scene, bias: float):
     from minimal_nerf_torch.kernels import fused_raymarch as fr
     from minimal_nerf_torch.kernels import raymarch as rm
     from minimal_nerf_torch.models.nerf import NeRFConfig
-    from minimal_nerf_torch.render import render_views
     from minimal_nerf_torch.training import loop
     from minimal_nerf_torch.training.checkpoint import checkpoint_name, save_checkpoint
     from minimal_nerf_torch.training.config import TrainConfig
@@ -1566,31 +1764,23 @@ def phase_train_pallas(dev, tmp: Path, scene, bias: float):
                                                  TRAIN_STEPS),
                            params, TRAIN_STEPS, cfg.to_dict(), tcfg.to_dict())
     resolved = views.resolve_inference_kernel("auto", tcfg, dev)
-    # two orbit frames; the second is timed (the first includes loading the
-    # checkpoint and packing the weights)
-    frames_iter = iter(render_views(str(ckpt), rays=RAYS, num_poses=2, height=HW, width=HW,
-                                    kernel="auto", device=dev))
-    reset_counts()
-    next(frames_iter)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    frame = next(frames_iter)
-    torch.cuda.synchronize()
-    ms_frame = 1e3 * (time.perf_counter() - t0)
-    renders, fused = rm.launches, fr.launches
-    want_r = 2 * 2 * math.ceil(HW * HW / RAYS)
+    # the frame is timed after a warm-up frame (the checkpoint load and the
+    # weights' packing)
+    frame, ran, ms_frame = render_counted(ckpt, dev, timed=True, kernel="auto")
+    renders, fused = ran[2], ran[0]
+    want_r = 2 * math.ceil(HW * HW / RAYS)
     ok = (resolved == "pallas" and frame.shape == (HW, HW, 3) and str(frame.dtype) == "uint8"
           and renders == want_r and fused == 0)
     print(f"[train-pallas] checkpoint {ckpt.name} (trained under --kernel pallas) rendered "
-          f"through --kernel auto -> {resolved!r}: 2 frames {frame.shape} {frame.dtype}, mean "
-          f"{float(frame.mean()):.2f}, ms/frame={ms_frame:.1f} (the second) rays/s="
+          f"through --kernel auto -> {resolved!r}: a frame {frame.shape} {frame.dtype}, mean "
+          f"{float(frame.mean()):.2f}, ms/frame={ms_frame:.1f} (after a warm-up frame) rays/s="
           f"{HW * HW / (ms_frame / 1e3):.0f}, point forward launches {renders} (want {want_r} "
-          f"= 2 frames x 157 chunks x 2 passes), fused launches {fused} (want 0) "
+          f"= 157 chunks x 2 passes), fused launches {fused} (want 0) "
           f"{'PASS' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("render from the pallas-trained checkpoint failed")
-    return dict(ms=ms, ms_frame=ms_frame, counts=counts, frame_launches=renders), step_fn, \
-        params, state
+    return dict(ms=ms, ms_frame=ms_frame, counts=counts, frame_launches=renders,
+                ckpt=ckpt), step_fn, params, state
 
 
 def phase_pallas_reference(dev, scene, bias: float):
@@ -1634,19 +1824,22 @@ OCC_WARMUP = 32  # the fast recipe's 256 warmup steps, cut so 100 steps leave th
 def render_counted(ckpt, dev, frames: int = 1, timed: bool = False, **options):
     """Render ``frames`` 800x800 orbit frames from ``ckpt`` through
     ``render_views``; returns the last frame, the launch counts of the
-    frames (``counts()`` order) and the ms of the last frame (with
-    ``timed``, the second of two frames and its own counts)."""
+    frames (``counts()`` order) and their ms per frame, the checkpoint load
+    outside the timing (with ``timed``, after one warm-up frame of a render
+    of its own, whose launches do not count)."""
     from minimal_nerf_torch.render import render_views
 
-    frames_iter = iter(render_views(str(ckpt), rays=RAYS, num_poses=frames + int(timed),
-                                    height=HW, width=HW, device=dev, **options))
     if timed:
-        next(frames_iter)
+        with uncounted():
+            list(render_views(str(ckpt), rays=RAYS, num_poses=1, height=HW, width=HW,
+                              device=dev, **options))
+    frames_iter = render_views(str(ckpt), rays=RAYS, num_poses=frames, height=HW, width=HW,
+                               device=dev, **options)
     before = counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(frames):
-        frame = next(frames_iter)
+    for frame in frames_iter:
+        pass
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / frames
     return frame, tuple(a - b for a, b in zip(counts(), before)), ms
@@ -1761,9 +1954,9 @@ def phase_train_occ(dev, tmp: Path, scene, start_params, uniform_ckpt: Path):
         ran += other_ran
     ok = saved_ok and frame_ok and frame.shape == (HW, HW, 3) and str(frame.dtype) == "uint8"
     print(f"[train-occ] checkpoint {ckpt.name}: {header['num_leaves']} leaves (want 123: the "
-          f"grid at leaf 0), Adam count {int(leaves[1])} (want {TRAIN_STEPS}); 2 frames "
-          f"{HW}x{HW} through its grid (--kernel auto): ms/frame={ms_frame:.1f} (the second) "
-          f"rays/s={HW * HW / (ms_frame / 1e3):.0f}, launches of the second ({COUNTED}) "
+          f"grid at leaf 0), Adam count {int(leaves[1])} (want {TRAIN_STEPS}); a frame "
+          f"{HW}x{HW} through its grid (--kernel auto): ms/frame={ms_frame:.1f} (after a "
+          f"warm-up frame) rays/s={HW * HW / (ms_frame / 1e3):.0f}, its launches ({COUNTED}) "
           f"{ran[:6]} (want sampler {chunks} = 1 per chunk, probe 0, fused fwd {2 * chunks}); "
           f"then one frame with --ignore-occupancy {ran[6:12]} (want sampler 0) and one with "
           f"--bake-occupancy -c 16 -f 48 from {uniform_ckpt.name} {ran[12:]}; frame "
@@ -1953,6 +2146,24 @@ def phase_profile(ckpt: Path, dev, train_step, pallas_step, occ_step, occ_ckpt: 
     profile_shares(f"1 frame {HW}x{HW}",
                    lambda: list(render_views(str(ckpt), rays=RAYS, num_poses=1, height=HW,
                                              width=HW, device=dev)))
+    orbit = lambda fpd: render_views(str(ckpt), rays=RAYS, num_poses=4,  # noqa: E731
+                                     height=HW, width=HW, device=dev, frames_per_dispatch=fpd)
+    for fpd in (1, 8):
+        profile_shares(f"4-frame orbit {HW}x{HW} at --frames-per-dispatch {fpd} (checkpoint "
+                       "load included)", lambda: list(orbit(fpd)))
+    # the same orbits without the profiler, in turns (the load outside the timing)
+    walls = {1: [], 8: []}
+    for fpd in (1, 8, 8, 1):
+        frames = orbit(fpd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        list(frames)
+        torch.cuda.synchronize()
+        walls[fpd].append(1e3 * (time.perf_counter() - t0) / 4)
+    print(f"[profile] {card_line()}: 4-frame orbits {HW}x{HW} without the profiler, in turns "
+          f"1, 8, 8, 1: ms/frame at --frames-per-dispatch 1 "
+          f"{[round(w, 1) for w in walls[1]]}, at 8 {[round(w, 1) for w in walls[8]]}",
+          flush=True)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2047,9 +2258,12 @@ def occ_timing(dev, root: Path) -> int:
                                grid=grid)
         chunks = math.ceil(HW * HW / RAYS)
         with timed_sampler_hooks() as calls:
-            frames = iter(render_views(str(ckpt), rays=RAYS, num_poses=3, height=HW, width=HW,
-                                       device=dev))
-            next(frames)
+            # a warm-up frame, then two timed ones of a render of their own
+            # (its checkpoint load outside the timing)
+            list(render_views(str(ckpt), rays=RAYS, num_poses=1, height=HW, width=HW,
+                              device=dev))
+            frames = render_views(str(ckpt), rays=RAYS, num_poses=2, height=HW, width=HW,
+                                  device=dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for frame in frames:
@@ -2058,8 +2272,9 @@ def occ_timing(dev, root: Path) -> int:
             frame_ms = 1e3 * (time.perf_counter() - t0) / 2
         span_ms, host_ms, total_ms = hook_stats(calls[-2 * chunks:])
         print(f"[occ-timing] 16+48 frames {HW}x{HW} through the grid: ms/frame={frame_ms:.1f} "
-              f"(frames 2 and 3), mean {float(frame.mean()):.2f}; coarse-sampler hook: "
-              f"{len(calls)} calls in 3 frames, per call device span {span_ms:.4f} ms and host "
+              f"(2 frames after a warm-up frame), mean {float(frame.mean()):.2f}; "
+              f"coarse-sampler hook: {len(calls)} calls in 3 frames, per call device span "
+              f"{span_ms:.4f} ms and host "
               f"{host_ms:.4f} ms (median), {total_ms / 2:.2f} ms of span per frame", flush=True)
         profile_shares(f"occ-timing: 1 frame {HW}x{HW} at 16+48 through the grid",
                        lambda: list(render_views(str(ckpt), rays=RAYS, num_poses=1, height=HW,
@@ -2124,6 +2339,8 @@ def main(argv=None) -> int:
             dev, Path(tmp), scene, params, train["ckpt"])
         phase_occ_reference(dev, scene, o_params, o_grid, o_cfg, o_tcfg)
         phase_trainer(dev, Path(tmp), scenes, train["ms"])
+        phase_score(dev, Path(tmp), ckpt, pallas["ckpt"])
+        phase_convert(dev, Path(tmp))
         phase_profile(ckpt, dev,
                       lambda: step_fn(params, state, scene.images, scene.poses, TRAIN_STEPS, 0),
                       lambda: p_step_fn(p_params, p_state, scene.images, scene.poses,

@@ -16,7 +16,11 @@ plain render around hand-written point-level MLP forward and backward
 kernels (``training.loop.kernel_hooks``); and occupancy-guided coarse
 sampling (``ops/occupancy.py``) for training and serving, its grid probe a
 hand-written kernel (``kernels/occupancy_probe.py``), with the grid and the
-Adam state kept in the checkpoint.
+Adam state kept in the checkpoint; the trainer (``train.py``); and scoring
+(``score.py``, PSNR/SSIM in ``ops/image_metrics.py``), the batched pose
+sweep behind ``--frames-per-dispatch`` (``views.render_poses_batched``) and
+checkpoint conversion to and from the reference's format
+(``convert_ckpt.py``).
 """
 
 from __future__ import annotations

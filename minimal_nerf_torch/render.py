@@ -2,10 +2,13 @@
 
     python -m minimal_nerf_torch.render -c CKPT_PATH -r 4096 -p 40 -s SAVE_DIR
 
-Same flags as the JAX package's ``render.py`` (``--frames-per-dispatch`` is
-left out: frames render one after another). The gif is named from the
-checkpoint's ``epoch=`` substring: ``{SAVE_DIR}/{epoch}-360.gif``.
-``render_views`` yields the uint8 frames without writing anything.
+Same flags as the JAX package's ``render.py``, plus ``--device``. The orbit
+is swept ``--frames-per-dispatch`` poses at a time (default 8), the next
+batch queued on the device before this one is fetched
+(``views.render_poses_batched``); the frames are the same for any value.
+The gif is named from the checkpoint's ``epoch=`` substring:
+``{SAVE_DIR}/{epoch}-360.gif``. ``render_views`` yields the uint8 frames
+without writing anything.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import numpy as np
 def render_views(ckpt: str, rays: int = 4096, num_poses: int = 40, height: int = 800,
                  width: int = 800, kernel: str = "auto", coarse: int = 0, fine: int = 0,
                  device="cuda", data_parallel: int = 1, ignore_occupancy: bool = False,
-                 bake_occupancy: bool = False) -> Iterator[np.ndarray]:
+                 bake_occupancy: bool = False,
+                 frames_per_dispatch: int = 8) -> Iterator[np.ndarray]:
     """Yield the orbit's ``[H, W, 3]`` uint8 frames."""
     from minimal_nerf_torch import resolve_device, views
     from minimal_nerf_torch.inference import build_render_chunk
@@ -31,7 +35,8 @@ def render_views(ckpt: str, rays: int = 4096, num_poses: int = 40, height: int =
         ignore_occupancy=ignore_occupancy, coarse=coarse, fine=fine,
         bake_occupancy=bake_occupancy, device=dev)
     return views.orbit_views(render_chunk, height=height, width=width, chunk=rays,
-                             num_poses=num_poses, device=dev)
+                             num_poses=num_poses, frames_per_dispatch=frames_per_dispatch,
+                             device=dev)
 
 
 def epoch_tag(ckpt: str) -> str:
@@ -79,6 +84,9 @@ def main(argv=None) -> Path:
                         help="override coarse samples/ray (0 = checkpoint value)")
     parser.add_argument("--fine", type=int, default=0,
                         help="override fine samples/ray (0 = checkpoint value)")
+    parser.add_argument("--frames-per-dispatch", type=int, default=8,
+                        help="poses rendered per batch, the next batch queued before "
+                             "this one is fetched (1 = pose-at-a-time)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to render on (default cuda)")
     args = parser.parse_args(argv)
@@ -86,7 +94,8 @@ def main(argv=None) -> Path:
                   width=args.width, kernel=args.kernel, coarse=args.coarse, fine=args.fine,
                   device=args.device, data_parallel=args.data_parallel,
                   ignore_occupancy=args.ignore_occupancy,
-                  bake_occupancy=args.bake_occupancy)
+                  bake_occupancy=args.bake_occupancy,
+                  frames_per_dispatch=args.frames_per_dispatch)
 
 
 if __name__ == "__main__":

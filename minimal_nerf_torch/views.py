@@ -5,6 +5,11 @@ by a plain Python loop (PyTorch runs eagerly, so there is nothing to trace);
 chunk ``i`` of a frame draws its samples from a ``torch.Generator`` seeded
 from ``(frame seed, i)``, so a frame renders the same whatever else runs.
 A ``render_chunk`` is ``(o [C, 3], d [C, 3], generator) -> rgb [C, 3]``.
+
+Many poses (the render CLI's orbit, the score CLI's test split) go through
+``render_poses_batched``: ``frames_per_dispatch`` frames per batch, the next
+batch queued on the device before this one is waited for, each batch
+fetched in one asynchronous copy (or kept on the device for scoring).
 """
 
 from __future__ import annotations
@@ -88,27 +93,66 @@ def view_reconstruction(render_chunk: Callable, all_o_rays: torch.Tensor,
 def render_poses_batched(render_chunk: Callable, poses, height: int, width: int,
                          focal, chunk: int = 4096,
                          frame_seeds: Optional[Sequence[int]] = None,
-                         device="cuda") -> Iterator[np.ndarray]:
-    """Yield one ``[H, W, 3]`` uint8 frame per pose, in order.
+                         frames_per_dispatch: int = 8, device="cuda",
+                         device_frames: bool = False) -> Iterator:
+    """Yield one ``[H, W, 3]`` uint8 frame per pose, in order, rendered
+    ``frames_per_dispatch`` frames at a time with one batch of lookahead.
 
     Rays are made on ``device`` for each chunk's own pixels; frame ``i``
-    seeds its chunks from ``frame_seeds[i]`` (default ``mix_seed(0, i)``).
+    seeds its chunks from ``frame_seeds[i]`` (default ``mix_seed(0, i)``), so
+    the frames are the same for every ``frames_per_dispatch``. The chunks of
+    batch ``b + 1`` are queued before batch ``b`` is waited for, so the
+    caller's work on a batch's frames overlaps the device's work on the
+    next. On a CUDA device a batch comes back in one ``non_blocking`` copy
+    into a pinned buffer of its own (a yielded frame stays valid), waited for
+    with an event; with ``device_frames`` nothing is copied and the frames
+    are yielded as uint8 tensors on ``device``. Frames are numpy arrays
+    otherwise. A short last batch renders only its own frames.
     """
-    poses = torch.as_tensor(np.asarray(poses), dtype=torch.float32, device=device)
-    n_pix = height * width
+    if frames_per_dispatch < 1:
+        raise ValueError(f"frames_per_dispatch must be positive, got {frames_per_dispatch}")
+    poses = torch.as_tensor(poses if torch.is_tensor(poses) else np.asarray(poses),
+                            dtype=torch.float32, device=device)
+    n, n_pix = poses.shape[0], height * width
     if frame_seeds is None:
-        frame_seeds = [mix_seed(0, i) for i in range(poses.shape[0])]
+        frame_seeds = [mix_seed(0, i) for i in range(n)]
+    on_cuda = poses.device.type == "cuda"
+
+    def render_frame(f: int) -> torch.Tensor:
+        out = []
+        for i, lo in enumerate(range(0, n_pix, chunk)):
+            flat = torch.arange(lo, min(lo + chunk, n_pix), device=poses.device)
+            o, d = cameras.rays_for_pixels(
+                (flat % width).float(), (flat // width).float(),
+                height, width, focal, poses[f])
+            g = chunk_generator(frame_seeds[f], i, poses.device)
+            out.append(render_chunk(o.contiguous(), d.contiguous(), g))
+        return _to_uint8(torch.cat(out)).reshape(height, width, 3)
+
+    def dispatch(lo: int):
+        """Queue the frames ``lo ..`` of one batch and, on a card, their copy
+        to the host; returns the frames and the copy's event (or None)."""
+        frames = torch.stack([render_frame(f)
+                              for f in range(lo, min(lo + frames_per_dispatch, n))])
+        if device_frames or not on_cuda:
+            return frames, None
+        host = torch.empty(frames.shape, dtype=frames.dtype, pin_memory=True)
+        host.copy_(frames, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
     with torch.no_grad():
-        for f in range(poses.shape[0]):
-            out = []
-            for i, lo in enumerate(range(0, n_pix, chunk)):
-                flat = torch.arange(lo, min(lo + chunk, n_pix), device=device)
-                o, d = cameras.rays_for_pixels(
-                    (flat % width).float(), (flat // width).float(),
-                    height, width, focal, poses[f])
-                g = chunk_generator(frame_seeds[f], i, device)
-                out.append(render_chunk(o.contiguous(), d.contiguous(), g))
-            yield _to_uint8(torch.cat(out)).reshape(height, width, 3).cpu().numpy()
+        pending = dispatch(0) if n else None
+        for lo in range(0, n, frames_per_dispatch):
+            ahead = lo + frames_per_dispatch
+            queued = dispatch(ahead) if ahead < n else None
+            frames, done = pending
+            if done is not None:
+                done.synchronize()
+            for frame in frames:
+                yield frame if device_frames else frame.numpy()
+            pending = queued
 
 
 def make_param_render_chunk(config: NeRFConfig, compute_dtype=None, mlp_apply=None,
@@ -174,13 +218,15 @@ def make_fine_render_chunk(params, config: NeRFConfig, compute_dtype=None,
 def orbit_views(render_chunk: Callable, height: int = 800, width: int = 800,
                 radius: float = 4.0, cam_angle_x: float = DEFAULT_CAM_ANGLE_X,
                 chunk: int = 4096, num_poses: int = 40, seed: int = 0,
-                device="cuda") -> Iterator[np.ndarray]:
-    """The reference's 360-degree orbit (phi -30, ``radius``), frame by frame."""
+                frames_per_dispatch: int = 8, device="cuda") -> Iterator[np.ndarray]:
+    """The reference's 360-degree orbit (phi -30, ``radius``), swept
+    ``frames_per_dispatch`` poses at a time (``render_poses_batched``)."""
     poses = cameras.spherical_poses(num_poses=num_poses, radius=radius)
     focal = cameras.focal_from_angle(width, cam_angle_x)
     seeds = [mix_seed(seed, i) for i in range(len(poses))]
     return render_poses_batched(render_chunk, poses, height, width, focal, chunk=chunk,
-                                frame_seeds=seeds, device=device)
+                                frame_seeds=seeds, frames_per_dispatch=frames_per_dispatch,
+                                device=device)
 
 
 def generate_360_view_synthesis(render_chunk: Callable, save_dir, epoch,
@@ -188,7 +234,8 @@ def generate_360_view_synthesis(render_chunk: Callable, save_dir, epoch,
                                 radius: float = 4.0,
                                 cam_angle_x: float = DEFAULT_CAM_ANGLE_X,
                                 chunk: int = 4096, num_poses: int = 40,
-                                seed: int = 0, device="cuda") -> Path:
+                                seed: int = 0, frames_per_dispatch: int = 8,
+                                device="cuda") -> Path:
     """Render the orbit and write ``{save_dir}/{epoch}-360.gif``."""
     from minimal_nerf_torch.utils import imageio as mio
 
@@ -196,7 +243,7 @@ def generate_360_view_synthesis(render_chunk: Callable, save_dir, epoch,
     if not save_dir.is_dir():
         raise FileNotFoundError(f"missing save dir {save_dir}")
     views = list(orbit_views(render_chunk, height, width, radius, cam_angle_x, chunk,
-                             num_poses, seed, device))
+                             num_poses, seed, frames_per_dispatch, device))
     out_path = save_dir / f"{epoch}-360.gif"
     mio.mimwrite(out_path, views)
     return out_path

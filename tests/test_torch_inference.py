@@ -361,6 +361,17 @@ def test_render_cli_writes_gif(tmp_path):
     assert t_fused.launches == 0
 
 
+def test_render_cli_gif_does_not_depend_on_frames_per_dispatch(tmp_path):
+    """``--frames-per-dispatch 1`` and ``8`` (3 poses: one batch, or three)
+    write the same gif bytes."""
+    path = tmp_path / "model=a-epoch=3-step=7.ckpt"
+    _jax_ckpt(path)
+    gifs = [t_render.main(["-c", str(path), "-r", "64", "-p", "3", "-s", str(tmp_path / str(n)),
+                           "--height", "8", "--width", "9", "--frames-per-dispatch", str(n),
+                           "--device", "cpu"]).read_bytes() for n in (1, 8)]
+    assert gifs[0] == gifs[1] and len(gifs[0]) > 0
+
+
 def test_pallas_checkpoint_renders_through_the_point_kernel(tmp_path, monkeypatch):
     """A checkpoint trained under ``--kernel pallas``: an explicit
     ``--kernel pallas`` on the CPU renders through the point kernels' plain

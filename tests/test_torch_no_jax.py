@@ -29,6 +29,8 @@ def test_port_and_chip_smoke_import_without_jax():
     for name in ("minimal_nerf_torch.train", "minimal_nerf_torch.training.trainer",
                  "minimal_nerf_torch.training.metrics", "minimal_nerf_torch.utils.profiling",
                  "minimal_nerf_torch.data.procedural", "minimal_nerf_torch.render",
-                 "minimal_nerf_torch.kernels.fused_raymarch", "chip_smoke"):
+                 "minimal_nerf_torch.kernels.fused_raymarch", "minimal_nerf_torch.score",
+                 "minimal_nerf_torch.convert_ckpt", "minimal_nerf_torch.ops.image_metrics",
+                 "chip_smoke"):
         assert name in names
     assert not any(n.startswith(("jax", "minimal_nerf_tpu")) for n in names)
