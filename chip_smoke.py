@@ -39,28 +39,38 @@ and the sampler's weights, times and samples must be identical), then:
   baked from the ``[train]`` checkpoint;
 - ``[occ-reference]`` holds one occupancy step on the card (grid update,
   packed words, loss, gradients, Adam) against the same step on the CPU;
+- ``[multi-step]`` runs two calls of 20 steps of ``make_multi_step`` (one
+  captured CUDA graph of the step, replayed once per step) for fused bf16,
+  pallas bf16 and the fast recipe against as many eager steps: the state
+  and last metrics bit-identical, the second call with the device's syncs
+  made errors, the wrappers' launches those of one eager step and its
+  capture, the kernels of a third, replayed call counted in a profiler
+  trace, the capture's time, the device memory of eager and replayed steps,
+  and the replayed call's ms/step beside the eager steps';
 - ``[trainer]``, with imageio and PIL hidden, writes the ``[train]`` scene
   (20 train, 2 val and 4 test frames) as a PNG tree and reads it back exactly, then
   runs the train CLI (``train.main``) on it: 220 steps at the production
   defaults with a validation and a save at step 200, a resume with ``-l
-  auto`` to step 240, and 200 steps of ``--fast``; it checks the loss,
-  metrics.csv's columns, the checkpoints, the val view and every kernel's
-  launches, and prints the trainer's ms/step beside ``[train]``'s;
+  auto`` to step 240, and 200 steps of ``--fast`` at 1 and at 20 steps per
+  call (bit-identical runs); it checks the loss, metrics.csv's columns, the
+  checkpoints, the val view and every kernel's launches, and prints the
+  trainer's ms/step beside ``[train]``'s and ``--fast``'s at 1 and 20;
 - ``[score]``, with imageio and PIL hidden, runs the score CLI
   (``score.main``) on that tree's test split for the trainer's 64+128
   checkpoint at ``--frames-per-dispatch`` 1 and 8 (the same scores; the
   card's metrics against the numpy version on the same frames), its
-  ``--fast`` checkpoint, the ``[train-pallas]`` one and the seeded init,
-  each by launch count, times a scored frame's sweep and metrics, and runs
+  ``--fast`` checkpoint, the ``[train-pallas]`` one, the ``[train]`` one
+  (fused; same init, draws and steps as the pallas one) and the seeded
+  init, each by launch count, times a scored frame's sweep and metrics, and runs
   one sweep with its metrics with the device's syncs made errors;
 - ``[convert]`` exports the trainer's checkpoint to the reference's
   PyTorch Lightning format and back (``convert_ckpt.main``) and renders the
   same frame from both;
 - ``[profile]`` profiles one frame, a 4-frame orbit at
   ``--frames-per-dispatch`` 1 and 8, one train step, one pallas train step,
-  one occupancy train step (with the coarse-sampler hook's span) and one
-  16+48 frame through the occupancy grid for the kernels' and the idle
-  shares.
+  one occupancy train step (with the coarse-sampler hook's span), one
+  replayed call of 20 occupancy steps and one 16+48 frame through the
+  occupancy grid for the kernels' and the idle shares.
 
 ``--occ-timing [ROOT]`` instead times the occupancy path alone (steps,
 frames, the sampler hook per call, the probe wrapper) for the package under
@@ -183,6 +193,65 @@ def wrapped(module, name: str, around):
         yield
     finally:
         setattr(module, name, orig)
+
+
+# the kernel each counted wrapper launches once per call, as the profiler
+# names it (``COUNTED`` order)
+COUNTED_KERNELS = ("fused_fwd_", "fused_bwd_kernel", "points_fwd_", "points_bwd_kernel",
+                   "probe_kernel", "sampler_kernel")
+
+
+@contextlib.contextmanager
+def graph_calls():
+    """Inside, tally the CUDA graphs of train steps (``training.loop
+    ._StepGraph``): ``{"captures", "replays", "capture_s"}``, the last the
+    host seconds of each capture (the graph's instantiation included, the
+    device idle before it). A wrapper counts a launch where it records it
+    into a capture; a replay runs every recorded launch and no wrapper, so
+    the kernels a replay ran are counted in a trace (``traced_launches``)."""
+    from minimal_nerf_torch.training import loop
+
+    seen = {"captures": 0, "replays": 0, "capture_s": []}
+
+    def around_capture(capture):
+        def timed(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            capture(self, *args, **kwargs)
+            seen["capture_s"].append(time.perf_counter() - t0)
+            seen["captures"] += 1
+        return timed
+
+    def around_replay(replay):
+        def tallied(self):
+            replay(self)
+            seen["replays"] += 1
+        return tallied
+
+    with wrapped(loop._StepGraph, "_capture", around_capture), \
+            wrapped(torch.cuda.CUDAGraph, "replay", around_replay):
+        yield seen
+
+
+def traced_launches(fn, tries: int = 3):
+    """The launches of the counted kernels (``COUNTED`` order) that one call
+    of ``fn`` ran on the card: the kernels named ``COUNTED_KERNELS`` in a
+    ``torch.profiler`` trace of the call (CUPTI records the kernels of a
+    CUDA-graph replay). A trace with no device activity at all is taken
+    again with another call, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with uncounted(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return tuple(sum(key in name for name in names) for key in COUNTED_KERNELS)
+    raise AssertionError(f"the profiler recorded no device activity in {tries} traces")
 
 
 def card_line() -> str:
@@ -1333,13 +1402,16 @@ def phase_trainer(dev, tmp: Path, scenes, train_ms: float):
     back exactly; ``-s 220`` at the production defaults (fused, 64+128,
     4096 rays, bf16; a validation at step 200, epoch 10, with both val
     frames' losses and one 800x800 view); ``-l auto -s 240``; ``--fast -s
-    200`` (occupancy, 16+48) with the warmup cut to 32 steps. Checks the
-    loss, metrics.csv's columns (the JAX Trainer's), the checkpoints, the
-    val PNG and every kernel's launches; prints the trainer's ms/step from
-    its CSV beside ``[train]``'s, and its boundary timings."""
+    200`` (occupancy, 16+48) with the warmup cut to 32 steps, at 1 and at 20
+    steps per call (calls of 20 between the CSV rows: CUDA-graph replays).
+    Checks the loss, metrics.csv's columns (the JAX Trainer's), the
+    checkpoints, the val PNG, every kernel's launches and the graphs'
+    captures and replays; that the two ``--fast`` runs' rows and checkpoints
+    are bit-identical; prints the trainer's ms/step from its CSV beside
+    ``[train]``'s, and its boundary timings. Returns the ``--fast`` ms/step by steps per call."""
     from minimal_nerf_torch.data.procedural import save_scene_tree
     from minimal_nerf_torch.data.synthetic import SyntheticScene
-    from minimal_nerf_torch.training.checkpoint import read_header
+    from minimal_nerf_torch.training.checkpoint import load_checkpoint, read_header
     from minimal_nerf_torch.utils import imageio as mio
 
     tree, root = tmp / "tree", tmp / "runs"
@@ -1427,41 +1499,71 @@ def phase_trainer(dev, tmp: Path, scenes, train_ms: float):
         if not ok:
             raise AssertionError("the train CLI did not resume as expected")
 
-        updates = []
-        fast_steps = val_step
-        fast, wall, launched = run_train_cli(
-            ["-n", "trainer-fast", "-s", str(fast_steps)] + base
-            + ["full", "-b", str(tree), "--fast", "--occ-warmup-steps", str(OCC_WARMUP)],
-            occ_updates=updates)
-        run = root / "trainer-fast"
-        head, rows = read_csv(run / "metrics.csv")
-        ckpt = run / "checkpoints" / f"model=trainer-fast-epoch=10-step={fast_steps}.ckpt"
-        leaves = read_header(ckpt)["num_leaves"] if ckpt.is_file() else None
-        cfg = fast.train_config
-        want_updates = len(range(0, fast_steps, cfg.occ_update_every))
-        want = (2 * fast_steps + val_fwd, 2 * fast_steps, 0, 0, 0,
-                fast_steps + VAL_FRAMES + chunks)
-        fracs = [float(r["occ_fraction"]) for r in rows if r["occ_fraction"]]
-        ok = (head == TRAINER_FAST_COLUMNS and launched == want and len(updates) == want_updates
-              and leaves == 123 and (fast.nerf_config.coarse_samples,
-                                     fast.nerf_config.fine_samples) == (16, 48)
-              and cfg.occupancy and all(0.0 < f <= 1.0 for f in fracs))
-        steady = [r for r in rows if r["train_loss"] and 20 < int(r["step"]) <= fast_steps]
-        ms = 1e3 * med([float(r["train iteration speed"]) for r in steady])
-        val_row = next(r for r in rows if r["val_loss"])
-        print(f"[trainer] train.main -s {fast_steps} full --fast --occ-warmup-steps "
-              f"{OCC_WARMUP} (occupancy G={cfg.occ_resolution}, 16+48, steps_per_call "
-              f"{cfg.steps_per_call} run one per call) in {wall:.1f} s: grid updates "
-              f"{len(updates)} (want {want_updates}); occ_fraction per row "
-              f"{[round(f, 4) for f in fracs]}; launches ({COUNTED}) {launched} (want {want}: "
-              f"the sampler once per step and per validation chunk, {VAL_FRAMES} + {chunks}); "
-              f"{ckpt.name}: {leaves} leaves (want 123); columns equal the JAX Trainer's: "
-              f"{head == TRAINER_FAST_COLUMNS}; steady ms/step={ms:.2f} rays/s="
-              f"{RAYS / (ms / 1e3):.0f}; val_seconds={float(val_row['val_seconds']):.3f} "
-              f"ckpt_seconds={float(val_row['ckpt_seconds']):.4f} {'PASS' if ok else 'FAIL'}",
-              flush=True)
-        if not ok:
-            raise AssertionError("the train CLI's --fast run is not as expected")
+        fast_steps, fast_ms, fast_runs = val_step, {}, {}
+        for spc in (1, 20):
+            updates, name = [], "trainer-fast" if spc == 20 else f"trainer-fast-{spc}"
+            with graph_calls() as seen:
+                fast, wall, launched = run_train_cli(
+                    ["-n", name, "-s", str(fast_steps), "--steps-per-call", str(spc)] + base
+                    + ["full", "-b", str(tree), "--fast", "--occ-warmup-steps",
+                       str(OCC_WARMUP)], occ_updates=updates)
+            run = root / name
+            head, rows = read_csv(run / "metrics.csv")
+            ckpt = run / "checkpoints" / f"model={name}-epoch=10-step={fast_steps}.ckpt"
+            leaves = read_header(ckpt)["num_leaves"] if ckpt.is_file() else None
+            cfg = fast.train_config
+            want_updates = len(range(0, fast_steps, cfg.occ_update_every))
+            # at 20 per call the first step of the first call runs eagerly
+            # and is captured once; the rest are replays, which no wrapper
+            # runs (``[multi-step]`` counts a replayed call's kernels)
+            graphs = (1, fast_steps - 1) if spc > 1 else (0, 0)
+            wrapped_steps = fast_steps - graphs[1] + graphs[0]
+            want = (2 * wrapped_steps + val_fwd, 2 * wrapped_steps, 0, 0, 0,
+                    wrapped_steps + VAL_FRAMES + chunks)
+            fracs = [float(r["occ_fraction"]) for r in rows if r["occ_fraction"]]
+            ok = (head == TRAINER_FAST_COLUMNS and launched == want
+                  and (seen["captures"], seen["replays"]) == graphs
+                  and len(updates) == want_updates and leaves == 123
+                  and (fast.nerf_config.coarse_samples, fast.nerf_config.fine_samples) == (16, 48)
+                  and cfg.occupancy and cfg.steps_per_call == spc
+                  and all(0.0 < f <= 1.0 for f in fracs))
+            steady = [r for r in rows if r["train_loss"] and 20 < int(r["step"]) <= fast_steps]
+            fast_ms[spc] = ms = 1e3 * med([float(r["train iteration speed"]) for r in steady])
+            val_row = next(r for r in rows if r["val_loss"])
+            fast_runs[spc] = (ckpt, rows)
+            print(f"[trainer] train.main -s {fast_steps} full --fast --occ-warmup-steps "
+                  f"{OCC_WARMUP} --steps-per-call {spc} (occupancy G={cfg.occ_resolution}, "
+                  f"16+48{', 20 steps per call: one CUDA-graph replay per step' if spc > 1 else ''}"
+                  f") in {wall:.1f} s: grid updates {len(updates)} (want {want_updates}); "
+                  f"occ_fraction per row {[round(f, 4) for f in fracs]}; captures, replays "
+                  f"({seen['captures']}, {seen['replays']}) (want {graphs}); wrapper launches "
+                  f"({COUNTED}) {launched} (want {want}: {wrapped_steps} steps eager or captured "
+                  f"x 2 passes, the sampler once per such step and per validation chunk, "
+                  f"{VAL_FRAMES} + {chunks}); {ckpt.name}: {leaves} leaves "
+                  f"(want 123); columns equal the JAX Trainer's: "
+                  f"{head == TRAINER_FAST_COLUMNS}; steady ms/step={ms:.2f} rays/s="
+                  f"{RAYS / (ms / 1e3):.0f}; val_seconds={float(val_row['val_seconds']):.3f} "
+                  f"ckpt_seconds={float(val_row['ckpt_seconds']):.4f} "
+                  f"{'PASS' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError("the train CLI's --fast run is not as expected")
+        timing = {"iterations_per_sec", "rays_per_sec", "train iteration speed", "wall_seconds",
+                  "val_seconds", "ckpt_seconds"}
+        untimed = lambda rows: [{k: v for k, v in r.items() if k not in timing}  # noqa: E731
+                                for r in rows]
+        (ck1, rows1), (ck20, rows20) = fast_runs[1], fast_runs[20]
+        _, l1 = load_checkpoint(ck1)
+        _, l20 = load_checkpoint(ck20)
+        same = (untimed(rows1) == untimed(rows20) and len(l1) == len(l20)
+                and all((l1[i] == l20[i]).all() for i in range(len(l1))))
+        print(f"[trainer] {card_line()}: --fast at 1 and 20 steps per call in this call: "
+              f"steady ms/step {fast_ms[1]:.2f} -> {fast_ms[20]:.2f} (x"
+              f"{fast_ms[1] / fast_ms[20]:.2f}); metrics.csv rows (timing columns aside) and "
+              f"the step-{fast_steps} checkpoints' {len(l20)} leaves bit-identical: {same} "
+              f"{'PASS' if same else 'FAIL'}", flush=True)
+        if not same:
+            raise AssertionError("--fast at 20 steps per call left the trajectory of 1 per call")
+        return fast_ms
 
 
 
@@ -1471,15 +1573,17 @@ def phase_trainer(dev, tmp: Path, scenes, train_ms: float):
 METRIC_RTOL = 1e-9
 
 
-def phase_score(dev, tmp: Path, init_ckpt: Path, pallas_ckpt: Path):
+def phase_score(dev, tmp: Path, init_ckpt: Path, pallas_ckpt: Path, fused_ckpt: Path):
     """``python -m minimal_nerf_torch.score`` as a user calls it, on the
     card, with imageio and PIL hidden, on the tree ``[trainer]`` wrote (its
     4-frame 800x800 test split): the trainer's 220-step 64+128 checkpoint
     at ``--frames-per-dispatch`` 1 and 8 (the same scores and frames; the
     card's metrics against the numpy version on those frames), its ``--fast``
-    checkpoint (the sampler kernel) and the ``[train-pallas]`` checkpoint
-    (the point forward kernel), each by launch count; the seeded init
-    ``[main]`` wrote must score a lower PSNR than the trained checkpoint.
+    checkpoint (the sampler kernel), the ``[train-pallas]`` checkpoint (the
+    point forward kernel) and the ``[train]`` one (fused, from the same init
+    and draws, the same 100 steps: the pallas one's PSNR beside it), each by
+    launch count; the seeded init ``[main]`` wrote must score a lower PSNR
+    than the trained checkpoint.
     Then the time per scored frame split into the sweep alone and the
     metrics, and one sweep with its metrics under
     ``torch.cuda.set_sync_debug_mode("error")``: no wait for the device
@@ -1496,7 +1600,7 @@ def phase_score(dev, tmp: Path, init_ckpt: Path, pallas_ckpt: Path):
     fast = runs / "trainer-fast" / "checkpoints" / "model=trainer-fast-epoch=10-step=200.ckpt"
     chunks, n = math.ceil(HW * HW / RAYS), TEST_FRAMES
 
-    def scored(ckpt, fpd=8):
+    def scored(ckpt, fpd=8, kernel="auto"):
         """``score.main`` with the counts set to 0 just before and read just
         after; returns the scores, the frames, the counts and the wall s."""
         frames = []
@@ -1513,7 +1617,7 @@ def phase_score(dev, tmp: Path, init_ckpt: Path, pallas_ckpt: Path):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             scores = score.main(["-c", str(ckpt), "-r", str(RAYS), "-b", str(tree),
-                                 "--frames-per-dispatch", str(fpd)])
+                                 "--frames-per-dispatch", str(fpd), "--kernel", kernel])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         return scores, frames, counts(), wall
@@ -1545,6 +1649,7 @@ def phase_score(dev, tmp: Path, init_ckpt: Path, pallas_ckpt: Path):
 
         cases = {"--fast": (fast, (2 * chunks * n, 0, 0, 0, 0, chunks * n)),
                  "pallas": (pallas_ckpt, (0, 0, 2 * chunks * n, 0, 0, 0)),
+                 "[train] fused": (fused_ckpt, want),
                  "seeded init": (init_ckpt, want)}
         other = {}
         for label, (ckpt, want_c) in cases.items():
@@ -1560,6 +1665,24 @@ def phase_score(dev, tmp: Path, init_ckpt: Path, pallas_ckpt: Path):
                   + f" {'PASS' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise AssertionError(f"the score of the {label} checkpoint is not as expected")
+        # each of the two 100-step checkpoints through the other's render
+        # path too, which tells a gap in the weights from one in the render
+        crossed = {}
+        for label, ckpt, kernel, want_c in (
+                ("pallas", pallas_ckpt, "fused", want),
+                ("[train] fused", fused_ckpt, "pallas", (0, 0, 2 * chunks * n, 0, 0, 0))):
+            s_x, _, c, _ = scored(ckpt, kernel=kernel)
+            crossed[label] = s_x
+            if c != want_c or not all(math.isfinite(x) for x in s_x):
+                raise AssertionError(f"the score of the {label} checkpoint through --kernel "
+                                     f"{kernel} is not as expected: launches {c}")
+        gap = other["pallas"][0] - other["[train] fused"][0]
+        print(f"[score] 100 steps from one init and one set of draws: pallas psnr "
+              f"{other['pallas'][0]!r} - fused psnr {other['[train] fused'][0]!r} = {gap:+.4f} "
+              f"dB (ssim {other['pallas'][1] - other['[train] fused'][1]:+.5f}); rendered "
+              f"through the other path: the pallas checkpoint through --kernel fused psnr "
+              f"{crossed['pallas'][0]!r}, the fused one through --kernel pallas psnr "
+              f"{crossed['[train] fused'][0]!r}", flush=True)
 
         render_chunk, _, _ = build_render_chunk(str(trained), RAYS, device=dev)
         sweep = lambda fpd: list(views.render_poses_batched(  # noqa: E731
@@ -2028,6 +2151,167 @@ def phase_occ_reference(dev, scene, params, grid, cfg, tcfg):
               note=", occupancy sampler on the CPU's words")
 
 
+
+# steps per call of [multi-step]: the fast recipe's --steps-per-call
+MULTI_STEPS = 20
+
+
+def kept_memory():
+    """``(reserved, allocated)`` device bytes after ``torch.cuda.empty_cache``
+    has released every cached block it can: what stays reserved beyond the
+    allocated bytes is held by live segments, among them a live CUDA graph's
+    private pool, which the cache cannot release."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+
+
+def phase_multi_step(dev, scene, bias: float, trained_params):
+    """Several train steps per call (``loop.make_multi_step``), as one
+    captured CUDA graph of the step replayed once per step: for fused bf16
+    and pallas bf16 at 64+128 from the seeded init, and the fast recipe
+    (occupancy G=64, 16+48) from the ``[train]`` weights, two calls of
+    ``MULTI_STEPS`` against as many eager steps from the same state. The
+    parameters, Adam moments, grid and last metrics must be bit-identical;
+    the second call runs under ``torch.cuda.set_sync_debug_mode("error")``.
+    The wrappers' counts over the two calls must be two eager steps' (the
+    first step runs eagerly, then is captured: a capture records each launch
+    once); a third call's kernels, counted by name in a profiler trace
+    (``traced_launches``), must be ``MULTI_STEPS`` eager steps'. The fast
+    case starts at step 4 with its warmup cut to 30, so both calls hold a
+    grid update between replays and the second the warmup's end. Prints the
+    capture's host time, the peak device memory of the eager steps, of the
+    first call (its capture) and of the replayed call, and the memory kept
+    with the cache emptied after the eager steps and after the first call
+    (``kept_memory``: the graph's private pool stays reserved), and times the
+    second call beside the eager steps of the same span, each as one block
+    ended by a sync. Returns each case's counts and the fast case's call for
+    ``[profile]``."""
+    from minimal_nerf_torch.models.mlp import map_params
+    from minimal_nerf_torch.models.nerf import NeRFConfig
+    from minimal_nerf_torch.ops import occupancy as occ
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.checkpoint import flatten_tree
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    cases = {"fused": (NeRFConfig(), TrainConfig(), None, 0),
+             "pallas": (NeRFConfig(), TrainConfig(kernel="pallas"), None, 0),
+             "--fast": (NeRFConfig(coarse_samples=16, fine_samples=48),
+                        TrainConfig(occupancy=True, occ_warmup_steps=30), trained_params, 4)}
+    mib = lambda b: f"{b / 2 ** 20:.1f}"  # noqa: E731
+    out = {}
+    for label, (cfg, tcfg, start_params, start) in cases.items():
+        occ_cfg = tcfg.occupancy_config
+        static = loop.scene_static(scene)
+        mlp_apply, render_fn = loop.kernel_hooks(tcfg.kernel, dev)
+
+        def fresh():
+            params = (map_params(lambda t: t.detach().clone(), start_params)
+                      if start_params is not None else init_train_params(dev, cfg, bias))
+            return [params, loop.adam_init(params),
+                    occ.init_grid(occ_cfg, dev) if occ_cfg is not None else None]
+
+        def call(fn, st, step):
+            if st[2] is None:
+                st[0], st[1], metrics = fn(st[0], st[1], scene.images, scene.poses, step, 0)
+            else:
+                st[0], st[1], st[2], metrics = fn(st[0], st[1], st[2], scene.images,
+                                                  scene.poses, step, 0)
+            return metrics
+
+        def block(fn, st, steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for step in steps:
+                metrics = call(fn, st, step)
+            torch.cuda.synchronize()
+            return metrics, 1e3 * (time.perf_counter() - t0) / MULTI_STEPS
+
+        step_fn = loop.make_train_step(cfg, tcfg, static, render_fn, dev, mlp_apply, occ_cfg)
+        eager = fresh()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        block(step_fn, eager, range(start, start + MULTI_STEPS))
+        eager_metrics, eager_ms = block(step_fn, eager, range(start + MULTI_STEPS,
+                                                               start + 2 * MULTI_STEPS))
+        eager_launches = counts()
+        eager_peak = torch.cuda.max_memory_allocated()
+        eager_kept = kept_memory()
+        per_step = tuple(x // (2 * MULTI_STEPS) for x in eager_launches)
+
+        multi_fn = loop.make_multi_step(cfg, tcfg, static, MULTI_STEPS, render_fn, dev,
+                                        mlp_apply, occ_cfg)
+        multi = fresh()
+        with graph_calls() as seen:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            block(multi_fn, multi, [start])
+            first_peak = torch.cuda.max_memory_allocated()
+            graph_kept = kept_memory()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                multi_metrics, multi_ms = block(multi_fn, multi, [start + MULTI_STEPS])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            replay_peak = torch.cuda.max_memory_allocated()
+            multi_launches = counts()
+            calls = dict(seen)
+        same = (eager[1]["count"] == multi[1]["count"] == 2 * MULTI_STEPS
+                and all((a is None and b is None) or torch.equal(a, b) for a, b in zip(
+                    flatten_tree([eager[0], eager[1]["mu"], eager[1]["nu"], eager[2]]),
+                    flatten_tree([multi[0], multi[1]["mu"], multi[1]["nu"], multi[2]])))
+                and eager_metrics.keys() == multi_metrics.keys()
+                and all(torch.equal(eager_metrics[k].cpu(), multi_metrics[k].cpu())
+                        for k in eager_metrics))
+        with graph_calls() as third:
+            traced = traced_launches(lambda: call(multi_fn, multi, start + 2 * MULTI_STEPS))
+        want_traced = tuple(MULTI_STEPS * p for p in per_step)
+        ok = (same and eager_launches == tuple(2 * MULTI_STEPS * p for p in per_step)
+              and any(per_step) and multi_launches == tuple(2 * p for p in per_step)
+              and calls["captures"] == 1 and calls["replays"] == 2 * MULTI_STEPS - 1
+              and third["captures"] == 0 and traced == want_traced)
+        loss = float(multi_metrics["train_loss"])
+        print(f"[multi-step] {label} ({cfg.coarse_samples}+{cfg.fine_samples}, {tcfg.num_rays} "
+              f"rays, {tcfg.precision}, --kernel {tcfg.kernel}"
+              + (f", occupancy G={occ_cfg.resolution}" if occ_cfg else "")
+              + f"): steps {start}-{start + 2 * MULTI_STEPS - 1} as 2 calls of {MULTI_STEPS} "
+              f"(captures {calls['captures']}, replays {calls['replays']}: the first call's "
+              f"first step eager) against as many eager steps: params, Adam moments, "
+              + ("grid, " if occ_cfg else "") + f"last metrics bit-identical: {same} (last "
+              f"loss {loss:.6f}); the second call under sync debug mode 'error' raised nothing; "
+              f"wrapper launches ({COUNTED}) over the 2 calls {multi_launches} (want "
+              f"{tuple(2 * p for p in per_step)}: the eager first step and its capture), over "
+              f"the eager steps {eager_launches}; a third call's {MULTI_STEPS} replays ran "
+              f"{traced} (profiler trace; want {want_traced} = {MULTI_STEPS} x an eager "
+              f"step's) {'PASS' if ok else 'FAIL'}", flush=True)
+        print(f"[multi-step] {label} {card_line()}: ms/step over the second call "
+              f"{multi_ms:.3f}, eager steps {start + MULTI_STEPS}-{start + 2 * MULTI_STEPS - 1} "
+              f"{eager_ms:.3f} (each block ended by one sync); capture "
+              f"{[round(1e3 * t, 1) for t in calls['capture_s']]} ms of host time "
+              f"(instantiation included); "
+              f"peak device memory (torch.cuda.max_memory_allocated) over the eager steps "
+              f"{mib(eager_peak)} MiB, the first call (eager step, capture, replays) "
+              f"{mib(first_peak)} MiB, the second call (replays alone) {mib(replay_peak)} "
+              f"MiB; reserved and allocated with the cache emptied (torch.cuda.empty_cache) "
+              f"after the eager steps {mib(eager_kept[0])} / {mib(eager_kept[1])} MiB, after "
+              f"the first call {mib(graph_kept[0])} / {mib(graph_kept[1])} MiB: reserved "
+              f"beyond allocated {mib(eager_kept[0] - eager_kept[1])} MiB without a graph, "
+              f"{mib(graph_kept[0] - graph_kept[1])} MiB with the graph alive (its private "
+              f"pool)", flush=True)
+        if not ok:
+            raise AssertionError(f"[multi-step] {label}: the replayed steps are not the eager "
+                                 "ones")
+        out[label] = dict(launches=multi_launches, traced=traced, ms=multi_ms,
+                          eager_ms=eager_ms)
+        if occ_cfg is not None:
+            out["fast_call"] = lambda fn=multi_fn, st=multi: call(fn, st, start)
+        multi_fn = multi = None  # this case's graph goes before the next case's eager steps
+    return out
+
+
 FUSED_GROUPS = {"forward kernel": ("fused_fwd_sm90",),
                 "backward kernels": ("fused_bwd_kernel", "wgrad_", "reduce_slices",
                                      "reduce_rows")}
@@ -2134,13 +2418,15 @@ def event_spans(events):
     return sum(a.elapsed_time(b) for a, b in events)
 
 
-def phase_profile(ckpt: Path, dev, train_step, pallas_step, occ_step, occ_ckpt: Path):
+def phase_profile(ckpt: Path, dev, train_step, pallas_step, occ_step, occ_ckpt: Path,
+                  fast_call):
     """One more frame of the render path, one more train step, one more
     step of the pallas path and one more occupancy step (one without a grid
     update, as 15 of every 16 are); for the last, also the device span of
     the coarse-sampler hook (CUDA events around each call) beside the
-    sampler kernel's time; then one 16+48 frame through the ``[train-occ]``
-    checkpoint's grid, with its 157 hook calls."""
+    sampler kernel's time; one more replayed call of ``MULTI_STEPS`` steps
+    of the fast recipe (``[multi-step]``'s); then one 16+48 frame through
+    the ``[train-occ]`` checkpoint's grid, with its 157 hook calls."""
     from minimal_nerf_torch.render import render_views
 
     profile_shares(f"1 frame {HW}x{HW}",
@@ -2185,6 +2471,11 @@ def phase_profile(ckpt: Path, dev, train_step, pallas_step, occ_step, occ_ckpt: 
           f"span {span_ms:.3f} ms ({100 * span_ms / wall_ms:.2f}% of wall; CUDA events around "
           f"the call, its two draws included), host {host_ms:.3f} ms; sampler kernel "
           f"{kernel_ms:.4f} ms ({100 * kernel_ms / wall_ms:.3f}% of wall)", flush=True)
+    wall_us, _ = profile_shares(
+        f"1 replayed call of {MULTI_STEPS} occupancy train steps ({RAYS} rays, 16+48; one "
+        "CUDA-graph replay per step, one eager grid update)", fast_call, OCC_GROUPS)
+    print(f"[profile] that call: {wall_us / 1e3 / MULTI_STEPS:.3f} ms of wall per step under "
+          "the profiler", flush=True)
     with timed_sampler_hooks() as calls:
         wall_us, group_us = profile_shares(
             f"1 frame {HW}x{HW} at 16+48 through the grid (checkpoint load included)",
@@ -2338,15 +2629,17 @@ def main(argv=None) -> int:
         occ_train, o_step_fn, o_params, o_state, o_grid, o_cfg, o_tcfg = phase_train_occ(
             dev, Path(tmp), scene, params, train["ckpt"])
         phase_occ_reference(dev, scene, o_params, o_grid, o_cfg, o_tcfg)
+        multi = phase_multi_step(dev, scene, train["bias"], params)
         phase_trainer(dev, Path(tmp), scenes, train["ms"])
-        phase_score(dev, Path(tmp), ckpt, pallas["ckpt"])
+        phase_score(dev, Path(tmp), ckpt, pallas["ckpt"], train["ckpt"])
         phase_convert(dev, Path(tmp))
         phase_profile(ckpt, dev,
                       lambda: step_fn(params, state, scene.images, scene.poses, TRAIN_STEPS, 0),
                       lambda: p_step_fn(p_params, p_state, scene.images, scene.poses,
                                         TRAIN_STEPS, 0),
                       lambda: o_step_fn(o_params, o_state, o_grid, scene.images, scene.poses,
-                                        TRAIN_STEPS + 1, 0), occ_train["ckpt"])
+                                        TRAIN_STEPS + 1, 0), occ_train["ckpt"],
+                      multi["fast_call"])
 
     def entry(name, replaces, shapes, launches):
         # one 4096-ray chunk or step of the main paths: S=64 and S=192, bf16
@@ -2361,6 +2654,7 @@ def main(argv=None) -> int:
                 "library_ms": (None if any(r["library_ms"] is None for r in shapes)
                                else sum(r["library_ms"] for r in shapes))}
 
+    # launches: each path's own run, its counts set to 0 just before it
     kernels = [
         entry("fused_raymarch_fwd", "minimal_nerf_tpu/kernels/fused_raymarch.py:175",
               [report[("bf16", s)] for s in SAMPLES], launches),

@@ -105,13 +105,14 @@ def ray_batch_from_arrays(frame_idx, num_rays: int, height: int, width: int, foc
                           coords=None) -> Dict[str, torch.Tensor]:
     """The pixel -> ray -> rgb sampling core: ``origin``, ``direc`` ``[N, 3]``,
     ``rgb [N, 3]`` (fp32 in ``[0, 1]``), ``xs``, ``ys``. ``coords = (xs, ys)``
-    replaces the draws."""
+    replaces the draws. ``frame_idx`` is an int or an int64 tensor ``[1]`` on
+    the images' device (the train step's, read without a host sync)."""
     if coords is None:
         xs, ys = sample_random_coordinates(num_rays, height, width, cropping, generator,
                                            device=images.device)
     else:
         xs, ys = (torch.as_tensor(c, dtype=torch.int64, device=images.device) for c in coords)
-    origin, direc = cameras.rays_for_pixels(xs.float(), ys.float(), height, width, focal,
-                                            poses[frame_idx])
+    c2w = poses.index_select(0, frame_idx)[0] if torch.is_tensor(frame_idx) else poses[frame_idx]
+    origin, direc = cameras.rays_for_pixels(xs.float(), ys.float(), height, width, focal, c2w)
     rgb = images[frame_idx, ys, xs].float() / 255.0
     return {"origin": origin, "direc": direc, "rgb": rgb, "xs": xs, "ys": ys}

@@ -613,23 +613,38 @@ def render_rays_fused(params: Params, config, o_rays, d_rays,
     return {"fine_rgb_rays": fine_color, "coarse_rgb_rays": coarse_color}
 
 
+def capturing(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on a CUDA device whose current stream is capturing
+    a CUDA graph (the train step's, ``training.loop.make_multi_step``)."""
+    return t.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
 def make_fused_render_fn():
     """A ``render_fn`` hook (signature of ``models.nerf.render_rays``).
 
     The MLPs are flattened and packed once per state of the parameters, not
     per call: the cache is keyed on the params object and every leaf's
     ``_version``, which an in-place update (an optimizer step) advances.
+    While the stream captures a CUDA graph the hook packs on every call and
+    keeps nothing: the packing is then part of the graph, and each replay
+    packs the weights as they stand (a cached packing would replay stale
+    weights).
     """
     cache: Dict[str, Any] = {}
 
     def render_fn(params, config, o_rays, d_rays, generator=None, compute_dtype=None,
                   mlp_apply=None, coarse_sampler=None, uniforms=None, return_stats=False):
-        key = (id(params), compute_dtype,
-               tuple((id(t), t._version) for t in flatten_tree(params)))
-        if cache.get("key") != key:
-            cache.update(key=key, params=params, prepared={
-                k: prepare_fused_mlp(params[k], compute_dtype) for k in ("coarse", "fine")})
-        return render_rays_fused(cache["prepared"], config, o_rays, d_rays, generator,
+        pack = lambda: {k: prepare_fused_mlp(params[k], compute_dtype)  # noqa: E731
+                        for k in ("coarse", "fine")}
+        if capturing(o_rays):
+            prepared = pack()
+        else:
+            key = (id(params), compute_dtype,
+                   tuple((id(t), t._version) for t in flatten_tree(params)))
+            if cache.get("key") != key:
+                cache.update(key=key, params=params, prepared=pack())
+            prepared = cache["prepared"]
+        return render_rays_fused(prepared, config, o_rays, d_rays, generator,
                                  compute_dtype=compute_dtype, coarse_sampler=coarse_sampler,
                                  uniforms=uniforms)
 

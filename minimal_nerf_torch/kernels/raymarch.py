@@ -359,12 +359,17 @@ def make_mlp_kernel_apply():
     is flattened and packed once per state of its parameters, not per call:
     the cache is keyed on the MLP object, the compute dtype and every leaf's
     ``_version``, which an in-place update (an optimizer step) advances. It
-    keeps the ``_CACHED_MLPS`` MLPs seen last.
+    keeps the ``_CACHED_MLPS`` MLPs seen last. While the stream captures a
+    CUDA graph it packs on every call and keeps nothing, so that each replay
+    packs the weights as they stand (``fused_raymarch.make_fused_render_fn``).
     """
     cache: Dict[int, Tuple[Any, Any, fr.FusedMLP]] = {}
 
     def apply_fn(params, samples, direc, position_dim=10, direction_dim=4,
                  compute_dtype=None):
+        if fr.capturing(samples):
+            return nerf_mlp_kernel_apply(fr.prepare_fused_mlp(params, compute_dtype), samples,
+                                         direc, position_dim, direction_dim)
         key = (compute_dtype, tuple((id(t), t._version) for t in flatten_tree(params)))
         hit = cache.pop(id(params), None)
         if hit is None or hit[0] != key:

@@ -107,7 +107,7 @@ def init_grid(cfg: OccupancyConfig, device="cuda") -> torch.Tensor:
 
 def effective_threshold(ema: torch.Tensor, cfg: OccupancyConfig) -> torch.Tensor:
     """The density cutoff for "occupied": ``max(threshold, rel * mean(ema))``."""
-    thr = torch.tensor(cfg.threshold, dtype=torch.float32, device=ema.device)
+    thr = torch.full((), cfg.threshold, dtype=torch.float32, device=ema.device)
     if cfg.rel_threshold <= 0:
         return thr
     return torch.maximum(thr, cfg.rel_threshold * torch.mean(ema))
@@ -115,7 +115,9 @@ def effective_threshold(ema: torch.Tensor, cfg: OccupancyConfig) -> torch.Tensor
 
 def occupancy_mask(ema: torch.Tensor, cfg: OccupancyConfig, force_all=False) -> torch.Tensor:
     """``[G, G, G]`` bool: cell above the effective threshold, or every cell
-    when ``force_all`` (warmup)."""
+    when ``force_all`` (warmup; a bool, or a bool tensor on the grid's
+    device). No host value is read: the train step packs its grid inside a
+    captured CUDA graph."""
     return (ema > effective_threshold(ema, cfg)) | force_all
 
 
@@ -317,7 +319,8 @@ def update_grid_ema(ema: torch.Tensor, params: Params, position_dim: int, direct
     pts = (pts + (u - 0.5) * cell)[:, None, :]  # [G^3, 1, 3]: one point per "ray"
     # density does not depend on the direction (its head reads the trunk
     # before the direction features join); any unit direction serves
-    dirs = torch.tensor([[0.0, 0.0, -1.0]], dtype=torch.float32, device=dev).expand(total, 3)
+    dirs = torch.zeros((total, 3), dtype=torch.float32, device=dev)
+    dirs[:, 2] = -1.0
     nets = ("coarse", "fine") if cfg.grid_source == "both" else (cfg.grid_source,)
     sigma = None
     for name in nets:

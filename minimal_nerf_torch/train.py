@@ -13,7 +13,10 @@ occupancy flags, ``-l PATH`` / ``-l auto`` resume, ``--profile DIR`` (a
 kernels run their plain versions. ``--kernel auto`` is ``fused`` on the
 card. Not ported, and raising: the ``single`` and ``simple`` modes (ROADMAP
 Queue 1 item 6), ``--data-parallel N > 1`` and ``--multihost`` (item 7),
-``--wandb``. ``--steps-per-call N`` runs one step per call (item 4).
+``--wandb``. ``--steps-per-call N`` runs N train steps per call between
+boundaries (``training.loop.make_multi_step``: on the card, replays of one
+captured CUDA graph of the step), as ``train_nerf.py`` does with one
+dispatch; the steps are those of one per call, bit for bit.
 """
 
 from __future__ import annotations
@@ -61,8 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "MLP kernels; 'fused' = the fused ray-march kernels; 'auto' = "
                              "fused on the card, xla on the CPU")
     parser.add_argument("--steps-per-call", type=int, default=None,
-                        help="train steps per dispatch (the port runs one step per call: "
-                             "ROADMAP Queue 1 item 4)")
+                        help="fuse N train steps per dispatch: on the card, N replays of "
+                             "one captured CUDA graph of the step (default: 1)")
     parser.add_argument("--log-every", type=int, default=100,
                         help="steps between metric fetches/CSV rows")
     parser.add_argument("--val-render-every", type=int, default=1,
@@ -71,8 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--wandb", type=str, default=None, metavar="PROJECT",
                         help="Weights & Biases mirror (not ported)")
     parser.add_argument("--debug-nans", action="store_true",
-                        help="autograd anomaly detection and a finite check of every step's "
-                             "loss (a host sync per step)")
+                        help="autograd anomaly detection and a finite check of every call's "
+                             "last loss (a host sync per call; a captured step runs without "
+                             "anomaly detection)")
     parser.add_argument("--profile", type=str, default=None, metavar="DIR",
                         help="write a torch.profiler Chrome trace of the whole run to DIR")
     parser.add_argument("--seed", type=int, default=0)

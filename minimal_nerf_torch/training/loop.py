@@ -1,15 +1,25 @@
 """The train and eval steps: batch sampling, hierarchical render, loss,
-Adam, LR.
+Adam, LR; several train steps per call.
 
-Counterpart of ``minimal_nerf_tpu/training/loop.py`` (single device; the
-multi-step scan and data parallelism are not ported yet). PyTorch runs
-eagerly, so there is no ``jit``: ``make_train_step`` returns a plain function
-that samples a batch, renders it through the fused kernels (or the hooks of
-another ``--kernel``, ``kernel_hooks``), takes the gradients with autograd
-and applies Adam with optax's semantics IN PLACE on the parameter tensors.
-With an ``OccupancyConfig`` the step first updates the density-EMA grid (in
-place) and packs it (``occupancy_step_context``), and the loss samples its
-coarse points through the grid (``coarse_sampler`` of ``nerf_loss``, the
+Counterpart of ``minimal_nerf_tpu/training/loop.py`` (single device; data
+parallelism is not ported yet). A train step is two parts (``_build_step``,
+the counterpart of JAX's ``_build_step_runner``):
+
+- ``draw_step_inputs``: every random draw and host decision of one step
+  (the frame, the pixel coordinates after the crop/full choice, the render
+  uniforms, Adam's LR and bias corrections, the occupancy warmup flag);
+- the body, which reads those inputs only from device tensors: it renders
+  the batch through the fused kernels (or the hooks of another ``--kernel``,
+  ``kernel_hooks``), takes the gradients with autograd and applies Adam with
+  optax's semantics IN PLACE on the parameter tensors.
+
+``make_train_step`` is draw + body for one step. ``make_multi_step`` draws N
+steps, then runs the body N times: on a CUDA device by replaying one
+captured CUDA graph of the body N times (``_StepGraph``), elsewhere eagerly.
+With an ``OccupancyConfig`` the density-EMA grid is updated in place before
+the body at every ``update_every``-th step, eagerly between replays
+(``update_step_grid``); the body packs the grid and the loss samples its
+coarse points through it (``coarse_sampler`` of ``nerf_loss``, the
 counterpart of JAX's ``make_occupancy_loss``).
 
 Adam is written as plain functions over ``{"count", "mu", "nu"}`` with ``mu``
@@ -26,11 +36,11 @@ on a stream of its own.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from minimal_nerf_torch.data.synthetic import ray_batch_from_arrays
+from minimal_nerf_torch.data.synthetic import ray_batch_from_arrays, sample_random_coordinates
 from minimal_nerf_torch.models.mlp import map_params
 from minimal_nerf_torch.models.nerf import NeRFConfig
 from minimal_nerf_torch.ops import occupancy as occ
@@ -81,26 +91,52 @@ def adam_init(params: Params) -> Dict[str, Any]:
     return {"count": 0, "mu": map_params(zeros, params), "nu": map_params(zeros, params)}
 
 
+def adam_scalars(lr, count: int, b1: float = 0.9, b2: float = 0.999) -> torch.Tensor:
+    """The step-dependent scalars of one Adam update, an fp32 CPU tensor
+    ``[-lr, bc1, bc2, 1/bc1, 1/bc2]``: the bias corrections ``1 - b^count``
+    at the incremented ``count`` as optax computes them in fp32, and their
+    fp32 reciprocals."""
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32)  # noqa: E731
+    bc1, bc2 = 1 - f32(b1) ** count, 1 - f32(b2) ** count
+    one = f32(1.0)
+    return torch.stack([-f32(lr), bc1, bc2, one / bc1, one / bc2])
+
+
 @torch.no_grad()
-def adam_update(params: Params, grads: Params, state: Dict[str, Any], lr: torch.Tensor,
-                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Dict[str, Any]:
-    """One ``optax.adam`` step: moments updated, bias-corrected at the
-    incremented count, ``p -= lr * mu_hat / (sqrt(nu_hat) + eps)``. The LR is
-    the schedule's value at the count before the increment (the caller's
-    ``lr``). ``params`` and the moments are updated in place; returns the
-    new state."""
-    count = state["count"] + 1
-    # fp32 scalars as optax computes them; as Python floats they are exact
-    # and need no host-to-device copy
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
-    bc1, bc2 = float(1 - f32(b1) ** count), float(1 - f32(b2) ** count)
-    step_size = -float(lr)
+def adam_apply(params: Params, grads: Params, state: Dict[str, Any], scalars: torch.Tensor,
+               b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Dict[str, Any]:
+    """One ``optax.adam`` step on the ``adam_scalars`` of this update, a
+    tensor on the parameters' device (no host value enters the update):
+    moments updated, bias-corrected, ``p -= lr * mu_hat / (sqrt(nu_hat) +
+    eps)``. ``params`` and the moments are updated in place; returns the
+    state with the count incremented.
+
+    The bias corrections divide on the CPU and multiply by their reciprocals
+    on a CUDA device: torch divides a CUDA tensor by a Python float as a
+    product with the float's fp32 reciprocal, and the update stays the one
+    the corrections gave as Python floats, bit for bit, on either device.
+    """
+    neg_lr, bc1, bc2, inv1, inv2 = scalars.unbind(0)
+    on_card = scalars.device.type == "cuda"
     for p, g, m, v in zip(flatten_tree(params), flatten_tree(grads),
                           flatten_tree(state["mu"]), flatten_tree(state["nu"])):
         m.copy_((1 - b1) * g + b1 * m)
         v.copy_((1 - b2) * (g * g) + b2 * v)
-        p.add_(step_size * ((m / bc1) / (torch.sqrt(v / bc2) + eps)))
-    return dict(state, count=count)
+        m_hat, v_hat = (m * inv1, v * inv2) if on_card else (m / bc1, v / bc2)
+        p.add_(neg_lr * (m_hat / (torch.sqrt(v_hat) + eps)))
+    return dict(state, count=state["count"] + 1)
+
+
+def adam_update(params: Params, grads: Params, state: Dict[str, Any], lr,
+                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Dict[str, Any]:
+    """``adam_apply`` at the LR ``lr``: the schedule's value at the count
+    before the increment (the caller's). ``params`` and the moments are
+    updated in place; returns the new state. The train step hands its drawn
+    scalars to ``adam_apply``; this is optax's call shape, for a step driven
+    by hand from its pieces, as the tests do to hold it against optax."""
+    dev = flatten_tree(params)[0].device
+    return adam_apply(params, grads, state, adam_scalars(lr, state["count"] + 1, b1, b2).to(dev),
+                      b1, b2, eps)
 
 
 def global_norm(grads: Params) -> torch.Tensor:
@@ -170,23 +206,46 @@ def epoch_permutation(seed: int, epoch: int, num_frames: int) -> torch.Tensor:
     return torch.randperm(num_frames, generator=step_generator(seed, epoch, _PERM_STREAM, "cpu"))
 
 
+def train_frame(step: int, steps_per_epoch: int, num_frames: int, seed: int) -> int:
+    """The frame of train step ``step``: its entry in the epoch's
+    permutation (``epoch_permutation``)."""
+    perm = epoch_permutation(seed, step // steps_per_epoch, num_frames)
+    return int(perm[step % steps_per_epoch % num_frames])
+
+
+def draw_train_pixels(step: int, static: SceneStatic, num_rays: int, steps_per_epoch: int,
+                      cropping_epochs: int, seed: int, generator: Optional[torch.Generator],
+                      device) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """``(frame, xs, ys)`` of train step ``step``: the epoch permutation's
+    frame (``train_frame``) and ``num_rays`` pixels drawn from ``generator``
+    on ``device``, in the center crop while ``epoch < cropping_epochs``."""
+    frame = train_frame(step, steps_per_epoch, static.num_frames, seed)
+    xs, ys = sample_random_coordinates(num_rays, static.height, static.width,
+                                       step // steps_per_epoch < cropping_epochs, generator,
+                                       device=device)
+    return frame, xs, ys
+
+
 def sample_train_batch(step: int, images: torch.Tensor, poses: torch.Tensor,
                        static: SceneStatic, num_rays: int, steps_per_epoch: int,
                        cropping_epochs: int, seed: int,
                        generator: Optional[torch.Generator] = None,
                        coords=None) -> Dict[str, Any]:
-    """Pick this step's frame from the epoch's permutation, sample pixels
-    (center crop while ``epoch < cropping_epochs``) and build their rays.
+    """The ray batch of train step ``step``: its frame and pixels as the
+    train step draws them (``draw_train_pixels``), gathered into rays as the
+    step's body gathers them.
 
     ``coords = (xs, ys)`` replaces the pixel draws. Returns ``origin``,
     ``direc``, ``rgb`` ``[N, 3]``, ``xs``, ``ys`` and the ``frame`` index.
     """
-    epoch = step // steps_per_epoch
-    perm = epoch_permutation(seed, epoch, static.num_frames)
-    frame = int(perm[step % steps_per_epoch % static.num_frames])
+    if coords is None:
+        frame, xs, ys = draw_train_pixels(step, static, num_rays, steps_per_epoch,
+                                          cropping_epochs, seed, generator, images.device)
+        coords = (xs, ys)
+    else:
+        frame = train_frame(step, steps_per_epoch, static.num_frames, seed)
     batch = ray_batch_from_arrays(frame, num_rays, static.height, static.width, static.focal,
-                                  images, poses, cropping=epoch < cropping_epochs,
-                                  generator=generator, coords=coords)
+                                  images, poses, coords=coords)
     return dict(batch, frame=frame)
 
 
@@ -238,37 +297,163 @@ def kernel_hooks(kernel: str, device="cuda") -> Tuple[Optional[Callable], Callab
     raise ValueError(f"unknown kernel {kernel!r}")
 
 
-def occupancy_step_context(occupancy_cfg, nerf_cfg: NeRFConfig, compute_dtype, params: Params,
-                           grid: torch.Tensor, step: int, seed: int,
-                           jitter: Optional[torch.Tensor] = None):
-    """The occupancy work of one step before its render (JAX
-    ``_occ_step_context``).
-
-    At ``step % update_every == 0`` the density EMA is updated IN PLACE in
+def update_step_grid(occupancy_cfg, nerf_cfg: NeRFConfig, compute_dtype, params: Params,
+                     grid: torch.Tensor, step: int, seed: int,
+                     jitter: Optional[torch.Tensor] = None) -> None:
+    """At ``step % update_every == 0``, the density EMA updated IN PLACE in
     ``grid`` from ``params`` as they stand before this step's Adam update,
     through the plain MLP in the compute dtype with no gradient, whatever
     kernel the step renders through; its jitter comes from the occupancy
-    stream of ``(seed, step)`` unless ``jitter [G^3, 3]`` is given. Then the
-    grid is packed, every cell forced occupied while ``step < warmup_steps``.
-    Returns ``(occ_words, occ_fraction)``; the fraction is the packed mask's
-    mean (JAX counts the words' set bits: the same number).
-    """
+    stream of ``(seed, step)`` unless ``jitter [G^3, 3]`` is given. Runs
+    eagerly, also between the replays of ``make_multi_step``."""
     if step % occupancy_cfg.update_every == 0:
         gen = None if jitter is not None else step_generator(seed, step, _OCC_STREAM,
                                                              grid.device)
         grid.copy_(occ.update_grid_ema(grid, params, nerf_cfg.position_dim,
                                        nerf_cfg.direction_dim, occupancy_cfg, gen,
                                        compute_dtype=compute_dtype, jitter=jitter))
-    warm = step < occupancy_cfg.warmup_steps
-    words = occ.pack_occupancy(grid, occupancy_cfg, force_all=warm)
-    return words, occ.occupancy_mask(grid, occupancy_cfg, warm).float().mean()
+
+
+def pack_step_grid(occupancy_cfg, grid: torch.Tensor, force_all):
+    """The grid packed for one step's sampler, every cell forced occupied
+    where ``force_all`` (a bool, or a bool tensor on the grid's device):
+    ``(occ_words, occ_fraction)``; the fraction is the packed mask's mean
+    (JAX counts the words' set bits: the same number)."""
+    words = occ.pack_occupancy(grid, occupancy_cfg, force_all=force_all)
+    return words, occ.occupancy_mask(grid, occupancy_cfg, force_all).float().mean()
+
+
+def draw_step_inputs(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
+                     step: int, count: int, seed: int, device,
+                     occupancy_cfg=None) -> Dict[str, Any]:
+    """Every random draw and host decision of train step ``step``, whose
+    Adam update is the ``count + 1``-th, from the generators of ``(seed,
+    step)`` in the order the render consumes them.
+
+    Host values: ``frame`` (the epoch permutation's entry), ``force_all``
+    (the occupancy warmup), ``adam`` (``adam_scalars`` at the schedule's LR
+    of ``count``) and ``lr`` (the metric, the schedule at ``step``, an fp32
+    CPU scalar). On ``device``: the pixel coordinates ``xs``, ``ys`` (center
+    crop while ``epoch < cropping_epochs``) and ``uniforms``, the render's
+    draws: ``"coarse"`` (``[N, Sc]``, or under occupancy the sampler's ``(eps
+    [N, 1], frac [N, Sc] or None)``), then the fine ``"eps" [N, 1]`` and, with
+    ``fine_sampling="reference"``, ``"jitter" [N, Sf, 1]``.
+    ``inputs_on_device`` puts the host values on the device.
+    """
+    steps_per_epoch = train_cfg.steps_per_epoch or static.num_frames
+    lr_sched = make_lr_schedule(train_cfg, steps_per_epoch)
+    frame, xs, ys = draw_train_pixels(step, static, train_cfg.num_rays, steps_per_epoch,
+                                      train_cfg.cropping_epochs, seed,
+                                      step_generator(seed, step, _BATCH_STREAM, device), device)
+    gen = step_generator(seed, step, _RENDER_STREAM, device)
+    rand = lambda *shape: torch.rand(shape, generator=gen, dtype=torch.float32,  # noqa: E731
+                                     device=device)
+    n, sc = train_cfg.num_rays, nerf_cfg.coarse_samples
+    if occupancy_cfg is not None:
+        coarse = (rand(n, 1), rand(n, sc) if occupancy_cfg.in_bin_jitter else None)
+    else:
+        coarse = rand(n, sc)
+    uniforms = {"coarse": coarse, "eps": rand(n, 1)}
+    if nerf_cfg.fine_sampling != "linterp":
+        uniforms["jitter"] = rand(n, nerf_cfg.fine_samples, 1)
+    warm = occupancy_cfg is not None and step < occupancy_cfg.warmup_steps
+    return {"frame": frame, "force_all": warm, "adam": adam_scalars(lr_sched(count), count + 1),
+            "lr": lr_sched(step), "xs": xs, "ys": ys, "uniforms": uniforms}
+
+
+def inputs_on_device(draws: List[Dict[str, Any]], device) -> List[Dict[str, Any]]:
+    """``draw_step_inputs`` of one or more steps with their host values on
+    ``device``, each kind in one host-to-device copy (from pinned memory,
+    not waited for, on a CUDA device): per step ``frame [1]`` int64,
+    ``force_all`` bool and ``adam [5]`` fp32, beside the draws' device
+    tensors and the ``lr`` metric."""
+    dev = torch.device(device)
+    host = (torch.tensor([d["frame"] for d in draws], dtype=torch.int64),
+            torch.tensor([bool(d["force_all"]) for d in draws]),
+            torch.stack([d["adam"] for d in draws]))
+    if dev.type == "cuda":
+        host = tuple(t.pin_memory().to(dev, non_blocking=True) for t in host)
+    frames, force, adam = host
+    return [dict(d, frame=frames[i:i + 1], force_all=force[i], adam=adam[i])
+            for i, d in enumerate(draws)]
+
+
+def _input_tensors(inp: Dict[str, Any]) -> List[torch.Tensor]:
+    """The device tensors of one step's inputs, in a fixed order."""
+    u = inp["uniforms"]
+    coarse = u["coarse"] if isinstance(u["coarse"], tuple) else (u["coarse"],)
+    return [t for t in (inp["frame"], inp["force_all"], inp["adam"], inp["xs"], inp["ys"],
+                        *coarse, u["eps"], u.get("jitter")) if t is not None]
+
+
+def _clone_inputs(inp: Dict[str, Any]) -> Dict[str, Any]:
+    """One step's inputs with every device tensor copied (the static inputs
+    of a captured step)."""
+    c = lambda t: None if t is None else t.clone()  # noqa: E731
+    u = inp["uniforms"]
+    coarse = tuple(map(c, u["coarse"])) if isinstance(u["coarse"], tuple) else c(u["coarse"])
+    return dict(inp, frame=c(inp["frame"]), force_all=c(inp["force_all"]),
+                adam=c(inp["adam"]), xs=c(inp["xs"]), ys=c(inp["ys"]),
+                uniforms={k: coarse if k == "coarse" else c(v) for k, v in u.items()})
+
+
+def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
+                render_fn, device, mlp_apply, occupancy_cfg):
+    """The ONE implementation of a train step (JAX ``_build_step_runner``):
+    ``(draw, update_grid, body)``, which ``make_train_step`` and
+    ``make_multi_step`` both drive, so the eager and the replayed step
+    cannot drift apart.
+
+    ``draw(step, count, seed)`` is ``draw_step_inputs``;
+    ``update_grid(params, grid, step, seed)`` the occupancy update of the
+    step (nothing without occupancy); ``body(params, opt_state, grid,
+    images, poses, inp) -> (params, opt_state, metrics)`` the rest of the
+    step on ``inputs_on_device`` inputs, reading no host value: it packs the
+    grid (occupancy), gathers the batch, renders, takes the gradients and
+    applies Adam in place.
+    """
+    from minimal_nerf_torch import resolve_device
+    from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
+    from minimal_nerf_torch.models.nerf import render_rays
+
+    dev = resolve_device(device)
+    render = render_fn or (render_rays if mlp_apply is not None else make_fused_render_fn())
+
+    def draw(step: int, count: int, seed: int):
+        return draw_step_inputs(nerf_cfg, train_cfg, static, step, count, seed, dev,
+                                occupancy_cfg)
+
+    def update_grid(params, grid, step: int, seed: int):
+        if occupancy_cfg is not None:
+            update_step_grid(occupancy_cfg, nerf_cfg, train_cfg.compute_dtype, params, grid,
+                             step, seed)
+
+    def body(params, opt_state, grid, images, poses, inp):
+        sampler = occ_fraction = None
+        if occupancy_cfg is not None:
+            words, occ_fraction = pack_step_grid(occupancy_cfg, grid, inp["force_all"])
+            sampler = occ.make_occupancy_sampler(words, occupancy_cfg)
+        batch = ray_batch_from_arrays(inp["frame"], train_cfg.num_rays, static.height,
+                                      static.width, static.focal, images, poses,
+                                      coords=(inp["xs"], inp["ys"]))
+        metrics, grads = loss_and_grads(params, nerf_cfg, batch, train_cfg.compute_dtype,
+                                        render, uniforms=inp["uniforms"], mlp_apply=mlp_apply,
+                                        coarse_sampler=sampler)
+        opt_state = adam_apply(params, grads, opt_state, inp["adam"])
+        metrics = dict(finalize_metrics(metrics, grads), lr=inp["lr"])
+        if occ_fraction is not None:
+            metrics["occ_fraction"] = occ_fraction
+        return params, opt_state, metrics
+
+    return draw, update_grid, body
 
 
 def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
                     render_fn=None, device="cuda", mlp_apply=None,
                     occupancy_cfg=None) -> Callable:
     """The train step ``step_fn(params, opt_state, images, poses, step, seed)
-    -> (params, opt_state, metrics)``.
+    -> (params, opt_state, metrics)``: ``draw_step_inputs``, then the body
+    of ``_build_step``.
 
     ``render_fn`` and ``mlp_apply`` are the render hooks (``kernel_hooks``).
     With neither, the fused kernels' hierarchical render with its packing
@@ -280,41 +465,145 @@ def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
 
     With ``occupancy_cfg`` (``ops.occupancy.OccupancyConfig``) the step is
     ``step_fn(params, opt_state, grid, images, poses, step, seed) ->
-    (params, opt_state, grid, metrics)``: ``occupancy_step_context`` updates
-    the ``[G, G, G]`` grid in place and packs it, the coarse samples follow
-    the packed grid, and the metrics gain ``occ_fraction``.
+    (params, opt_state, grid, metrics)``: ``update_step_grid`` updates the
+    ``[G, G, G]`` grid in place, the body packs it, the coarse samples
+    follow the packed grid, and the metrics gain ``occ_fraction``.
     """
-    from minimal_nerf_torch import resolve_device
-    from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
-    from minimal_nerf_torch.models.nerf import render_rays
+    draw, update_grid, body = _build_step(nerf_cfg, train_cfg, static, render_fn, device,
+                                          mlp_apply, occupancy_cfg)
 
-    dev = resolve_device(device)
-    steps_per_epoch = train_cfg.steps_per_epoch or static.num_frames
-    lr_sched = make_lr_schedule(train_cfg, steps_per_epoch)
-    render = render_fn or (render_rays if mlp_apply is not None else make_fused_render_fn())
-
-    def step_fn(params, opt_state, images, poses, step: int, seed: int, coarse_sampler=None):
-        batch = sample_train_batch(step, images, poses, static, train_cfg.num_rays,
-                                   steps_per_epoch, train_cfg.cropping_epochs, seed,
-                                   generator=step_generator(seed, step, _BATCH_STREAM, dev))
-        metrics, grads = loss_and_grads(
-            params, nerf_cfg, batch, train_cfg.compute_dtype, render,
-            generator=step_generator(seed, step, _RENDER_STREAM, dev), mlp_apply=mlp_apply,
-            coarse_sampler=coarse_sampler)
-        opt_state = adam_update(params, grads, opt_state, lr_sched(opt_state["count"]))
-        return params, opt_state, dict(finalize_metrics(metrics, grads), lr=lr_sched(step))
+    def run(params, opt_state, grid, images, poses, step: int, seed: int):
+        inp = inputs_on_device([draw(step, opt_state["count"], seed)], images.device)[0]
+        update_grid(params, grid, step, seed)
+        return body(params, opt_state, grid, images, poses, inp)
 
     if occupancy_cfg is None:
+        def step_fn(params, opt_state, images, poses, step: int, seed: int):
+            return run(params, opt_state, None, images, poses, step, seed)
+
         return step_fn
 
     def occ_step_fn(params, opt_state, grid, images, poses, step: int, seed: int):
-        words, occ_fraction = occupancy_step_context(
-            occupancy_cfg, nerf_cfg, train_cfg.compute_dtype, params, grid, step, seed)
-        params, opt_state, metrics = step_fn(params, opt_state, images, poses, step, seed,
-                                             occ.make_occupancy_sampler(words, occupancy_cfg))
-        return params, opt_state, grid, dict(metrics, occ_fraction=occ_fraction)
+        params, opt_state, metrics = run(params, opt_state, grid, images, poses, step, seed)
+        return params, opt_state, grid, metrics
 
     return occ_step_fn
+
+
+class _StepGraph:
+    """One train step's body captured as a CUDA graph and replayed once per
+    step (``make_multi_step`` on a CUDA device).
+
+    The graph reads its inputs from static tensors, refilled by
+    device-to-device copies before each replay, and updates in place the
+    parameters, moments and grid it was captured with; a call with other
+    state tensors (by address) captures again. Before a capture the call's
+    first step runs eagerly, so that every kernel is built and launched once
+    and every lazy initialisation is done outside the captured region: the
+    warm-up is a step of the trajectory, not an extra one. The render hooks
+    pack the weights inside the capture (they skip their caches while the
+    stream captures), so each replay packs the weights it trains. A failed
+    capture or replay raises.
+
+    One step per graph, replayed N times, rather than N steps in one graph:
+    one graph serves a call at any start step, the occupancy update runs
+    eagerly between replays at any phase of its period, and the capture's
+    time and the graph's memory pool are one step's.
+    """
+
+    def __init__(self, update_grid, body):
+        self.update_grid, self.body = update_grid, body
+        self.graph = self.key = self.inputs = self.metrics = None
+
+    def _capture(self, key, params, opt_state, grid, images, poses, inp):
+        self.graph = self.inputs = self.metrics = self.key = None  # release the old pool
+        inputs = _clone_inputs(inp)
+        graph = torch.cuda.CUDAGraph()
+        # anomaly mode's checks read values on the host, which a capture forbids
+        with torch.autograd.set_detect_anomaly(False), torch.cuda.graph(graph):
+            _, _, metrics = self.body(params, opt_state, grid, images, poses, inputs)
+        self.graph, self.key, self.inputs, self.metrics = graph, key, inputs, metrics
+
+    def run(self, params, opt_state, grid, images, poses, steps, inputs, seed):
+        """Steps ``steps`` on their ``inputs_on_device`` inputs; returns the
+        last step's metrics (copies, which later replays leave alone)."""
+        key = tuple(t.data_ptr() for t in flatten_tree(
+            [params, opt_state["mu"], opt_state["nu"]]) + [grid, images, poses]
+            if t is not None)
+        first, metrics = 0, None
+        if key != self.key:
+            self.update_grid(params, grid, steps[0], seed)
+            _, _, metrics = self.body(params, opt_state, grid, images, poses, inputs[0])
+            self._capture(key, params, opt_state, grid, images, poses, inputs[0])
+            first = 1
+        for step, inp in zip(steps[first:], inputs[first:]):
+            self.update_grid(params, grid, step, seed)
+            for dst, src in zip(_input_tensors(self.inputs), _input_tensors(inp)):
+                dst.copy_(src)
+            self.graph.replay()
+        if first < len(steps):
+            metrics = {k: v.clone() for k, v in self.metrics.items()}
+            # the replays changed the parameters in place behind autograd's
+            # back: advance their versions, which the render hooks' packing
+            # caches key on
+            for leaf in flatten_tree(params):
+                torch.autograd.graph.increment_version(leaf)
+        return metrics
+
+
+def make_multi_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
+                    num_inner: int, render_fn=None, device="cuda", mlp_apply=None,
+                    occupancy_cfg=None) -> Callable:
+    """``num_inner`` train steps in one call (JAX ``make_multi_step``), the
+    same steps as ``make_train_step`` called ``num_inner`` times, bit for
+    bit.
+
+    ``multi_fn(params, opt_state, images, poses, start_step, seed,
+    inputs=None) -> (params, opt_state, last_metrics)``; with
+    ``occupancy_cfg`` ``multi_fn(params, opt_state, grid, images, poses,
+    start_step, seed, inputs=None) -> (params, opt_state, grid,
+    last_metrics)``. ``last_metrics`` are the last step's, ``lr`` included.
+    The call first draws every step's inputs (``draw_step_inputs``, or takes
+    ``inputs``, one per step), puts them on the device, then runs the body of
+    ``_build_step`` once per step, each occupancy update before its step: on
+    a CUDA device as replays of one captured CUDA graph (``_StepGraph``), on
+    the CPU eagerly. State is updated in place, as by ``make_train_step``.
+    """
+    draw, update_grid, body = _build_step(nerf_cfg, train_cfg, static, render_fn, device,
+                                          mlp_apply, occupancy_cfg)
+    graph = _StepGraph(update_grid, body)
+
+    def run(params, opt_state, grid, images, poses, start_step: int, seed: int, inputs):
+        steps = list(range(start_step, start_step + num_inner))
+        count = opt_state["count"]
+        if inputs is None:
+            inputs = [draw(step, count + i, seed) for i, step in enumerate(steps)]
+        if len(inputs) != num_inner:
+            raise ValueError(f"{len(inputs)} steps' inputs for a call of {num_inner} steps")
+        inputs = inputs_on_device(inputs, images.device)
+        if images.device.type == "cuda":
+            metrics = graph.run(params, opt_state, grid, images, poses, steps, inputs, seed)
+        else:
+            for step, inp in zip(steps, inputs):
+                update_grid(params, grid, step, seed)
+                params, opt_state, metrics = body(params, opt_state, grid, images, poses, inp)
+        return (params, dict(opt_state, count=count + num_inner),
+                dict(metrics, lr=inputs[-1]["lr"]))
+
+    if occupancy_cfg is None:
+        def multi_fn(params, opt_state, images, poses, start_step: int, seed: int,
+                     inputs=None):
+            return run(params, opt_state, None, images, poses, start_step, seed, inputs)
+
+        return multi_fn
+
+    def occ_multi_fn(params, opt_state, grid, images, poses, start_step: int, seed: int,
+                     inputs=None):
+        params, opt_state, metrics = run(params, opt_state, grid, images, poses, start_step,
+                                         seed, inputs)
+        return params, opt_state, grid, metrics
+
+    return occ_multi_fn
 
 
 def make_eval_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, mlp_apply=None,

@@ -5,6 +5,11 @@ Counterpart of ``minimal_nerf_tpu/training/trainer.py`` for ``mode="full"``
 on one device: a plain loop around ``training/loop.py``'s train step, with
 the reference's semantics:
 
+- ``steps_per_call`` steps in one call (``loop.make_multi_step``: on a card
+  the replays of one captured CUDA graph of the step) whenever the next
+  boundary is at least that far, single steps otherwise; the same steps as
+  one per call, bit for bit;
+
 - one epoch = one shuffled pass over the train frames, the center-crop
   warmup for the first ``cropping_epochs`` epochs;
 - a ``metrics.csv`` row every ``log_every`` steps (the step's metrics
@@ -125,10 +130,11 @@ class Trainer:
         self.mlp_apply, self.render_fn = mlp_apply, render_fn
         self.step_fn = loop.make_train_step(nerf_config, train_config, self.static, render_fn,
                                             self.device, mlp_apply, self._occ_cfg)
+        self.multi_fn = None
         if train_config.steps_per_call > 1:
-            print(f"[trainer] steps_per_call={train_config.steps_per_call}: the port runs one "
-                  "step per call (several steps per dispatch is ROADMAP Queue 1 item 4)",
-                  file=sys.stderr)
+            self.multi_fn = loop.make_multi_step(
+                nerf_config, train_config, self.static, train_config.steps_per_call, render_fn,
+                self.device, mlp_apply, self._occ_cfg)
         self._grid = None
         self._batched_eval = None
         self._val_render_chunk = None
@@ -179,7 +185,13 @@ class Trainer:
 
     def fit(self):
         """Train to ``max_steps``; returns the final params and leaves
-        ``final_state = (params, opt_state, grid, max_steps)``."""
+        ``final_state = (params, opt_state, grid, max_steps)``. Between two
+        boundaries the steps run ``steps_per_call`` to a call while at least
+        that many remain (a CSV row then reports the call's last step), one
+        to a call otherwise; the state tensors are updated in place (those a
+        captured step graph updates), so the saves read the live state. With
+        ``--debug-nans`` the loss is checked once per call, on its last
+        step."""
         cfg = self.train_config
         params, opt_state, step = self.init_state()
         grid = self._grid
@@ -193,18 +205,21 @@ class Trainer:
             {**self.nerf_config.to_dict(), **cfg.to_dict(), "name": self.name})
         timer = profiling.StepTimer(cfg.num_rays)
         t_fit_start = time.perf_counter()
+        spc = cfg.steps_per_call
         while step < cfg.max_steps:
             boundary = self._next_boundary(step)
             while step < boundary:
-                timer.tick()
+                n = spc if self.multi_fn is not None and boundary - step >= spc else 1
+                fn = self.multi_fn if n > 1 else self.step_fn
+                timer.tick(n)
                 if grid is not None:
-                    params, opt_state, grid, metrics = self.step_fn(
+                    params, opt_state, grid, metrics = fn(
                         params, opt_state, grid, images, poses, step, cfg.seed)
                 else:
-                    params, opt_state, metrics = self.step_fn(
-                        params, opt_state, images, poses, step, cfg.seed)
-                profiling.check_finite("train_loss", metrics["train_loss"], step)
-                step += 1
+                    params, opt_state, metrics = fn(params, opt_state, images, poses, step,
+                                                    cfg.seed)
+                step += n
+                profiling.check_finite("train_loss", metrics["train_loss"], step - 1)
 
             if step % cfg.log_every == 0 or step == cfg.max_steps:
                 fetched = fetch_scalars(metrics)

@@ -705,3 +705,167 @@ def test_sampler_kernel_rejects_bad_inputs(cuda_device):
         with pytest.raises(ValueError):
             osk.sample(a["words"], a["o"], a["d"], a["eps"], a["frac"], a["consts"], a["s"])
     assert osk.launches == 0
+
+
+# ------------------------------------------------- several steps per call
+
+# one call's steps in the card's multi-step tests: a capture (after one
+# eager warm-up step) and replays in the first call, replays only in the next
+MULTI_STEPS = 4
+# the cases of the multi-step tests: (NeRFConfig, TrainConfig) keywords. The
+# crop ends at step 3 (one cropping epoch of 3 frames); under occupancy the
+# grid is updated every 3 steps, between replays, and the warmup ends at 5
+MULTI_CASES = {"fused": ({}, {}), "pallas": ({}, dict(kernel="pallas")),
+               "xla": ({}, dict(kernel="xla")),
+               "fast": (dict(coarse_samples=16, fine_samples=48),
+                        dict(occupancy=True, occ_update_every=3, occ_warmup_steps=5))}
+
+
+def _multi_setup(dev, case):
+    """A 3-frame 64x64 procedural scene made on the card; full widths, bf16,
+    1024 rays; the seeded init with density bias +0.5; the case's hooks."""
+    from minimal_nerf_torch.data.procedural import make_procedural_scene
+    from minimal_nerf_torch.models.nerf import NeRFConfig, init_nerf_network
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    nerf_kw, train_kw = MULTI_CASES[case]
+    cfg = NeRFConfig(**nerf_kw)
+    tcfg = TrainConfig(num_rays=1024, cropping_epochs=1, **train_kw)
+    scene = make_procedural_scene((("train", 3),), height=64, width=64, gt_samples=64,
+                                  scene="object", device=dev)[0]["train"]
+
+    def state():
+        params = init_nerf_network(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        for mlp in params.values():
+            mlp["density"]["b"] += 0.5
+        occ_cfg = tcfg.occupancy_config
+        return [params, loop.adam_init(params),
+                occ.init_grid(occ_cfg, dev) if occ_cfg is not None else None]
+
+    return cfg, tcfg, scene, state, loop.kernel_hooks(tcfg.kernel, dev)
+
+
+def _call(fn, st, scene, step):
+    """One call of a step function on ``st = [params, opt_state, grid]`` (in
+    place); returns its metrics."""
+    params, opt_state, grid = st
+    if grid is None:
+        st[0], st[1], metrics = fn(params, opt_state, scene.images, scene.poses, step, 0)
+    else:
+        st[0], st[1], st[2], metrics = fn(params, opt_state, grid, scene.images, scene.poses,
+                                          step, 0)
+    return metrics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(MULTI_CASES))
+def test_multi_step_replays_equal_eager_steps(cuda_device, case):
+    """Two calls of ``make_multi_step`` (the first: one eager step, the
+    capture, replays; the second: replays only, with the device's syncs made
+    errors) against as many eager steps: parameters, Adam moments, grid and
+    the last metrics bit for bit. Between the calls a validation through the
+    same render hooks packs the weights eagerly; after the replays it must
+    see the replayed weights (the hooks' caches key on the versions the
+    replays advance), as a fresh hook does."""
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.checkpoint import flatten_tree
+
+    cfg, tcfg, scene, state, (mlp_apply, render_fn) = _multi_setup(cuda_device, case)
+    static, occ_cfg = loop.scene_static(scene), tcfg.occupancy_config
+    step_fn = loop.make_train_step(cfg, tcfg, static, render_fn, cuda_device, mlp_apply,
+                                   occ_cfg)
+    eager = state()
+    for step in range(2 * MULTI_STEPS):
+        eager_metrics = _call(step_fn, eager, scene, step)
+
+    multi_fn = loop.make_multi_step(cfg, tcfg, static, MULTI_STEPS, render_fn, cuda_device,
+                                    mlp_apply, occ_cfg)
+    eval_fn = loop.make_eval_step(cfg, tcfg, mlp_apply, render_fn, occ_cfg)
+    batch = loop.sample_train_batch(0, scene.images, scene.poses, static, 256, 3, 0, 0,
+                                    generator=torch.Generator(device=cuda_device).manual_seed(5))
+    u = torch.Generator(device=cuda_device).manual_seed(6)
+    rand = lambda *s: torch.rand(s, generator=u, device=cuda_device)  # noqa: E731
+    uniforms = {"coarse": (rand(256, 1), rand(256, cfg.coarse_samples)) if occ_cfg
+                else rand(256, cfg.coarse_samples), "eps": rand(256, 1),
+                "jitter": rand(256, cfg.fine_samples, 1)}
+    words = occ.pack_occupancy(eager[2], occ_cfg) if occ_cfg else None
+    evaluate = lambda fn, params: fn(params, batch["origin"], batch["direc"],  # noqa: E731
+                                     batch["rgb"], occ_words=words, uniforms=uniforms)
+
+    multi = state()
+    _call(multi_fn, multi, scene, 0)
+    evaluate(eval_fn, multi[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        multi_metrics = _call(multi_fn, multi, scene, MULTI_STEPS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    assert multi[1]["count"] == eager[1]["count"] == 2 * MULTI_STEPS
+    for a, b in zip(flatten_tree([eager[0], eager[1]["mu"], eager[1]["nu"], eager[2]]),
+                    flatten_tree([multi[0], multi[1]["mu"], multi[1]["nu"], multi[2]])):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert eager_metrics.keys() == multi_metrics.keys()
+    for k in eager_metrics:
+        assert torch.equal(eager_metrics[k].cpu(), multi_metrics[k].cpu()), k
+    fresh = loop.make_eval_step(cfg, tcfg, *loop.kernel_hooks(tcfg.kernel, cuda_device),
+                                occ_cfg)
+    again, want = evaluate(eval_fn, multi[0]), evaluate(fresh, multi[0])
+    assert all(torch.equal(again[k], want[k]) for k in want)
+
+
+@pytest.mark.cuda
+def test_adam_apply_on_the_card_equals_the_update_on_python_floats(cuda_device):
+    """The Adam update on device scalars equals, bit for bit, the one with
+    the LR and bias corrections as Python floats (which torch applies to a
+    CUDA tensor as products with their fp32 reciprocals)."""
+    from minimal_nerf_torch.training import loop
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    shapes = [(256, 256), (63,), (3, 128)]
+    params = [torch.randn(s, generator=g, device=cuda_device) for s in shapes]
+    ref = [p.clone() for p in params]
+    state = loop.adam_init(params)
+    mu, nu = [torch.zeros_like(p) for p in ref], [torch.zeros_like(p) for p in ref]
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    for count in range(1, 6):
+        grads = [torch.randn(s, generator=g, device=cuda_device) * 1e-3 for s in shapes]
+        lr = f32(5e-4) * f32(0.9) ** count
+        state = loop.adam_update(params, grads, state, lr)
+        bc1, bc2 = float(1 - f32(0.9) ** count), float(1 - f32(0.999) ** count)
+        for p, gr, m, v in zip(ref, grads, mu, nu):
+            m.copy_(0.1 * gr + 0.9 * m)
+            v.copy_((1 - 0.999) * (gr * gr) + 0.999 * v)
+            p.add_(-float(lr) * ((m / bc1) / (torch.sqrt(v / bc2) + 1e-8)))
+        for a, b in zip(params, ref):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("context", ["--profile", "--debug-nans"])
+def test_multi_step_under_the_train_cli_contexts(cuda_device, context, tmp_path):
+    """A call of ``make_multi_step``, its capture included, inside the
+    context ``train.py`` enters for ``--profile`` (a ``torch.profiler``
+    trace) or ``--debug-nans`` (autograd's anomaly mode, which the capture
+    turns off) gives the state of the same call outside it, bit for bit."""
+    from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.checkpoint import flatten_tree
+    from minimal_nerf_torch.utils import profiling
+
+    cfg, tcfg, scene, state, _ = _multi_setup(cuda_device, "fused")
+    static = loop.scene_static(scene)
+    make = lambda: loop.make_multi_step(cfg, tcfg, static, MULTI_STEPS,  # noqa: E731
+                                        render_fn=make_fused_render_fn(), device=cuda_device)
+    plain = state()
+    _call(make(), plain, scene, 0)
+    inside = state()
+    with (profiling.trace(tmp_path) if context == "--profile" else profiling.debug_mode()):
+        _call(make(), inside, scene, 0)
+    for a, b in zip(flatten_tree([plain[0], plain[1]["mu"], plain[1]["nu"]]),
+                    flatten_tree([inside[0], inside[1]["mu"], inside[1]["nu"]])):
+        assert torch.equal(a, b)
+    if context == "--profile":
+        assert len(list(tmp_path.glob("trace-*.json"))) == 1

@@ -285,8 +285,8 @@ def test_occupancy_train_step_matches_jax(case):
     tp = t_mlp.params_from_jax(jp, "cpu")
     grid = T(grid0)
     jitter = T(jax.random.uniform(jax.random.fold_in(step_key, 0x0CC), (g ** 3, 3)))
-    words, frac = t_loop.occupancy_step_context(t_occ_cfg, tcfg, None, tp, grid, step, 0,
-                                                jitter=jitter)
+    t_loop.update_step_grid(t_occ_cfg, tcfg, None, tp, grid, step, 0, jitter=jitter)
+    words, frac = t_loop.pack_step_grid(t_occ_cfg, grid, step < t_occ_cfg.warmup_steps)
     j_grid = np.asarray(j_grid)
     assert np.abs(grid.numpy() - j_grid).max() <= 1e-5 * j_grid.max()
     np.testing.assert_array_equal(words.numpy().view(np.uint32), np.asarray(j_words))
