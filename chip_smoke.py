@@ -85,6 +85,7 @@ Exits non-zero without a card or when any phase fails.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -1240,6 +1241,8 @@ def phase_render_cli(dev, ckpt: Path, tmp: Path):
 
 
 TRAIN_FRAMES, TRAIN_STEPS = 20, 100
+# train single's default samples per ray (train_nerf.py single -c)
+SINGLE_SAMPLES = 128
 VAL_FRAMES, TEST_FRAMES = 2, 4
 # metrics.csv's columns, in order, of the JAX Trainer's run through the fused
 # kernels with a validation, uniform and with occupancy (the card has no JAX:
@@ -1761,12 +1764,13 @@ def train_uniforms(n: int, cfg, gen, dev, occupancy: bool = False):
 
 
 def hold_step(tag: str, dev, cfg, tcfg, kernel: str, params, batch, uniforms, want,
-              coarse_sampler=None, note: str = ""):
+              coarse_sampler=None, note: str = "", mode: str = "full"):
     """One train step (loss and gradients through ``kernel``'s render hooks,
     then Adam) on the card against the same step on the CPU (plain
     versions), from copies of ``params`` on shared batch and draws.
     ``coarse_sampler(device)`` gives each side's coarse sampler; ``want`` is
-    the card's launch counts (the CPU's must be none)."""
+    the card's launch counts (the CPU's must be none); ``mode="single"``
+    holds the coarse-only step of one MLP."""
     from minimal_nerf_torch.models.mlp import map_params
     from minimal_nerf_torch.training import loop
     from minimal_nerf_torch.training.checkpoint import flatten_tree
@@ -1777,12 +1781,12 @@ def hold_step(tag: str, dev, cfg, tcfg, kernel: str, params, batch, uniforms, wa
     for device, p, b, u in (
             (dev, map_params(lambda t: t.detach().clone(), params), batch, uniforms),
             ("cpu", to_cpu(params), to_cpu(batch), to_cpu(uniforms))):
-        mlp_apply, render_fn = loop.kernel_hooks(kernel, device)
+        mlp_apply, render_fn = loop.kernel_hooks(kernel, device, mode)
         with uncounted():
             before = counts()
             metrics, grads = loop.loss_and_grads(
                 p, cfg, b, tcfg.compute_dtype, render_fn, uniforms=u, mlp_apply=mlp_apply,
-                coarse_sampler=coarse_sampler(device) if coarse_sampler else None)
+                coarse_sampler=coarse_sampler(device) if coarse_sampler else None, mode=mode)
             ran.append(tuple(a - c for a, c in zip(counts(), before)))
         loop.adam_update(p, grads, loop.adam_init(p), lr)
         results.append((metrics["train_loss"].item(), flatten_tree(to_cpu(grads)),
@@ -1860,6 +1864,9 @@ def phase_train_pallas(dev, tmp: Path, scene, bias: float):
     reset_counts()
     losses, times, metrics = [], [], {}
     for step in range(TRAIN_STEPS):
+        if step == TRAIN_STEPS - 1:
+            with uncounted():
+                before_last = cloned(params)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, state, metrics = step_fn(params, state, scene.images, scene.poses, step, 0)
@@ -1883,6 +1890,7 @@ def phase_train_pallas(dev, tmp: Path, scene, bias: float):
           flush=True)
     if not ok:
         raise AssertionError("pallas training did not run through the point kernels as expected")
+    path_gradient_gate(dev, scene, cfg, init_train_params(dev, cfg, bias), params, before_last)
     ckpt = save_checkpoint(tmp / checkpoint_name("pallas", TRAIN_STEPS // TRAIN_FRAMES,
                                                  TRAIN_STEPS),
                            params, TRAIN_STEPS, cfg.to_dict(), tcfg.to_dict())
@@ -1904,6 +1912,34 @@ def phase_train_pallas(dev, tmp: Path, scene, bias: float):
         raise AssertionError("render from the pallas-trained checkpoint failed")
     return dict(ms=ms, ms_frame=ms_frame, counts=counts, frame_launches=renders,
                 ckpt=ckpt), step_fn, params, state
+
+
+def path_gradient_gate(dev, scene, cfg, init, trained, stale):
+    """``[train-pallas]``'s gate (ROADMAP Queue 3 fault 2): the fused and the
+    pallas path's bf16 gradients at the seeded init (step 0's batch and
+    draws) and at the pallas path's step-100 parameters (step 100's), every
+    leaf's relative L2 gap within ``PATH_GRAD_TOL``; and the pallas path's
+    gradients at its step-99 parameters (weights packed one step late)
+    must fail that bound against the fused path's at step 100."""
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    tcfg = TrainConfig()
+    names = leaf_names(init)
+    at0, _ = grad_gaps(dev, scene, cfg, tcfg, init, 0, 0)
+    at100, _ = grad_gaps(dev, scene, cfg, tcfg, trained, TRAIN_STEPS, 0)
+    g_f, _ = step_grads(dev, scene, cfg, tcfg, "fused", trained, TRAIN_STEPS, 0)
+    g_s, _ = step_grads(dev, scene, cfg, tcfg, "pallas", stale, TRAIN_STEPS, 0)
+    late = max(torch.stack([torch.linalg.norm(a - b) / torch.linalg.norm(a)
+                            for a, b in zip(g_f, g_s)]).tolist())
+    ok = max(at0 + at100) <= PATH_GRAD_TOL < late
+    print(f"[train-pallas] gradients of both paths at shared parameters, bf16, "
+          f"|g_fused - g_pallas| / |g_fused| per leaf (bound {PATH_GRAD_TOL}): at the seeded "
+          f"init {gap_summary(names, at0)}; at the pallas path's step {TRAIN_STEPS} "
+          f"{gap_summary(names, at100)}; the pallas gradients at step {TRAIN_STEPS - 1}'s "
+          f"weights (packed one step late) against the fused ones: worst leaf {late:.3e}, "
+          f"beyond the bound: {late > PATH_GRAD_TOL} {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the fused and pallas paths' gradients part at shared parameters")
 
 
 def phase_pallas_reference(dev, scene, bias: float):
@@ -1939,6 +1975,228 @@ def phase_pallas_reference(dev, scene, bias: float):
     if not ok:
         raise AssertionError("pallas render on the card disagrees with the CPU reference")
     phase_train_reference(dev, scene, bias, kernel="pallas")
+
+
+def phase_single_reference(dev, scene, bias: float):
+    """``mode="single"`` under ``--kernel pallas`` on the card against the
+    CPU: a 256-ray ``render_single`` at 128 samples (shared weights and
+    draws; the bounds of ``[pallas-reference]``), then one 256-ray single
+    step (``hold_step``: loss, gradients, Adam)."""
+    from minimal_nerf_torch.kernels import raymarch as rm
+    from minimal_nerf_torch.models.mlp import map_params
+    from minimal_nerf_torch.models.nerf import NeRFConfig, render_single
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    cfg, tcfg, n = NeRFConfig(coarse_samples=SINGLE_SAMPLES), TrainConfig(kernel="pallas"), 256
+    params = init_train_params(dev, cfg, bias)["coarse"]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    o, d, _ = sample_rays(n, 1, gen, dev)
+    uniforms = {"coarse": torch.rand((n, SINGLE_SAMPLES), generator=gen, device=dev)}
+    to_cpu = lambda tree: map_params(lambda t: t.detach().cpu(), tree)  # noqa: E731
+    with torch.no_grad(), uncounted():
+        before = counts()
+        card = render_single(params, cfg, o, d, compute_dtype=torch.bfloat16,
+                             mlp_apply=rm.make_mlp_kernel_apply(), uniforms=uniforms)
+        ran = tuple(a - c for a, c in zip(counts(), before))
+        ref = render_single(to_cpu(params), cfg, o.cpu(), d.cpu(), compute_dtype=torch.bfloat16,
+                            mlp_apply=rm.make_mlp_kernel_apply(), uniforms=to_cpu(uniforms))
+    diff = (card["pred_rgbs"].cpu() - ref["pred_rgbs"]).abs()
+    spread = ref["pred_rgbs"].std().item()
+    ok = (ran == (0, 0, 1, 0, 0, 0) and bool(torch.isfinite(card["pred_rgbs"]).all())
+          and diff.max().item() <= 1e-3)
+    print(f"[single-reference] render_single {n} rays x {SINGLE_SAMPLES} samples, bf16, card "
+          f"(point kernel) vs CPU (plain), shared weights and draws: card launches ({COUNTED}) "
+          f"{ran} (want (0, 0, 1, 0, 0, 0)); pred_rgbs max_abs={diff.max().item():.3e} "
+          f"mean_abs={diff.mean().item():.3e} (tol 1e-3; the CPU's std {spread:.3e}) "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("render_single on the card disagrees with the CPU reference")
+    batch = loop.sample_train_batch(0, scene.images, scene.poses, loop.scene_static(scene), n,
+                                    TRAIN_FRAMES, 0, 0, generator=gen)
+    batch = {k: batch[k] for k in ("origin", "direc", "rgb")}
+    hold_step("single-reference", dev, cfg, tcfg, "pallas", params, batch,
+              {"coarse": torch.rand((n, SINGLE_SAMPLES), generator=gen, device=dev)},
+              (0, 0, 1, 1, 0, 0), note=f", mode single at {SINGLE_SAMPLES} samples",
+              mode="single")
+
+
+def phase_single(dev, tmp: Path):
+    """``python -m minimal_nerf_torch.train single`` on the card, with
+    imageio and PIL hidden, on the tree ``[trainer]`` wrote: ``--kernel
+    pallas -c 128 -r 4096`` in bf16 for 200 steps (a validation, its val
+    view and a checkpoint at step 200, epoch 10), then ``-l auto -s 220``,
+    then 20 steps under ``--kernel auto`` (the plain MLP, as in JAX).
+    Gates: the point kernels' launches (forward = steps + val chunks,
+    backward = steps, fused none; none at all under auto), a falling loss,
+    a val loss below the seeded init's at the same draws, the resume from
+    the step-200 checkpoint to step 220. Prints ms/step from the CSV.
+    Returns the launch counts of the pallas run."""
+    from minimal_nerf_torch.data.synthetic import SyntheticScene
+    from minimal_nerf_torch.kernels import raymarch as rm
+    from minimal_nerf_torch.models.mlp import init_nerf_mlp
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.checkpoint import read_header
+    from minimal_nerf_torch.utils import imageio as mio
+
+    tree, root = tmp / "tree", tmp / "runs"
+    chunks = math.ceil(HW * HW / RAYS)
+    steps, val_step = 200, 10 * TRAIN_FRAMES
+    base = ["-rd", str(root), "--log-every", "20"]
+    cli = lambda *extra: (list(extra) + base + ["single", "-b", str(tree), "-c",  # noqa: E731
+                                                str(SINGLE_SAMPLES)])
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    with hidden_modules("imageio", "imageio.v2", "PIL", "PIL.Image"):
+        trainer, wall, launched = run_train_cli(cli("-n", "single", "-s", str(steps),
+                                                    "--kernel", "pallas"))
+        run = root / "single"
+        head, rows = read_csv(run / "metrics.csv")
+        train_rows = [r for r in rows if r["train_loss"]]
+        val_row = next(r for r in rows if r["val_loss"])
+        loss = [float(r["train_loss"]) for r in train_rows]
+        first, last = sum(loss[:3]) / 3, sum(loss[-3:]) / 3
+        ckpts = sorted(p.name for p in (run / "checkpoints").glob("*.ckpt"))
+        want_ckpts = [f"model=single-epoch={val_step // TRAIN_FRAMES}-step={val_step}.ckpt"]
+        header = read_header(run / "checkpoints" / want_ckpts[0]) if ckpts == want_ckpts else {}
+        views = list((run / "images").glob(f"recon-val*-{val_step}.png"))
+        view_shape = mio.imread(views[0]).shape if len(views) == 1 else None
+        # the seeded init's val loss at the validation's own draws
+        val = SyntheticScene.load(tree, "val", dev)
+        cfg, tcfg = trainer.nerf_config, trainer.train_config
+        init = init_nerf_mlp(torch.Generator(device=dev).manual_seed(tcfg.seed), device=dev)
+        with uncounted():
+            init_val = loop.make_batched_eval_step_single(
+                cfg, tcfg, loop.scene_static(val), rm.make_mlp_kernel_apply())(
+                init, val.images, val.poses, val_step, 0)["val_loss"].item()
+        val_loss = float(val_row["val_loss"])
+        want = (0, 0, steps + VAL_FRAMES + chunks, steps, 0, 0)
+        ok = (all(math.isfinite(x) for x in loss) and last < first and ckpts == want_ckpts
+              and header.get("extra") == {"mode": "single"} and header.get("num_leaves") == 62
+              and view_shape == (HW, HW, 3) and launched == want and val_loss < init_val
+              and int(val_row["step"]) == val_step and trainer.final_state[3] == steps
+              and trainer.train_config.kernel == "pallas"
+              and trainer.train_config.cropping_epochs == 0)
+        steady = [r for r in train_rows if 20 < int(r["step"]) <= val_step]
+        ms = 1e3 * med([float(r["train iteration speed"]) for r in steady])
+        print(f"[single] train.main -s {steps} --kernel pallas single -c {SINGLE_SAMPLES} "
+              f"(bf16, {RAYS} rays, 20 frames per epoch) in {wall:.1f} s: loss mean of the "
+              f"first 3 rows {first:.5f} > last 3 {last:.5f}: {last < first}; val_loss at step "
+              f"{val_step} {val_loss:.5f} < the seeded init's {init_val:.5f} at the same draws: "
+              f"{val_loss < init_val}; checkpoints {ckpts} (mode single, "
+              f"{header.get('num_leaves')} leaves); val view {[v.name for v in views]} "
+              f"decodes to {view_shape}; launches ({COUNTED}) {launched} (want {want}: point "
+              f"forward {steps} steps + {VAL_FRAMES} val frames + {chunks} view chunks, "
+              f"backward {steps}) {'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("train single is not as expected")
+        print(f"[single] {card_line()}: steady ms/step={ms:.2f} rays/s={RAYS / (ms / 1e3):.0f} "
+              f"(median of the CSV's {len(steady)} rows of 20 steps at steps 40-{val_step}); "
+              f"validation at step {val_step}: val_seconds={float(val_row['val_seconds']):.3f} "
+              f"ckpt_seconds={float(val_row['ckpt_seconds']):.4f}", flush=True)
+
+        resumed, wall, r_launched = run_train_cli(cli("-n", "single", "-s", str(steps + 20),
+                                                      "-l", "auto", "--kernel", "pallas"))
+        _, rows = read_csv(run / "metrics.csv")
+        want_r = (0, 0, 20, 20, 0, 0)
+        new_ckpt = run / "checkpoints" / (f"model=single-epoch={(steps + 20) // TRAIN_FRAMES}"
+                                          f"-step={steps + 20}.ckpt")
+        ok = (str(resumed.resume_ckpt).endswith(want_ckpts[-1]) and r_launched == want_r
+              and new_ckpt.is_file() and [r["step"] for r in rows][-2:] == [str(steps),
+                                                                            str(steps + 20)]
+              and resumed.final_state[3] == steps + 20)
+        print(f"[single] train.main -l auto -s {steps + 20} single: resumed from "
+              f"{Path(resumed.resume_ckpt).name}, {wall:.1f} s, launches {r_launched} (want "
+              f"{want_r}: 20 steps), wrote {new_ckpt.name}: {new_ckpt.is_file()}, CSV history "
+              f"kept ({len(rows)} rows) {'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("train single did not resume as expected")
+
+        auto, wall, a_launched = run_train_cli(cli("-n", "single-auto", "-s", "20", "--kernel",
+                                                   "auto"))
+        _, rows = read_csv(root / "single-auto" / "metrics.csv")
+        a_loss = [float(r["train_loss"]) for r in rows if r["train_loss"]]
+        ok = (a_launched == (0,) * 6 and auto.mlp_apply is None
+              and auto.train_config.kernel == "fused" and a_loss
+              and all(math.isfinite(x) for x in a_loss) and auto.final_state[3] == 20)
+        print(f"[single] train.main -s 20 --kernel auto single: resolved to "
+              f"{auto.train_config.kernel!r} = the plain MLP (as in JAX), {wall:.1f} s, loss at "
+              f"step 20 {a_loss[-1] if a_loss else None}; launches {a_launched} (want none) "
+              f"{'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("train single --kernel auto is not as expected")
+    return dict(launched=launched, ms=ms)
+
+
+def phase_simple(dev, tmp: Path):
+    """``python -m minimal_nerf_torch.train simple`` on the card, with
+    imageio and PIL hidden: ``-i`` an 800x800 train PNG of the ``[trainer]``
+    tree, ``-r 4096``, 300 steps (a CSV row every 100, the reconstruction at
+    the last). Gates: a falling loss, the reconstruction PNG, and its PSNR
+    against the photo above the seeded init's. Prints ms/step: the median
+    interval between two steps' calls (no sync between them but at the CSV
+    rows), and the run's wall over its steps."""
+    import numpy as np
+
+    from minimal_nerf_torch import views
+    from minimal_nerf_torch.models.image_nerf import image_nerf_apply, init_image_nerf
+    from minimal_nerf_torch.ops import image_metrics as im
+    from minimal_nerf_torch.utils import imageio as mio
+
+    from minimal_nerf_torch.training import simple
+
+    photo, root, steps = tmp / "tree" / "train" / "r_0.png", tmp / "runs", 300
+    recon_s, calls = [], []
+
+    def stamped(fn):
+        def run(*args, **kwargs):
+            calls.append(time.perf_counter())
+            return fn(*args, **kwargs)
+        return run
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            recon_s.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    with hidden_modules("imageio", "imageio.v2", "PIL", "PIL.Image"), \
+            wrapped(views, "photo_nerf_to_image", timed), wrapped(simple, "simple_step", stamped):
+        params, wall, launched = run_train_cli(["-n", "simple", "-s", str(steps), "-r", str(RAYS),
+                                                "-rd", str(root), "simple", "-i", str(photo)])
+        run = root / "simple"
+        _, rows = read_csv(run / "metrics.csv")
+        loss = [float(r["train_loss"]) for r in rows]
+        recons = sorted(p.name for p in (run / "images").glob("recon-*.png"))
+        gt = mio.imread(photo)
+        recon = mio.imread(run / "images" / f"recon-{steps}.png") if recons else None
+        init = init_image_nerf(torch.Generator(device=dev).manual_seed(0), 10, dev)
+        init_im = views.photo_nerf_to_image(lambda c: image_nerf_apply(init, c, 10), HW, HW,
+                                            device=dev)
+    init_psnr = im.peak_signal_noise_ratio(gt, (np.clip(init_im, 0, 1) * 255).astype(np.uint8))
+    psnr = im.peak_signal_noise_ratio(gt, recon) if recon is not None else float("nan")
+    wall_ms = 1e3 * (wall - recon_s[0]) / steps if recon_s else float("nan")
+    gaps = sorted(b - a for a, b in zip(calls[10:], calls[11:]))
+    ms = 1e3 * gaps[len(gaps) // 2] if gaps else float("nan")
+    ok = (len(calls) == steps and len(loss) == steps // 100 and all(math.isfinite(x) for x in loss)
+          and loss[-1] < loss[0] and recons == [f"recon-{steps}.png"]
+          and recon.shape == (HW, HW, 3) and psnr > init_psnr and launched == (0,) * 6)
+    print(f"[simple] train.main -s {steps} -r {RAYS} simple -i {photo.parent.name}/{photo.name} "
+          f"({HW}x{HW}, position_dim 10, 10-layer MLP, Adam 5e-4) in {wall:.1f} s: loss per "
+          f"row {[round(x, 5) for x in loss]} falls: {loss[-1] < loss[0]}; {recons} "
+          f"{None if recon is None else recon.shape}; its psnr against the photo {psnr:.4f} > "
+          f"the seeded init's {init_psnr:.4f}: {psnr > init_psnr}; kernel launches {launched} "
+          f"(want none: no TPU kernel computes this model) {'PASS' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("train simple is not as expected")
+    print(f"[simple] {card_line()}: steady ms/step={ms:.3f} (the median interval between two "
+          f"steps' calls from step 10), {RAYS / (ms / 1e3):.0f} pixels/s; train.main's wall "
+          f"less the reconstruction's {recon_s[0]:.3f} s over {steps} steps: {wall_ms:.3f} "
+          f"ms/step (the photo's decode and the init included)", flush=True)
+    return dict(ms=ms, psnr=psnr)
 
 
 OCC_WARMUP = 32  # the fast recipe's 256 warmup steps, cut so 100 steps leave the warmup
@@ -2580,6 +2838,291 @@ def occ_timing(dev, root: Path) -> int:
     return 0
 
 
+# --path-parity: the shared points of each path's own 100-step trajectory,
+# the draw seeds of the bf16 spread, and the fp32 trajectories' bound on a
+# leaf's gap between the paths as a share of its own change since the init
+PARITY_POINTS = (0, 25, 50, 100)
+PARITY_SEEDS = tuple(range(8))
+PARITY_EDGE = 1e-3
+PATHS = ("fused", "pallas")
+# [train-pallas]'s gate: every leaf's relative L2 gap between the fused and
+# the pallas path's bf16 gradients at the seeded init and at the pallas
+# path's step-100 parameters. H100 readings (--path-parity, 8 shared points
+# in bf16): worst leaf 2.0e-3, at steps 0 and 100 2.5e-4 and 8.5e-5
+PATH_GRAD_TOL = 1e-2
+
+
+def leaf_names(tree, prefix: str = ""):
+    """``coarse/trunk[0]/w``-style names of a params tree's leaves in
+    ``flatten_tree`` order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix.lstrip("/")]
+
+
+def cloned(params):
+    from minimal_nerf_torch.models.mlp import map_params
+
+    return map_params(lambda t: t.detach().clone(), params)
+
+
+def train_path(dev, scene, cfg, tcfg, kernel: str, init, seed: int, steps: int,
+               points=()):
+    """``steps`` eager train steps of ``make_train_step`` through ``kernel``'s
+    hooks (built once, as a run builds them) from a copy of ``init`` on the
+    draws of ``seed``, uncounted: ``(params, {step: params after it}, the
+    per-step losses)``."""
+    from minimal_nerf_torch.training import loop
+
+    mlp_apply, render_fn = loop.kernel_hooks(kernel, dev)
+    step_fn = loop.make_train_step(cfg, tcfg, loop.scene_static(scene), render_fn=render_fn,
+                                   device=dev, mlp_apply=mlp_apply)
+    params = cloned(init)
+    state, snaps, losses = loop.adam_init(params), {}, []
+    if 0 in points:
+        snaps[0] = cloned(params)
+    with uncounted():
+        for step in range(steps):
+            params, state, metrics = step_fn(params, state, scene.images, scene.poses, step,
+                                             seed)
+            losses.append(metrics["train_loss"])
+            if step + 1 in points:
+                snaps[step + 1] = cloned(params)
+    return params, snaps, torch.stack(losses).tolist()
+
+
+def step_grads(dev, scene, cfg, tcfg, kernel: str, params, step: int, seed: int):
+    """One train step's gradients (``flatten_tree`` order) and metrics
+    through ``kernel``'s hooks at a copy of ``params``, on the batch and
+    draws of step ``step`` of seed ``seed`` (``draw_step_inputs``), uncounted."""
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.checkpoint import flatten_tree
+
+    static = loop.scene_static(scene)
+    inp = loop.inputs_on_device([loop.draw_step_inputs(cfg, tcfg, static, step, step, seed,
+                                                       dev)], dev)[0]
+    batch = loop.ray_batch_from_arrays(inp["frame"], tcfg.num_rays, static.height, static.width,
+                                       static.focal, scene.images, scene.poses,
+                                       coords=(inp["xs"], inp["ys"]))
+    mlp_apply, render_fn = loop.kernel_hooks(kernel, dev)
+    with uncounted():
+        metrics, grads = loop.loss_and_grads(cloned(params), cfg, batch, tcfg.compute_dtype,
+                                             render_fn, uniforms=inp["uniforms"],
+                                             mlp_apply=mlp_apply)
+    return flatten_tree(grads), metrics
+
+
+def grad_gaps(dev, scene, cfg, tcfg, params, step: int, seed: int):
+    """The relative L2 gap ``|g_fused - g_pallas| / |g_fused|`` of every
+    leaf between the two paths' gradients at ``params`` on one step's batch
+    and draws, and the pallas path's density statistics there."""
+    g_f, _ = step_grads(dev, scene, cfg, tcfg, "fused", params, step, seed)
+    g_p, metrics = step_grads(dev, scene, cfg, tcfg, "pallas", params, step, seed)
+    gaps = torch.stack([torch.linalg.norm(a - b) / torch.linalg.norm(a)
+                        for a, b in zip(g_f, g_p)]).tolist()
+    stats = {k: float(v) for k, v in metrics.items() if k.endswith("_non_zeros")}
+    return gaps, stats
+
+
+def gap_summary(names, gaps) -> str:
+    """The worst leaf's gap beside the median of the others'."""
+    order = sorted(range(len(gaps)), key=lambda i: gaps[i])
+    worst = order[-1]
+    rest = [gaps[i] for i in order[:-1]]
+    return (f"worst {names[worst]} {gaps[worst]:.3e}, median of the others "
+            f"{rest[len(rest) // 2]:.3e}, max of the others {rest[-1]:.3e}")
+
+
+def scored_psnr(ckpt: Path, tree: Path, dev) -> float:
+    """``score.calculate_scores`` of ``ckpt`` on ``tree``'s test split (its
+    printout dropped): the mean PSNR."""
+    import io
+
+    from minimal_nerf_torch import score
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        psnr, _ = score.calculate_scores(str(ckpt), tree, RAYS, device=dev)
+    return psnr
+
+
+def lockstep(dev, scene, cfg, tcfg, runs, names):
+    """Two trajectories of ``TRAIN_STEPS`` eager steps on the draws of seed
+    0, ``runs = ((kernel, init), (kernel, init))``, side by side: after each
+    step every leaf's gap between them as a share of the first one's change
+    since its init, by the max element (max |gap| / max |change|) and by the
+    L2 norm (|gap| / |change|). Returns ``({"max": (step, leaf, share) of
+    the first step past PARITY_EDGE or None, "l2": likewise, "l2_at":
+    {step: largest L2 share} at PARITY_POINTS}, the final params)``."""
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.checkpoint import flatten_tree
+
+    fns, params, states = [], [], []
+    for kernel, init in runs:
+        mlp_apply, render_fn = loop.kernel_hooks(kernel, dev)
+        fns.append(loop.make_train_step(cfg, dataclasses.replace(tcfg, kernel=kernel),
+                                        loop.scene_static(scene), render_fn=render_fn,
+                                        device=dev, mlp_apply=mlp_apply))
+        params.append(cloned(init))
+        states.append(loop.adam_init(params[-1]))
+    leaves0 = flatten_tree(runs[0][1])
+    out = {"max": None, "l2": None, "l2_at": {}}
+    with uncounted():
+        for step in range(TRAIN_STEPS):
+            for i, fn in enumerate(fns):
+                params[i], states[i], _ = fn(params[i], states[i], scene.images, scene.poses,
+                                             step, 0)
+            pairs = list(zip(flatten_tree(params[0]), flatten_tree(params[1]), leaves0))
+            shares = {
+                "max": torch.stack([(a - b).abs().max() / (a - a0).abs().max().clamp_min(1e-30)
+                                    for a, b, a0 in pairs]).tolist(),
+                "l2": torch.stack([torch.linalg.norm(a - b) / torch.linalg.norm(
+                    a - a0).clamp_min(1e-30) for a, b, a0 in pairs]).tolist()}
+            for kind, v in shares.items():
+                worst = max(range(len(v)), key=v.__getitem__)
+                if out[kind] is None and v[worst] > PARITY_EDGE:
+                    out[kind] = (step, names[worst], v[worst])
+            if step + 1 in PARITY_POINTS:
+                out["l2_at"][step + 1] = max(shares["l2"])
+    return out, params
+
+
+def path_parity(dev, out_json=None) -> int:
+    """``python3 chip_smoke.py --path-parity [JSON]``: where the eager fused
+    and ``--kernel pallas`` train paths part, at 64+128, 4096 rays, on the
+    ``[train]`` scene from its seeded init.
+
+    1. Gradients at shared parameters: each path trains 100 bf16 steps on
+       the draws of seed 0 (as ``[train]`` and ``[train-pallas]`` do); at the
+       parameters after steps 0, 25, 50 and 100 of each trajectory, one
+       step's gradients through both paths on the same batch and draws, in
+       bf16 and in fp32 with TF32 off: the relative L2 gap of every leaf
+       (trunk 0-3, feature 0-2, density, rgb 0-1; w and b; coarse and fine).
+    2. Trajectories: both paths 100 steps in fp32 (TF32 off) from the same
+       init on the same draws; the first step at which a leaf's max |gap|
+       (or its L2 gap) exceeds ``PARITY_EDGE`` of its own change since the
+       init, and each final checkpoint's PSNR on the test split
+       (``score``); as a control the same for the fused path against itself
+       from the init moved by one ulp per weight, which shows how fast
+       rounding-level differences grow in this training by themselves.
+    3. The bf16 spread: each path 100 steps on the draws of each seed of
+       ``PARITY_SEEDS``, each checkpoint's PSNR: each path's range over the
+       first three seeds beside the seed-0 gap, and over all the seeds each
+       path's mean and standard deviation and the difference of the means
+       with its standard error.
+
+    Writes every leaf's gaps to ``JSON`` when given."""
+    from minimal_nerf_torch.data.procedural import save_scene_tree
+    from minimal_nerf_torch.models.mlp import map_params
+    from minimal_nerf_torch.models.nerf import NeRFConfig
+    from minimal_nerf_torch.training.checkpoint import checkpoint_name, save_checkpoint
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scenes = make_train_scene(dev)
+    scene = scenes["train"]
+    cfg, bf16, fp32 = NeRFConfig(), TrainConfig(), TrainConfig(precision="fp32")
+    bias = init_density_bias(dev, cfg, bf16, scene)
+    init = init_train_params(dev, cfg, bias)
+    names = leaf_names(init)
+    record = {"card": card_line(), "leaves": names, "gaps": {}, "psnr": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tree = save_scene_tree({"test": scenes["test"]}, tmp / "tree")
+
+        def psnr_of(label, params, tcfg, kernel):
+            path = save_checkpoint(tmp / checkpoint_name(label, 5, TRAIN_STEPS), params,
+                                   TRAIN_STEPS, cfg.to_dict(),
+                                   dataclasses.replace(tcfg, kernel=kernel).to_dict())
+            record["psnr"][label] = scored_psnr(path, tree, dev)
+            return record["psnr"][label]
+
+        init_psnr = psnr_of("init", init, bf16, "fused")
+        print(f"[path-parity] {card_line()}; seeded init (density bias {bias}) psnr "
+              f"{init_psnr!r} on the {TEST_FRAMES} test frames", flush=True)
+
+        # 1 and 3: the bf16 trajectories of every seed; seed 0's shared points
+        finals, spread = {}, {k: [] for k in PATHS}
+        for seed in PARITY_SEEDS:
+            for kernel in PATHS:
+                t0 = time.perf_counter()
+                params, snaps, losses = train_path(
+                    dev, scene, cfg, dataclasses.replace(bf16, kernel=kernel), kernel, init,
+                    seed, TRAIN_STEPS, PARITY_POINTS if seed == 0 else ())
+                psnr = psnr_of(f"{kernel}-s{seed}", params, bf16, kernel)
+                spread[kernel].append(psnr)
+                if seed == 0:
+                    finals[kernel] = snaps
+                print(f"[path-parity] bf16 {kernel} seed {seed}: {TRAIN_STEPS} steps in "
+                      f"{time.perf_counter() - t0:.1f} s, loss first {losses[0]:.5f} mean of "
+                      f"the last 10 {sum(losses[-10:]) / 10:.5f}; psnr {psnr!r}", flush=True)
+        ok = True
+        for owner in PATHS:
+            for point in PARITY_POINTS:
+                for label, tcfg in (("bf16", bf16), ("fp32", fp32)):
+                    gaps, stats = grad_gaps(dev, scene, cfg, tcfg, finals[owner][point],
+                                            point, 0)
+                    record["gaps"][f"{owner}@{point}/{label}"] = gaps
+                    finite = all(math.isfinite(g) for g in gaps)
+                    ok &= finite
+                    extra = (f"; fp32 leaves beyond 1e-4: "
+                             f"{[n for n, g in zip(names, gaps) if g > 1e-4]}"
+                             if label == "fp32" else "")
+                    print(f"[path-parity] gradients at {owner}'s step {point}, {label}: "
+                          f"|g_fused - g_pallas| / |g_fused| per leaf: "
+                          f"{gap_summary(names, gaps)}; pallas density non-zeros "
+                          f"{stats}{extra}", flush=True)
+
+        # 2: fp32 trajectories side by side; as a control, the fused path
+        # against itself from the init moved by one ulp per weight
+        t0 = time.perf_counter()
+        nudged = map_params(lambda t: torch.nextafter(t, torch.full_like(t, math.inf)), init)
+        pair, p_fp32 = lockstep(dev, scene, cfg, fp32, (("fused", init), ("pallas", init)),
+                                names)
+        control, _ = lockstep(dev, scene, cfg, fp32, (("fused", init), ("fused", nudged)), names)
+        fp32_psnr = {k: psnr_of(f"{k}-fp32", p_fp32[i], fp32, k) for i, k in enumerate(PATHS)}
+        for label, r in (("fused and pallas from one init", pair),
+                         ("control: fused and fused from the init moved by one ulp", control)):
+            print(f"[path-parity] fp32 (TF32 off) trajectories, {TRAIN_STEPS} steps on the draws "
+                  f"of seed 0, {label}: first step (from 0) with a leaf's max |gap| above "
+                  f"{PARITY_EDGE} of its max change since the init: {r['max']}; with a leaf's "
+                  f"|gap| above {PARITY_EDGE} of |change| (L2): {r['l2']}; the largest L2 share "
+                  f"after steps {list(r['l2_at'])}: {[f'{v:.3e}' for v in r['l2_at'].values()]}",
+                  flush=True)
+        print(f"[path-parity] fp32 psnr after {TRAIN_STEPS} steps: fused {fp32_psnr['fused']!r} "
+              f"pallas {fp32_psnr['pallas']!r} ({time.perf_counter() - t0:.1f} s for the fp32 "
+              f"runs)", flush=True)
+        record["fp32"] = {"paths": pair, "control": control, "psnr": fp32_psnr}
+
+    stats = {}
+    for k in PATHS:
+        v = spread[k]
+        mean = sum(v) / len(v)
+        std = math.sqrt(sum((x - mean) ** 2 for x in v) / (len(v) - 1))
+        stats[k] = (mean, std)
+        print(f"[path-parity] bf16 spread, {k}: psnr over seeds {list(PARITY_SEEDS)} "
+              f"{[round(x, 4) for x in v]}; seeds 0-2 range {max(v[:3]) - min(v[:3]):.4f} dB; "
+              f"all seeds mean {mean:.4f} std {std:.4f} min {min(v):.4f} max {max(v):.4f} dB",
+              flush=True)
+    gap0 = spread["pallas"][0] - spread["fused"][0]
+    ranges = {k: max(v[:3]) - min(v[:3]) for k, v in spread.items()}
+    diff = stats["pallas"][0] - stats["fused"][0]
+    se = math.sqrt(sum(sd ** 2 for _, sd in stats.values()) / len(PARITY_SEEDS))
+    print(f"[path-parity] seed 0: pallas - fused = {gap0:+.4f} dB; ranges over seeds 0-2: fused "
+          f"{ranges['fused']:.4f}, pallas {ranges['pallas']:.4f} dB; a range at least |gap|: "
+          f"{[k for k in PATHS if ranges[k] >= abs(gap0)]}; over all {len(PARITY_SEEDS)} seeds "
+          f"the mean psnr of pallas - fused = {diff:+.4f} dB, standard error {se:.4f} dB "
+          f"({diff / se:+.2f} standard errors)", flush=True)
+    record["spread"] = {"psnr": spread, "gap0": gap0, "ranges_0_2": ranges,
+                        "mean_diff": diff, "se": se}
+    if out_json:
+        Path(out_json).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_json).write_text(json.dumps(record, indent=1))
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -2596,6 +3139,10 @@ def main(argv=None) -> int:
         sys.path.insert(0, str(root))
         return occ_timing(dev, root)
     from minimal_nerf_torch.kernels import build
+
+    if argv[:1] == ["--path-parity"]:
+        build.build_all(KERNELS)
+        return path_parity(dev, argv[1] if len(argv) > 1 else None)
 
     t0 = time.perf_counter()
     build.build_all(KERNELS)
@@ -2626,11 +3173,14 @@ def main(argv=None) -> int:
         pallas, p_step_fn, p_params, p_state = phase_train_pallas(dev, Path(tmp), scene,
                                                                   train["bias"])
         phase_pallas_reference(dev, scene, train["bias"])
+        phase_single_reference(dev, scene, train["bias"])
         occ_train, o_step_fn, o_params, o_state, o_grid, o_cfg, o_tcfg = phase_train_occ(
             dev, Path(tmp), scene, params, train["ckpt"])
         phase_occ_reference(dev, scene, o_params, o_grid, o_cfg, o_tcfg)
         multi = phase_multi_step(dev, scene, train["bias"], params)
         phase_trainer(dev, Path(tmp), scenes, train["ms"])
+        single = phase_single(dev, Path(tmp))
+        phase_simple(dev, Path(tmp))
         phase_score(dev, Path(tmp), ckpt, pallas["ckpt"], train["ckpt"])
         phase_convert(dev, Path(tmp))
         phase_profile(ckpt, dev,
@@ -2673,6 +3223,9 @@ def main(argv=None) -> int:
         entry("occupancy_sampler", "minimal_nerf_tpu/kernels/occupancy_probe.py:44",
               [report["occ_sampler"]], occ_train["counts"]["sampler"]),
     ]
+    # train single --kernel pallas's own run (its counts set to 0 just before)
+    print("[single] launches of train single --kernel pallas: " + json.dumps(
+        {"raymarch_mlp_fwd": single["launched"][2], "raymarch_mlp_bwd": single["launched"][3]}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -28,13 +28,22 @@ def build_render_chunk(ckpt: str, rays: int, kernel: str = "auto",
     grid for a checkpoint that has none (``ops.occupancy.bake_grid``, 4
     jittered passes drawn from a generator seeded with 0 on ``device``; the
     JAX package draws them from ``PRNGKey(0)``, so the two bakes differ).
+
+    A ``mode="single"`` checkpoint raises ``ValueError``: its one coarse
+    MLP has no fine network to render views with (JAX's render path needs
+    ``params["coarse"]``, and its ``--bake-occupancy`` refuses one).
     """
     import torch
 
     from minimal_nerf_torch import views
     from minimal_nerf_torch.ops import occupancy as occ
-    from minimal_nerf_torch.training.trainer import load_state_for_inference
+    from minimal_nerf_torch.training.checkpoint import read_header
+    from minimal_nerf_torch.training.trainer import checkpoint_mode, load_state_for_inference
 
+    mode = checkpoint_mode(read_header(ckpt))
+    if mode != "full":
+        raise ValueError(f"{ckpt} is a mode={mode!r} checkpoint (one coarse MLP): render and "
+                         "score need a 'full' coarse + fine checkpoint")
     if data_parallel > 1:
         raise NotImplementedError(
             "data-parallel rendering is not ported yet (ROADMAP Queue 1 item 7, data parallel)")

@@ -1,13 +1,17 @@
-"""The hierarchical NeRF (coarse + fine) and its plain render function.
+"""The hierarchical NeRF (coarse + fine) and its plain render function, the
+coarse-only render of ``mode="single"``, and the reference-shaped wrappers.
 
 Counterpart of ``minimal_nerf_tpu/models/nerf.py``: two independent MLPs, a
 stratified coarse pass, inverse-CDF fine sampling, the sorted 64+128 union
-and transmittance compositing for both passes.
+and transmittance compositing for both passes (``render_rays``); one MLP
+over stratified samples (``render_single``); ``SingleNeRF`` and
+``NeRFNetwork``, config-plus-params wrappers around the two.
 
 Draws: ``render_rays`` takes a ``torch.Generator`` or a dict of pre-drawn
 uniforms ``{"coarse": [N, Sc], "eps": [N, 1], "jitter": [N, Sf, 1]}`` (the
 JAX order of ``nerf.py:109`` and ``rendering.py:57,170-192``; ``"jitter"``
-is unused under ``fine_sampling="linterp"``).
+is unused under ``fine_sampling="linterp"``); ``render_single`` a generator
+or ``{"coarse": [N, S]}``.
 """
 
 from __future__ import annotations
@@ -128,3 +132,106 @@ def render_rays(
     all_samples = o_rays[:, None, :] + all_ts * d_rays[:, None, :]
     fine_rgb, _ = composite("fine", params["fine"], all_samples, all_ts)
     return dict(out, fine_rgb_rays=fine_rgb, coarse_rgb_rays=coarse_rgb)
+
+
+def render_single(params: Params, config: NeRFConfig, o_rays: torch.Tensor,
+                  d_rays: torch.Tensor, generator: Optional[torch.Generator] = None,
+                  num_samples: Optional[int] = None, compute_dtype=None, mlp_apply=None,
+                  uniforms: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """Coarse-only render of one MLP ``params`` (JAX ``render_single``,
+    reference ``SingleNeRF.forward``).
+
+    ``num_samples`` stratified samples per ray (default
+    ``config.coarse_samples``), drawn from ``generator`` or taken from
+    ``uniforms["coarse"] [N, S]``; ``mlp_apply`` overrides the MLP (the
+    point kernels' ``make_mlp_kernel_apply()`` under ``--kernel pallas``).
+    Returns ``pred_rgbs [N, 3]``, ``density [N, S, 1]``, ``ts``,
+    ``samples`` and ``deltas``.
+    """
+    apply_fn = mlp_apply or nerf_mlp_apply
+    s = num_samples if num_samples is not None else config.coarse_samples
+    samples, ts = rendering.generate_coarse_samples(
+        o_rays, d_rays, s, config.near, config.far, generator=generator,
+        uniforms=(uniforms or {}).get("coarse"))
+    density, rgb = apply_fn(params, samples, d_rays, config.position_dim, config.direction_dim,
+                            compute_dtype=compute_dtype)
+    deltas = rendering.generate_deltas(ts)
+    weights = rendering.calculate_unnormalized_weights(density, deltas)
+    return {"pred_rgbs": rendering.estimate_ray_color(weights, rgb), "density": density,
+            "ts": ts, "samples": samples, "deltas": deltas}
+
+
+def _call_generator(seed: int, call: int, device) -> torch.Generator:
+    """The draws of a wrapper's ``call``-th forward without a generator
+    (JAX folds the call count into the wrapper's key)."""
+    from minimal_nerf_torch.views import chunk_generator
+
+    return chunk_generator(seed, call, device)
+
+
+class SingleNeRF:
+    """Coarse-only NeRF wrapper (JAX ``SingleNeRF``, reference
+    ``nerf_model.py:208-305``): a ``NeRFConfig``, one MLP's params and
+    ``forward(o_rays, d_rays) -> render_single(...)``. Without params the
+    MLP is drawn from a generator seeded from ``(seed, 1)`` on ``device``;
+    a forward without a generator draws from ``(seed, call count)``.
+    Training goes through ``Trainer(mode="single")``."""
+
+    def __init__(self, position_dim: int = 10, direction_dim: int = 4, num_samples: int = 128,
+                 near: float = 2.0, far: float = 6.0, params: Optional[Params] = None,
+                 seed: int = 0, compute_dtype=None, device="cuda"):
+        from minimal_nerf_torch import resolve_device
+
+        self.config = NeRFConfig(position_dim=position_dim, direction_dim=direction_dim,
+                                 coarse_samples=num_samples, near=near, far=far)
+        self.num_samples = num_samples
+        self.compute_dtype = compute_dtype
+        self.device = resolve_device(device)
+        self.seed, self._call_count = seed, 0
+        self.params = params if params is not None else init_nerf_mlp(
+            _call_generator(seed, 1, self.device), position_dim, direction_dim,
+            device=self.device)
+
+    def forward(self, o_rays, d_rays, generator: Optional[torch.Generator] = None,
+                uniforms=None):
+        if generator is None and uniforms is None:
+            generator = _call_generator(self.seed, self._call_count, self.device)
+            self._call_count += 1
+        return render_single(self.params, self.config, o_rays, d_rays, generator,
+                             num_samples=self.num_samples, compute_dtype=self.compute_dtype,
+                             uniforms=uniforms)
+
+    __call__ = forward
+
+
+class NeRFNetwork:
+    """Coarse + fine NeRF wrapper (JAX ``NeRFNetwork``, reference
+    ``nerf_model.py:89-132``): a ``NeRFConfig``, the two MLPs' params and
+    ``forward(o_rays, d_rays) -> {"fine_rgb_rays", "coarse_rgb_rays"}``
+    through ``render_rays``. Params and draws as ``SingleNeRF``'s."""
+
+    def __init__(self, position_dim: int = 10, direction_dim: int = 4, coarse_samples: int = 64,
+                 fine_samples: int = 128, near: float = 2.0, far: float = 6.0,
+                 params: Optional[Params] = None, seed: int = 0, compute_dtype=None,
+                 device="cuda"):
+        from minimal_nerf_torch import resolve_device
+
+        self.config = NeRFConfig(position_dim=position_dim, direction_dim=direction_dim,
+                                 coarse_samples=coarse_samples, fine_samples=fine_samples,
+                                 near=near, far=far)
+        self.compute_dtype = compute_dtype
+        self.device = resolve_device(device)
+        self.seed, self._call_count = seed, 0
+        self.params = params if params is not None else init_nerf_network(
+            _call_generator(seed, 1, self.device), self.config, device=self.device)
+
+    def forward(self, o_rays, d_rays, generator: Optional[torch.Generator] = None,
+                uniforms=None):
+        if generator is None and uniforms is None:
+            generator = _call_generator(self.seed, self._call_count, self.device)
+            self._call_count += 1
+        out = render_rays(self.params, self.config, o_rays, d_rays, generator,
+                          compute_dtype=self.compute_dtype, uniforms=uniforms)
+        return {k: out[k] for k in ("fine_rgb_rays", "coarse_rgb_rays")}
+
+    __call__ = forward

@@ -1,7 +1,7 @@
 """Camera math: pinhole ray generation and spherical poses.
 
-Counterpart of ``minimal_nerf_tpu/ops/cameras.py`` (NDC projection is not
-ported yet). Directions are intentionally NOT normalized: sample times are
+Counterpart of ``minimal_nerf_tpu/ops/cameras.py``, the NDC projection of
+front-facing scenes included (``convert_to_ndc_rays``). Directions are intentionally NOT normalized: sample times are
 measured in units of ``||d||``, as in the reference (``dataloader.py:36-43``).
 """
 
@@ -95,3 +95,23 @@ def spherical_poses(num_poses: int = 40, phi_deg: float = -30.0,
     azimuths ``linspace(-180, 180, num_poses + 1)[:-1]``."""
     angles = np.linspace(-180.0, 180.0, num_poses + 1)[:-1]
     return np.stack([pose_spherical(a, phi_deg, radius) for a in angles])
+
+
+def convert_to_ndc_rays(o_rays: torch.Tensor, d_rays: torch.Tensor, focal, width: int,
+                        height: int, near: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NDC ray projection for FRONT-FACING scenes (JAX ``convert_to_ndc_rays``,
+    reference ``dataloader.py:45-76``): rays ``[..., 3]`` moved to the near
+    plane, then projected; returns ``o_ndc``, ``d_ndc [..., 3]`` with
+    ``d_ndc`` of unit length. No path of the Blender-synthetic scenes calls
+    it; it keeps the reference's public surface."""
+    t_near = -(near + o_rays[..., 2]) / d_rays[..., 2]
+    o_rays = o_rays + t_near[..., None] * d_rays
+    ox, oy, oz = o_rays[..., 0], o_rays[..., 1], o_rays[..., 2]
+    dx, dy, dz = d_rays[..., 0], d_rays[..., 1], d_rays[..., 2]
+    o_ndc = torch.stack([-1.0 * focal / (width / 2) * (ox / oz),
+                         -1.0 * focal / (height / 2) * (oy / oz),
+                         1.0 + (2 * near) / oz], dim=-1)
+    d_ndc = torch.stack([-1.0 * focal / (width / 2) * ((dx / dz) - (ox / oz)),
+                         -1.0 * focal / (height / 2) * ((dy / dz) - (oy / oz)),
+                         (-2.0 * near) / oz], dim=-1)
+    return o_ndc, d_ndc / torch.linalg.norm(d_ndc, dim=-1, keepdim=True)

@@ -1,22 +1,29 @@
-"""Train a NeRF on a Blender-style scene tree.
+"""Train a NeRF on a Blender-style scene tree, or the 2-D image MLP on a photo.
 
     python -m minimal_nerf_torch.train -n NAME -s STEPS full -b SCENE_DIR [--fast]
+    python -m minimal_nerf_torch.train -n NAME -s STEPS single -b SCENE_DIR [-c 128]
+    python -m minimal_nerf_torch.train -n NAME -s STEPS simple -i PHOTO.png
 
-The port's counterpart of the JAX package's ``train_nerf.py full``, with its
-flags and their meaning: ``--fast`` (``--occupancy -c 16 -f 48
+The port's counterpart of the JAX package's ``train_nerf.py``, with its
+flags and their meaning. ``full``: ``--fast`` (``--occupancy -c 16 -f 48
 --steps-per-call 20``, an explicitly passed value winning), the progressive
 ``--finish-steps`` / ``--budget-schedule`` phases (each later phase goes on
 from the previous one's final state in memory), ``--finetune-steps``, the
-occupancy flags, ``-l PATH`` / ``-l auto`` resume, ``--profile DIR`` (a
+occupancy flags. ``single``: one MLP on the coarse-only render at ``-c``
+samples (``Trainer(mode="single")``, no crop warmup); ``--kernel pallas``
+runs its MLP through the point kernels, any other choice through the plain
+MLP, as in JAX. ``simple``: the image MLP overfit to one photo
+(``training.simple.train_simple_image``). For every mode ``-l PATH`` / ``-l
+auto`` resume (``full``, ``single``), ``--profile DIR`` (a
 ``torch.profiler`` trace) and ``--debug-nans``. Runs on ``--device cuda``
 (the default; without a card it raises) or ``--device cpu``, where the
 kernels run their plain versions. ``--kernel auto`` is ``fused`` on the
-card. Not ported, and raising: the ``single`` and ``simple`` modes (ROADMAP
-Queue 1 item 6), ``--data-parallel N > 1`` and ``--multihost`` (item 7),
-``--wandb``. ``--steps-per-call N`` runs N train steps per call between
-boundaries (``training.loop.make_multi_step``: on the card, replays of one
-captured CUDA graph of the step), as ``train_nerf.py`` does with one
-dispatch; the steps are those of one per call, bit for bit.
+card. Not ported, and raising: ``--data-parallel N > 1`` and
+``--multihost`` (ROADMAP Queue 1 item 7), ``--wandb``. ``--steps-per-call
+N`` runs N train steps per call between boundaries
+(``training.loop.make_multi_step``: on the card, replays of one captured
+CUDA graph of the step), as ``train_nerf.py`` does with one dispatch; the
+steps are those of one per call, bit for bit.
 """
 
 from __future__ import annotations
@@ -319,14 +326,48 @@ def train_full_nerf(args):
     return trainer
 
 
+def train_single_nerf(args):
+    """``train single`` (JAX ``train_single_nerf``): one ``Trainer(mode=
+    "single")`` at ``-c`` coarse samples, no crop warmup, one step per call
+    unless ``--steps-per-call`` says otherwise; returns the Trainer."""
+    from minimal_nerf_torch import resolve_device
+    from minimal_nerf_torch.training.loop import kernel_hooks, resolve_kernel
+    from minimal_nerf_torch.training.trainer import Trainer
+
+    dev = resolve_device(args.device)
+    kernel = resolve_kernel(args.kernel, dev)
+    nerf_cfg = NeRFConfig(position_dim=args.position_encoding,
+                          direction_dim=args.direction_encoding, coarse_samples=args.samples)
+    train_cfg = TrainConfig(
+        num_rays=args.rays, max_steps=args.steps, cropping_epochs=0, precision=args.precision,
+        seed=args.seed, steps_per_call=args.steps_per_call or 1, log_every=args.log_every,
+        val_render_every=args.val_render_every, kernel=kernel)
+    mlp_apply, _ = kernel_hooks(kernel, dev, mode="single")
+    trainer = Trainer(nerf_cfg, train_cfg, args.base_dir, args.root_dir, name=args.name,
+                      resume_ckpt=args.ckpt, mlp_apply=mlp_apply, mode="single", device=dev)
+    trainer.fit()
+    return trainer
+
+
+def train_simple_image(args):
+    """``train simple`` (JAX ``train_simple_image``): the image MLP on the
+    photo ``-i``; returns its final parameters."""
+    from minimal_nerf_torch.training.simple import train_simple_image as run
+
+    return run(args.im_path, args.root_dir, args.name, args.steps,
+               position_dim=args.position_encoding, batch_size=args.rays, seed=args.seed,
+               device=args.device)
+
+
+_MODES = {"full": train_full_nerf, "single": train_single_nerf, "simple": train_simple_image}
+
+
 def main(argv=None):
-    """Parse ``argv`` and train; returns the last phase's ``Trainer``."""
+    """Parse ``argv`` and train; returns what the mode's function returns
+    (``full``: the last phase's ``Trainer``; ``single``: its ``Trainer``;
+    ``simple``: the image MLP's parameters)."""
     args = build_parser().parse_args(argv)
-    if args.type in ("single", "simple"):
-        raise NotImplementedError(
-            f"mode {args.type!r} is not ported yet (ROADMAP Queue 1 item 6, single/simple "
-            "modes); use 'full'")
-    if args.type != "full":
+    if args.type not in _MODES:
         build_parser().error("choose a subcommand: simple | single | full")
     if args.data_parallel > 1 or args.multihost:
         raise NotImplementedError("--data-parallel N > 1 and --multihost are not ported yet "
@@ -341,7 +382,7 @@ def main(argv=None):
             stack.enter_context(profiling.trace(args.profile))
         if args.debug_nans:
             stack.enter_context(profiling.debug_mode())
-        return train_full_nerf(args)
+        return _MODES[args.type](args)
 
 
 if __name__ == "__main__":

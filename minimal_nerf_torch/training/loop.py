@@ -22,6 +22,10 @@ the body at every ``update_every``-th step, eagerly between replays
 coarse points through it (``coarse_sampler`` of ``nerf_loss``, the
 counterpart of JAX's ``make_occupancy_loss``).
 
+``mode="single"`` (JAX ``loss_fn=single_nerf_loss``) trains one MLP on the
+coarse-only render through the same draw and body: its step draws only the
+coarse uniforms, and its loss is ``single_nerf_loss``.
+
 Adam is written as plain functions over ``{"count", "mu", "nu"}`` with ``mu``
 and ``nu`` in the parameter tree's layout, the state optax keeps, so the
 moments map onto the checkpoint's leaves without reshaping.
@@ -194,6 +198,20 @@ def nerf_loss(params: Params, nerf_cfg: NeRFConfig, o_rays, d_rays, rgb,
     return loss, metrics
 
 
+def single_nerf_loss(params: Params, nerf_cfg: NeRFConfig, o_rays, d_rays, rgb,
+                     generator: Optional[torch.Generator] = None, compute_dtype=None,
+                     mlp_apply=None, uniforms=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Coarse-only MSE of one MLP ``params`` (JAX ``single_nerf_loss``,
+    reference ``SingleNeRF.training_step``): ``render_single`` on the
+    coarse draws of ``generator`` or ``uniforms``."""
+    from minimal_nerf_torch.models.nerf import render_single
+
+    out = render_single(params, nerf_cfg, o_rays, d_rays, generator,
+                        compute_dtype=compute_dtype, mlp_apply=mlp_apply, uniforms=uniforms)
+    loss = torch.mean((out["pred_rgbs"] - rgb) ** 2)
+    return loss, {"train_loss": loss}
+
+
 def step_generator(seed: int, step: int, stream: int, device) -> torch.Generator:
     """A generator on ``device`` seeded from ``(seed, step, stream)``."""
     mixed = (seed * 0x9E3779B97F4A7C15 + step * 0xBF58476D1CE4E5B9
@@ -251,15 +269,21 @@ def sample_train_batch(step: int, images: torch.Tensor, poses: torch.Tensor,
 
 def loss_and_grads(params: Params, nerf_cfg: NeRFConfig, batch: Dict[str, Any],
                    compute_dtype=None, render_fn=None, generator=None, uniforms=None,
-                   mlp_apply=None, coarse_sampler=None):
-    """``(metrics, grads)`` of ``nerf_loss`` on one batch; the parameters'
-    leaves are made to require gradients, and no ``.grad`` is written."""
+                   mlp_apply=None, coarse_sampler=None, mode: str = "full"):
+    """``(metrics, grads)`` of ``nerf_loss`` (``mode="single"``:
+    ``single_nerf_loss``, which takes no ``render_fn`` or ``coarse_sampler``)
+    on one batch; the parameters' leaves are made to require gradients, and
+    no ``.grad`` is written."""
     leaves = flatten_tree(params)
     for leaf in leaves:
         leaf.requires_grad_(True)
-    loss, metrics = nerf_loss(params, nerf_cfg, batch["origin"], batch["direc"], batch["rgb"],
-                              generator, compute_dtype, render_fn, uniforms, mlp_apply,
-                              coarse_sampler)
+    o, d, rgb = batch["origin"], batch["direc"], batch["rgb"]
+    if mode == "single":
+        loss, metrics = single_nerf_loss(params, nerf_cfg, o, d, rgb, generator, compute_dtype,
+                                         mlp_apply, uniforms)
+    else:
+        loss, metrics = nerf_loss(params, nerf_cfg, o, d, rgb, generator, compute_dtype,
+                                  render_fn, uniforms, mlp_apply, coarse_sampler)
     grads = torch.autograd.grad(loss, leaves)
     return ({k: v.detach() for k, v in metrics.items()},
             unflatten_tree(params, list(grads)))
@@ -273,7 +297,8 @@ def resolve_kernel(kernel: str, device="cuda") -> str:
     return kernel
 
 
-def kernel_hooks(kernel: str, device="cuda") -> Tuple[Optional[Callable], Callable]:
+def kernel_hooks(kernel: str, device="cuda",
+                 mode: str = "full") -> Tuple[Optional[Callable], Optional[Callable]]:
     """``(mlp_apply, render_fn)`` of a ``--kernel`` choice for the train step
     (``train_nerf.py:261-282``: ``resolve_kernel``, ``make_mlp_apply``,
     ``make_render_fn``).
@@ -281,20 +306,25 @@ def kernel_hooks(kernel: str, device="cuda") -> Tuple[Optional[Callable], Callab
     ``"fused"``, and ``"auto"`` on a CUDA device, give the fused kernels'
     render; ``"pallas"`` the point kernels' MLP hook under the plain render;
     ``"xla"``, and ``"auto"`` elsewhere, the plain render with the plain MLP
-    (PyTorch matmuls, which the JAX package leaves to XLA).
+    (PyTorch matmuls, which the JAX package leaves to XLA). With
+    ``mode="single"`` the coarse-only render takes no ``render_fn``:
+    ``"pallas"`` gives the point kernels' MLP hook and every other choice
+    the plain MLP (``make_mlp_apply`` is None there in JAX).
     """
     from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
     from minimal_nerf_torch.kernels.raymarch import make_mlp_kernel_apply
     from minimal_nerf_torch.models.nerf import render_rays
 
     kernel = resolve_kernel(kernel, device)
+    if kernel not in ("fused", "pallas", "xla"):
+        raise ValueError(f"unknown kernel {kernel!r}")
+    if mode == "single":
+        return (make_mlp_kernel_apply() if kernel == "pallas" else None), None
     if kernel == "fused":
         return None, make_fused_render_fn()
     if kernel == "pallas":
         return make_mlp_kernel_apply(), render_rays
-    if kernel == "xla":
-        return None, render_rays
-    raise ValueError(f"unknown kernel {kernel!r}")
+    return None, render_rays
 
 
 def update_step_grid(occupancy_cfg, nerf_cfg: NeRFConfig, compute_dtype, params: Params,
@@ -325,7 +355,7 @@ def pack_step_grid(occupancy_cfg, grid: torch.Tensor, force_all):
 
 def draw_step_inputs(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
                      step: int, count: int, seed: int, device,
-                     occupancy_cfg=None) -> Dict[str, Any]:
+                     occupancy_cfg=None, mode: str = "full") -> Dict[str, Any]:
     """Every random draw and host decision of train step ``step``, whose
     Adam update is the ``count + 1``-th, from the generators of ``(seed,
     step)`` in the order the render consumes them.
@@ -337,8 +367,9 @@ def draw_step_inputs(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: Scene
     crop while ``epoch < cropping_epochs``) and ``uniforms``, the render's
     draws: ``"coarse"`` (``[N, Sc]``, or under occupancy the sampler's ``(eps
     [N, 1], frac [N, Sc] or None)``), then the fine ``"eps" [N, 1]`` and, with
-    ``fine_sampling="reference"``, ``"jitter" [N, Sf, 1]``.
-    ``inputs_on_device`` puts the host values on the device.
+    ``fine_sampling="reference"``, ``"jitter" [N, Sf, 1]``; under
+    ``mode="single"`` only ``"coarse"``. ``inputs_on_device`` puts the host
+    values on the device.
     """
     steps_per_epoch = train_cfg.steps_per_epoch or static.num_frames
     lr_sched = make_lr_schedule(train_cfg, steps_per_epoch)
@@ -353,9 +384,11 @@ def draw_step_inputs(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: Scene
         coarse = (rand(n, 1), rand(n, sc) if occupancy_cfg.in_bin_jitter else None)
     else:
         coarse = rand(n, sc)
-    uniforms = {"coarse": coarse, "eps": rand(n, 1)}
-    if nerf_cfg.fine_sampling != "linterp":
-        uniforms["jitter"] = rand(n, nerf_cfg.fine_samples, 1)
+    uniforms = {"coarse": coarse}
+    if mode != "single":
+        uniforms["eps"] = rand(n, 1)
+        if nerf_cfg.fine_sampling != "linterp":
+            uniforms["jitter"] = rand(n, nerf_cfg.fine_samples, 1)
     warm = occupancy_cfg is not None and step < occupancy_cfg.warmup_steps
     return {"frame": frame, "force_all": warm, "adam": adam_scalars(lr_sched(count), count + 1),
             "lr": lr_sched(step), "xs": xs, "ys": ys, "uniforms": uniforms}
@@ -383,7 +416,7 @@ def _input_tensors(inp: Dict[str, Any]) -> List[torch.Tensor]:
     u = inp["uniforms"]
     coarse = u["coarse"] if isinstance(u["coarse"], tuple) else (u["coarse"],)
     return [t for t in (inp["frame"], inp["force_all"], inp["adam"], inp["xs"], inp["ys"],
-                        *coarse, u["eps"], u.get("jitter")) if t is not None]
+                        *coarse, u.get("eps"), u.get("jitter")) if t is not None]
 
 
 def _clone_inputs(inp: Dict[str, Any]) -> Dict[str, Any]:
@@ -398,7 +431,7 @@ def _clone_inputs(inp: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
-                render_fn, device, mlp_apply, occupancy_cfg):
+                render_fn, device, mlp_apply, occupancy_cfg, mode: str = "full"):
     """The ONE implementation of a train step (JAX ``_build_step_runner``):
     ``(draw, update_grid, body)``, which ``make_train_step`` and
     ``make_multi_step`` both drive, so the eager and the replayed step
@@ -410,18 +443,25 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
     images, poses, inp) -> (params, opt_state, metrics)`` the rest of the
     step on ``inputs_on_device`` inputs, reading no host value: it packs the
     grid (occupancy), gathers the batch, renders, takes the gradients and
-    applies Adam in place.
+    applies Adam in place. ``mode="single"``: the coarse-only loss of one
+    MLP, no render hook and no occupancy.
     """
     from minimal_nerf_torch import resolve_device
     from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
     from minimal_nerf_torch.models.nerf import render_rays
 
+    if mode not in ("full", "single"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "single" and occupancy_cfg is not None:
+        raise ValueError("occupancy acceleration requires mode='full'")
     dev = resolve_device(device)
-    render = render_fn or (render_rays if mlp_apply is not None else make_fused_render_fn())
+    render = None
+    if mode == "full":
+        render = render_fn or (render_rays if mlp_apply is not None else make_fused_render_fn())
 
     def draw(step: int, count: int, seed: int):
         return draw_step_inputs(nerf_cfg, train_cfg, static, step, count, seed, dev,
-                                occupancy_cfg)
+                                occupancy_cfg, mode)
 
     def update_grid(params, grid, step: int, seed: int):
         if occupancy_cfg is not None:
@@ -438,7 +478,7 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
                                       coords=(inp["xs"], inp["ys"]))
         metrics, grads = loss_and_grads(params, nerf_cfg, batch, train_cfg.compute_dtype,
                                         render, uniforms=inp["uniforms"], mlp_apply=mlp_apply,
-                                        coarse_sampler=sampler)
+                                        coarse_sampler=sampler, mode=mode)
         opt_state = adam_apply(params, grads, opt_state, inp["adam"])
         metrics = dict(finalize_metrics(metrics, grads), lr=inp["lr"])
         if occ_fraction is not None:
@@ -450,7 +490,7 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
 
 def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
                     render_fn=None, device="cuda", mlp_apply=None,
-                    occupancy_cfg=None) -> Callable:
+                    occupancy_cfg=None, mode: str = "full") -> Callable:
     """The train step ``step_fn(params, opt_state, images, poses, step, seed)
     -> (params, opt_state, metrics)``: ``draw_step_inputs``, then the body
     of ``_build_step``.
@@ -468,9 +508,14 @@ def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
     (params, opt_state, grid, metrics)``: ``update_step_grid`` updates the
     ``[G, G, G]`` grid in place, the body packs it, the coarse samples
     follow the packed grid, and the metrics gain ``occ_fraction``.
+
+    ``mode="single"`` (JAX ``loss_fn=single_nerf_loss``): ``params`` is one
+    MLP, the loss ``single_nerf_loss`` through ``mlp_apply`` (the point
+    kernels' hook under ``--kernel pallas``, else the plain MLP), the
+    metrics ``train_loss``, ``grad_2.0_norm_total`` and ``lr``.
     """
     draw, update_grid, body = _build_step(nerf_cfg, train_cfg, static, render_fn, device,
-                                          mlp_apply, occupancy_cfg)
+                                          mlp_apply, occupancy_cfg, mode)
 
     def run(params, opt_state, grid, images, poses, step: int, seed: int):
         inp = inputs_on_device([draw(step, opt_state["count"], seed)], images.device)[0]
@@ -553,7 +598,7 @@ class _StepGraph:
 
 def make_multi_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
                     num_inner: int, render_fn=None, device="cuda", mlp_apply=None,
-                    occupancy_cfg=None) -> Callable:
+                    occupancy_cfg=None, mode: str = "full") -> Callable:
     """``num_inner`` train steps in one call (JAX ``make_multi_step``), the
     same steps as ``make_train_step`` called ``num_inner`` times, bit for
     bit.
@@ -567,10 +612,11 @@ def make_multi_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
     ``inputs``, one per step), puts them on the device, then runs the body of
     ``_build_step`` once per step, each occupancy update before its step: on
     a CUDA device as replays of one captured CUDA graph (``_StepGraph``), on
-    the CPU eagerly. State is updated in place, as by ``make_train_step``.
+    the CPU eagerly. State is updated in place, as by ``make_train_step``;
+    ``mode`` is ``make_train_step``'s.
     """
     draw, update_grid, body = _build_step(nerf_cfg, train_cfg, static, render_fn, device,
-                                          mlp_apply, occupancy_cfg)
+                                          mlp_apply, occupancy_cfg, mode)
     graph = _StepGraph(update_grid, body)
 
     def run(params, opt_state, grid, images, poses, start_step: int, seed: int, inputs):
@@ -670,5 +716,39 @@ def make_batched_eval_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig,
                                      gen, occ_words,
                                      None if uniforms is None else uniforms[idx]))
         return {k: torch.mean(torch.stack([m[k] for m in per_frame])) for k in per_frame[0]}
+
+    return eval_all
+
+
+def make_batched_eval_step_single(nerf_cfg: NeRFConfig, train_cfg: TrainConfig,
+                                  val_static: SceneStatic, mlp_apply=None) -> Callable:
+    """``mode="single"``'s ``make_batched_eval_step`` (JAX
+    ``make_batched_eval_step_single``): every val frame's coarse-only loss.
+
+    ``eval_all(params, images, poses, step, seed, coords=None,
+    uniforms=None) -> {"val_loss"}``, the mean over frames as a device
+    scalar (the caller fetches it once); ``params`` is one MLP. Frame
+    ``idx`` samples ``num_rays`` pixels of the whole frame and renders them
+    through ``render_single`` (``mlp_apply``, in the compute dtype, no
+    gradient), its draws from ``step_generator(seed, step + idx,
+    _VAL_STREAM)`` as in the full mode; ``coords[idx]`` and
+    ``uniforms[idx]`` (``{"coarse": [N, S]}``) replace them.
+    """
+    from minimal_nerf_torch.models.nerf import render_single
+
+    @torch.no_grad()
+    def eval_all(params, images, poses, step: int, seed: int, coords=None, uniforms=None):
+        losses = []
+        for idx in range(val_static.num_frames):
+            gen = step_generator(seed, step + idx, _VAL_STREAM, images.device)
+            batch = ray_batch_from_arrays(idx, train_cfg.num_rays, val_static.height,
+                                          val_static.width, val_static.focal, images, poses,
+                                          generator=gen,
+                                          coords=None if coords is None else coords[idx])
+            out = render_single(params, nerf_cfg, batch["origin"], batch["direc"], gen,
+                                compute_dtype=train_cfg.compute_dtype, mlp_apply=mlp_apply,
+                                uniforms=None if uniforms is None else uniforms[idx])
+            losses.append(torch.mean((out["pred_rgbs"] - batch["rgb"]) ** 2))
+        return {"val_loss": torch.mean(torch.stack(losses))}
 
     return eval_all

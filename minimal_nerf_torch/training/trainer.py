@@ -1,9 +1,10 @@
 """The training orchestrator (epochs, validation, checkpoints, resume), and
 loading a trained model for inference.
 
-Counterpart of ``minimal_nerf_tpu/training/trainer.py`` for ``mode="full"``
-on one device: a plain loop around ``training/loop.py``'s train step, with
-the reference's semantics:
+Counterpart of ``minimal_nerf_tpu/training/trainer.py`` on one device, for
+``mode="full"`` (the coarse + fine network) and ``mode="single"`` (one MLP
+on the coarse-only render, no occupancy): a plain loop around
+``training/loop.py``'s train step, with the reference's semantics:
 
 - ``steps_per_call`` steps in one call (``loop.make_multi_step``: on a card
   the replays of one captured CUDA graph of the step) whenever the next
@@ -20,9 +21,9 @@ the reference's semantics:
   a final blocking save;
 - checkpoints ``model={name}-epoch={E}-step={S}.ckpt`` in the JAX format,
   written on a background thread; resume from a path or ``"auto"`` (the
-  latest in the run), or in memory from a previous phase's ``final_state``.
-
-Checkpoints with ``mode="single"`` raise (ROADMAP Queue 1 item 6).
+  latest in the run), or in memory from a previous phase's ``final_state``;
+  a ``mode="single"`` checkpoint holds one MLP's leaves and its header says
+  so (``extra["mode"]``), as in JAX.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ import torch
 
 from minimal_nerf_torch import resolve_device
 from minimal_nerf_torch.models.mlp import map_params, nerf_mlp_shapes
-from minimal_nerf_torch.models.nerf import NeRFConfig, init_nerf_network
+from minimal_nerf_torch.models.mlp import init_nerf_mlp
+from minimal_nerf_torch.models.nerf import NeRFConfig, init_nerf_network, render_single
 from minimal_nerf_torch.training import checkpoint as ckpt_lib
 from minimal_nerf_torch.training import loop
 from minimal_nerf_torch.training.config import TrainConfig
@@ -47,21 +49,31 @@ from minimal_nerf_torch.utils import profiling
 _VIEW_STREAM, _VIEW_RENDER_STREAM = 0x71E, 0x71F
 
 
-def _check_full(mode: str) -> None:
-    if mode != "full":
-        raise NotImplementedError(
-            f"mode {mode!r}: only 'full' coarse+fine training and checkpoints are ported so "
-            "far (ROADMAP Queue 1 item 6, single/simple modes)")
+MODES = ("full", "single")
+
+
+def _check_mode(mode: str) -> str:
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}: the Trainer trains {' or '.join(MODES)}")
+    return mode
+
+
+def checkpoint_mode(header) -> str:
+    """The training mode a checkpoint's header names (``"full"`` when it
+    names none, as in JAX)."""
+    return _check_mode((header.get("extra") or {}).get("mode", "full"))
 
 
 def restore_to_device(header, leaves, nerf_cfg: NeRFConfig, occ_cfg, dev):
     """``(params, opt_state, grid)`` of a loaded checkpoint as fp32 tensors
     on ``dev`` (``opt_state = {"count", "mu", "nu"}``; ``grid`` None
-    without ``occ_cfg``). A layout other than the configs describe raises."""
+    without ``occ_cfg``): the coarse + fine network, or one MLP for a
+    ``mode="single"`` checkpoint. A layout other than the configs and the
+    mode describe raises."""
     grid_shape = (occ_cfg.resolution,) * 3 if occ_cfg is not None else None
     mlp = nerf_mlp_shapes(nerf_cfg.position_dim, nerf_cfg.direction_dim)
-    params, opt, grid = ckpt_lib.restore_state(header, leaves, {"coarse": mlp, "fine": mlp},
-                                               grid_shape)
+    shapes = mlp if checkpoint_mode(header) == "single" else {"coarse": mlp, "fine": mlp}
+    params, opt, grid = ckpt_lib.restore_state(header, leaves, shapes, grid_shape)
     to_dev = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)  # noqa: E731
     opt = {"count": opt["count"], "mu": map_params(to_dev, opt["mu"]),
            "nu": map_params(to_dev, opt["nu"])}
@@ -77,7 +89,8 @@ def fetch_scalars(metrics) -> dict:
 
 
 class Trainer:
-    """End-to-end NeRF training on one device (``mode="full"``)."""
+    """End-to-end NeRF training on one device (``mode="full"`` or
+    ``"single"``)."""
 
     def __init__(self, nerf_config: NeRFConfig, train_config: TrainConfig, base_dir, root_dir,
                  name: str = "nerf", resume_ckpt: Optional[str] = None, mlp_apply=None,
@@ -93,11 +106,12 @@ class Trainer:
         Trainer's ``final_state`` and takes precedence over
         ``resume_ckpt``. ``mlp_apply`` and ``render_fn`` are the render
         hooks (``loop.kernel_hooks``); with neither, those of
-        ``train_config.kernel`` on ``device``."""
+        ``train_config.kernel`` on ``device``. ``mode="single"`` trains one
+        MLP on the coarse-only render (``render_fn`` unused); occupancy
+        then raises, as in JAX."""
         from minimal_nerf_torch.data.synthetic import SyntheticScene
 
-        _check_full(mode)
-        self.mode = mode
+        self.mode = _check_mode(mode)
         self.device = resolve_device(device)
         self.nerf_config = nerf_config
         self.train_config = train_config
@@ -126,15 +140,15 @@ class Trainer:
         self.steps_per_epoch = train_config.steps_per_epoch or self.static.num_frames
         self._occ_cfg = train_config.occupancy_config
         if mlp_apply is None and render_fn is None:
-            mlp_apply, render_fn = loop.kernel_hooks(train_config.kernel, self.device)
+            mlp_apply, render_fn = loop.kernel_hooks(train_config.kernel, self.device, mode)
         self.mlp_apply, self.render_fn = mlp_apply, render_fn
         self.step_fn = loop.make_train_step(nerf_config, train_config, self.static, render_fn,
-                                            self.device, mlp_apply, self._occ_cfg)
+                                            self.device, mlp_apply, self._occ_cfg, mode)
         self.multi_fn = None
         if train_config.steps_per_call > 1:
             self.multi_fn = loop.make_multi_step(
                 nerf_config, train_config, self.static, train_config.steps_per_call, render_fn,
-                self.device, mlp_apply, self._occ_cfg)
+                self.device, mlp_apply, self._occ_cfg, mode)
         self._grid = None
         self._batched_eval = None
         self._val_render_chunk = None
@@ -144,9 +158,10 @@ class Trainer:
 
     def init_state(self):
         """``(params, opt_state, start_step)``: handed over in memory, resumed
-        from ``resume_ckpt`` (the occupancy grid too), or fresh
-        (``init_nerf_network`` from a generator seeded with the config's
-        seed, zero Adam state, a zero grid). Sets ``self._grid``."""
+        from ``resume_ckpt`` (the occupancy grid too; its mode must be the
+        Trainer's), or fresh (``init_nerf_network``, or ``init_nerf_mlp`` in
+        single mode, from a generator seeded with the config's seed, zero
+        Adam state, a zero grid). Sets ``self._grid``."""
         if self._initial_state is not None:
             params, opt_state, grid, start_step = self._initial_state
             self._grid = grid
@@ -154,7 +169,9 @@ class Trainer:
             return params, opt_state, start_step
         if self.resume_ckpt:
             header, leaves = ckpt_lib.load_checkpoint(self.resume_ckpt)
-            _check_full((header.get("extra") or {}).get("mode", "full"))
+            if checkpoint_mode(header) != self.mode:
+                raise ValueError(f"{self.resume_ckpt} is a mode={checkpoint_mode(header)!r} "
+                                 f"checkpoint; this run trains mode={self.mode!r}")
             params, opt_state, self._grid = restore_to_device(
                 header, leaves, self.nerf_config, self._occ_cfg, self.device)
             start_step = int(header["step"])
@@ -163,9 +180,10 @@ class Trainer:
             return params, opt_state, start_step
         from minimal_nerf_torch.ops import occupancy as occ
 
-        params = init_nerf_network(
-            torch.Generator(device=self.device).manual_seed(self.train_config.seed),
-            self.nerf_config, device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(self.train_config.seed)
+        cfg = self.nerf_config
+        params = (init_nerf_network(gen, cfg, device=self.device) if self.mode == "full" else
+                  init_nerf_mlp(gen, cfg.position_dim, cfg.direction_dim, device=self.device))
         self._grid = (occ.init_grid(self._occ_cfg, self.device)
                       if self._occ_cfg is not None else None)
         return params, loop.adam_init(params), 0
@@ -253,8 +271,10 @@ class Trainer:
         every ``val_render_every``-th validation one reconstructed val view
         logged as ``recon-val{idx}``. With occupancy both go through the
         live grid, every cell forced occupied inside the warmup as the train
-        step does. Returns the losses (None without a val split); with
-        ``log=False`` the caller logs them."""
+        step does; in single mode through the coarse-only render
+        (``make_batched_eval_step_single``, ``render_single``). Returns the
+        losses (None without a val split); with ``log=False`` the caller
+        logs them."""
         if self.val_scene is None:
             return None
         from minimal_nerf_torch import views
@@ -267,11 +287,16 @@ class Trainer:
             words = occ.pack_occupancy(self._grid, self._occ_cfg,
                                        force_all=step < self._occ_cfg.warmup_steps)
         if self._batched_eval is None:
-            self._batched_eval = loop.make_batched_eval_step(
-                self.nerf_config, cfg, loop.scene_static(val), self.mlp_apply, self.render_fn,
-                self._occ_cfg)
+            if self.mode == "single":
+                self._batched_eval = loop.make_batched_eval_step_single(
+                    self.nerf_config, cfg, loop.scene_static(val), self.mlp_apply)
+            else:
+                self._batched_eval = loop.make_batched_eval_step(
+                    self.nerf_config, cfg, loop.scene_static(val), self.mlp_apply,
+                    self.render_fn, self._occ_cfg)
+        extra = () if self.mode == "single" else (words,)
         mean = fetch_scalars(self._batched_eval(params, val.images, val.poses, step, cfg.seed,
-                                                words))
+                                                *extra))
         if log:
             self.logger.log_scalars(step, mean)
 
@@ -283,7 +308,14 @@ class Trainer:
         im_idx = int(torch.randint(val.num_frames, (), generator=loop.step_generator(
             cfg.seed, step, _VIEW_STREAM, "cpu")))
         if self._val_render_chunk is None:
-            if self._occ_cfg is not None:
+            if self.mode == "single":
+                def render_chunk_p(p, o, d, generator):
+                    return render_single(p, self.nerf_config, o, d, generator,
+                                         compute_dtype=cfg.compute_dtype,
+                                         mlp_apply=self.mlp_apply)["pred_rgbs"]
+
+                self._val_render_chunk = render_chunk_p
+            elif self._occ_cfg is not None:
                 self._val_render_chunk = views.make_occ_param_render_chunk(
                     self.nerf_config, self._occ_cfg, cfg.compute_dtype, self.mlp_apply,
                     self.render_fn)
@@ -327,17 +359,17 @@ class Trainer:
 def load_state_for_inference(ckpt_path, device="cuda"):
     """``(params, nerf_cfg, train_cfg, grid, step)`` of a checkpoint.
 
-    ``params`` are fp32 tensors on ``device``; ``grid`` is an occupancy
-    run's ``[G, G, G]`` density EMA (fp32 on ``device``), else None. ``step``
-    is the save step: a checkpoint saved inside the occupancy warmup trained
-    with every cell forced occupied, and inference packs its grid the same
-    way.
+    ``params`` are fp32 tensors on ``device``: ``{"coarse", "fine"}``, or
+    one MLP for a ``mode="single"`` checkpoint (JAX
+    ``load_state_for_inference``); ``grid`` is an occupancy run's ``[G, G,
+    G]`` density EMA (fp32 on ``device``), else None. ``step`` is the save
+    step: a checkpoint saved inside the occupancy warmup trained with every
+    cell forced occupied, and inference packs its grid the same way.
     """
     dev = resolve_device(device)
     header, leaves = ckpt_lib.load_checkpoint(ckpt_path)
     nerf_cfg = NeRFConfig.from_dict(header["nerf_config"])
     train_cfg = TrainConfig.from_dict(header["train_config"])
-    _check_full((header.get("extra") or {}).get("mode", "full"))
     params, _, grid = restore_to_device(header, leaves, nerf_cfg, train_cfg.occupancy_config,
                                         dev)
     return params, nerf_cfg, train_cfg, grid, int(header["step"])

@@ -6,6 +6,9 @@ chunk ``i`` of a frame draws its samples from a ``torch.Generator`` seeded
 from ``(frame seed, i)``, so a frame renders the same whatever else runs.
 A ``render_chunk`` is ``(o [C, 3], d [C, 3], generator) -> rgb [C, 3]``.
 
+``photo_nerf_to_image`` sweeps a 2-D image model over every pixel of a
+photo (``train simple``).
+
 Many poses (the render CLI's orbit, the score CLI's test split) go through
 ``render_poses_batched``: ``frames_per_dispatch`` frames per batch, the next
 batch queued on the device before this one is waited for, each batch
@@ -247,3 +250,25 @@ def generate_360_view_synthesis(render_chunk: Callable, save_dir, epoch,
     out_path = save_dir / f"{epoch}-360.gif"
     mio.mimwrite(out_path, views)
     return out_path
+
+
+def photo_nerf_to_image(image_apply: Callable, im_h: int, im_w: int, chunk: int = 4096,
+                        device="cuda") -> np.ndarray:
+    """Query a 2-D image model at every pixel (JAX ``photo_nerf_to_image``,
+    reference ``nerf_helpers.py:212-238``): ``image_apply`` maps ``[C, 2]``
+    normalized coordinates ``(y / (H-1), x / (W-1))`` to ``[C, 3]`` rgb; the
+    coordinates are made on ``device`` and swept in ``chunk``-pixel chunks
+    without gradients. Returns ``[im_h, im_w, 3]`` float32 numpy."""
+    from minimal_nerf_torch import resolve_device
+
+    dev = resolve_device(device)
+    ys, xs = torch.meshgrid(torch.arange(im_h, dtype=torch.float32, device=dev),
+                            torch.arange(im_w, dtype=torch.float32, device=dev), indexing="ij")
+    # tensor divisors: a CUDA tensor divided by a Python number is multiplied
+    # by its reciprocal, which may round differently from JAX's division
+    div = lambda v, n: v.reshape(-1) / torch.tensor(n, dtype=torch.float32, device=dev)  # noqa: E731
+    coords = torch.stack([div(ys, im_h - 1), div(xs, im_w - 1)], dim=-1)
+    with torch.no_grad():
+        rgb = torch.cat([image_apply(coords[lo:lo + chunk])
+                         for lo in range(0, coords.shape[0], chunk)])
+    return rgb.float().reshape(im_h, im_w, 3).cpu().numpy()

@@ -108,10 +108,14 @@ def test_unreadable_checkpoints_raise(tmp_path):
                  **{f"leaf_{i}": v for i, v in leaves.items()})
     with pytest.raises(ValueError, match="leaf 0"):
         t_trainer.load_state_for_inference(wrong_g, device="cpu")
+    # a single-mode header over a full network's leaves is not guessed at,
+    # and render and score refuse single checkpoints by their mode
     single = tmp_path / "single.ckpt"
     _jax_ckpt(single, mode="single")
-    with pytest.raises(NotImplementedError, match="single"):
+    with pytest.raises(ValueError, match="needs 62"):
         t_trainer.load_state_for_inference(single, device="cpu")
+    with pytest.raises(ValueError, match="single"):
+        t_inf.build_render_chunk(str(single), 64, device="cpu")
     # a layout the port cannot name (extra optimizer leaves) is not guessed at
     header, leaves = t_ckpt.load_checkpoint(occ)
     header["train_config"]["occupancy"] = False

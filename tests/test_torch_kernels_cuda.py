@@ -869,3 +869,97 @@ def test_multi_step_under_the_train_cli_contexts(cuda_device, context, tmp_path)
         assert torch.equal(a, b)
     if context == "--profile":
         assert len(list(tmp_path.glob("trace-*.json"))) == 1
+
+
+# ------------------------------------------- the single mode and path parity
+
+# [train-pallas]'s gate in chip_smoke.py (PATH_GRAD_TOL): every leaf's
+# relative L2 gap between the fused and the pallas path's bf16 gradients at
+# shared parameters. H100 readings (4096 rays, 64+128): worst leaf 2.0e-3
+# over 8 shared points, 2.5e-4 at the init. In fp32 the one scalar leaf
+# coarse/density/b came to 3.5e-4 at the init (a sum over every point that
+# nearly cancels there), every other leaf under 6e-5
+PATH_GRAD_TOL = {torch.bfloat16: 1e-2, None: 1e-3}
+
+
+@pytest.mark.cuda
+def test_single_step_through_the_point_kernels_matches_plain(cuda_device):
+    """One ``mode="single"`` step of ``--kernel pallas`` on the card (the
+    point kernels under ``render_single``, 256 rays x 128 samples, bf16,
+    full widths) against the same step on the CPU (plain versions), on
+    shared He weights, rays and draws: the loss within 1e-3, every
+    gradient within the backward's bf16 bounds, one launch of each kernel."""
+    from minimal_nerf_torch.models.mlp import map_params
+    from minimal_nerf_torch.models.nerf import NeRFConfig
+    from minimal_nerf_torch.training import loop
+
+    cfg, n = NeRFConfig(coarse_samples=128), 256
+    params = init_nerf_mlp(torch.Generator(device=cuda_device).manual_seed(3),
+                           device=cuda_device, gain=HE_GAIN)
+    o, d, _ = _inputs(7, n, 1, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    batch = {"origin": o, "direc": d, "rgb": torch.rand((n, 3), generator=g, device=cuda_device)}
+    uniforms = {"coarse": torch.rand((n, 128), generator=g, device=cuda_device)}
+    to_cpu = lambda tree: map_params(lambda t: t.detach().cpu(), tree)  # noqa: E731
+    out = []
+    for dev, p, b, u in ((cuda_device, map_params(lambda t: t.detach().clone(), params), batch,
+                          uniforms), ("cpu", to_cpu(params), to_cpu(batch), to_cpu(uniforms))):
+        mlp_apply, render_fn = loop.kernel_hooks("pallas", dev, mode="single")
+        assert render_fn is None
+        metrics, grads = loop.loss_and_grads(p, cfg, b, torch.bfloat16, uniforms=u,
+                                             mlp_apply=mlp_apply, mode="single")
+        out.append((metrics["train_loss"].item(), fr.flatten_tree(to_cpu(grads))))
+    (card_loss, card_g), (cpu_loss, cpu_g) = out
+    assert rm.launches == 1 and rm.bwd_launches == 1 and fr.launches == fr.bwd_launches == 0
+    assert abs(card_loss - cpu_loss) <= 1e-3 * cpu_loss
+    assert _bwd_ok(_bwd_errors(card_g, cpu_g), BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, None])
+def test_fused_and_pallas_paths_agree_at_the_init(cuda_device, dtype):
+    """ROADMAP Queue 3 fault 2, step 0: one train step's gradients through
+    the fused kernels and through the point kernels at the same seeded init
+    (full widths, 64+128, 1024 rays of a procedural scene, the step's own
+    draws): every leaf's relative L2 gap within ``PATH_GRAD_TOL``; a
+    gradient taken one Adam step late (the packing a stale cache would
+    give) fails the bf16 bound."""
+    from minimal_nerf_torch.data.procedural import make_procedural_scene
+    from minimal_nerf_torch.models.mlp import map_params
+    from minimal_nerf_torch.models.nerf import NeRFConfig, init_nerf_network
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.checkpoint import unflatten_tree
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    cfg = NeRFConfig()
+    tcfg = TrainConfig(num_rays=1024, precision="bf16" if dtype else "fp32")
+    scene = make_procedural_scene((("train", 3),), height=64, width=64, gt_samples=64,
+                                  scene="object", device=cuda_device)[0]["train"]
+    fr.launches = fr.bwd_launches = rm.launches = rm.bwd_launches = 0
+    static = loop.scene_static(scene)
+    init = init_nerf_network(torch.Generator(device=cuda_device).manual_seed(0), cfg,
+                             device=cuda_device)
+    inp = loop.inputs_on_device([loop.draw_step_inputs(cfg, tcfg, static, 0, 0, 0,
+                                                       cuda_device)], cuda_device)[0]
+    batch = loop.ray_batch_from_arrays(inp["frame"], tcfg.num_rays, static.height, static.width,
+                                       static.focal, scene.images, scene.poses,
+                                       coords=(inp["xs"], inp["ys"]))
+
+    def grads(kernel, params):
+        mlp_apply, render_fn = loop.kernel_hooks(kernel, cuda_device)
+        _, g = loop.loss_and_grads(map_params(lambda t: t.detach().clone(), params), cfg,
+                                   batch, tcfg.compute_dtype, render_fn,
+                                   uniforms=inp["uniforms"], mlp_apply=mlp_apply)
+        return fr.flatten_tree(g)
+
+    def gap(a, b):
+        return max((torch.linalg.norm(x - y) / torch.linalg.norm(x)).item()
+                   for x, y in zip(a, b))
+
+    fused = grads("fused", init)
+    assert gap(fused, grads("pallas", init)) <= PATH_GRAD_TOL[dtype]
+    assert fr.launches == fr.bwd_launches == 2 and rm.launches == rm.bwd_launches == 2
+    if dtype is not None:
+        moved = map_params(lambda t: t.detach().clone(), init)
+        loop.adam_update(moved, unflatten_tree(init, fused), loop.adam_init(moved), 5e-4)
+        assert gap(fused, grads("pallas", moved)) > PATH_GRAD_TOL[dtype]

@@ -31,6 +31,8 @@ def test_port_and_chip_smoke_import_without_jax():
                  "minimal_nerf_torch.data.procedural", "minimal_nerf_torch.render",
                  "minimal_nerf_torch.kernels.fused_raymarch", "minimal_nerf_torch.score",
                  "minimal_nerf_torch.convert_ckpt", "minimal_nerf_torch.ops.image_metrics",
+                 "minimal_nerf_torch.data.photo", "minimal_nerf_torch.models.image_nerf",
+                 "minimal_nerf_torch.training.simple", "minimal_nerf_torch.nerf_helpers",
                  "chip_smoke"):
         assert name in names
     assert not any(n.startswith(("jax", "minimal_nerf_tpu")) for n in names)

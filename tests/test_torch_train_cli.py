@@ -129,8 +129,8 @@ def test_two_phase_run_on_the_cpu(fixture_scene, tmp_path):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["single"], NotImplementedError, "item 6"),
-    (["simple"], NotImplementedError, "item 6"),
+    (["--data-parallel", "2", "single"], NotImplementedError, "item 7"),
+    (["--multihost", "simple"], NotImplementedError, "item 7"),
     (["--data-parallel", "2", "full"], NotImplementedError, "item 7"),
     (["--multihost", "full"], NotImplementedError, "item 7"),
     (["--wandb", "NeRF", "full"], NotImplementedError, "wandb"),

@@ -315,9 +315,13 @@ def test_metrics_logger_writes_jax_csv_text(tmp_path):
     assert null.log_image("k", image) is None and null.elapsed() == 0.0
 
 
-def test_single_mode_is_refused(fixture_scene, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _t_trainer(tmp_path, "uniform", base_dir=fixture_scene, mode="single")
+def test_unknown_mode_is_refused(fixture_scene, tmp_path):
+    """The Trainer trains "full" and "single" (JAX asserts the same two);
+    any other mode, and occupancy outside "full", raise."""
+    with pytest.raises(ValueError, match="simple"):
+        _t_trainer(tmp_path, "uniform", base_dir=fixture_scene, mode="simple")
+    with pytest.raises(ValueError, match="occupancy"):
+        _t_trainer(tmp_path, "occupancy", base_dir=fixture_scene, mode="single")
 
 
 def test_fetch_scalars_sorts_and_fetches_once():
