@@ -3,6 +3,9 @@
     python3 chip_smoke.py
 
     python3 chip_smoke.py --occ-timing [ROOT]
+    python3 chip_smoke.py --path-parity [JSON]
+    python3 chip_smoke.py --trajectory
+    python3 chip_smoke.py --fault2
 
 Builds every kernel of the serving and training paths from the sources in
 the checkout (the fused ray-march forward and backward, the point-level MLP
@@ -55,6 +58,15 @@ and the sampler's weights, times and samples must be identical), then:
   call (bit-identical runs); it checks the loss, metrics.csv's columns, the
   checkpoints, the val view and every kernel's launches, and prints the
   trainer's ms/step beside ``[train]``'s and ``--fast``'s at 1 and 20;
+- ``[data-parallel]`` runs ``train --data-parallel 1`` (NCCL, a world of
+  one) 20 steps and 20 more at ``--steps-per-call 20`` against the same
+  without the flag (rows and checkpoint bit-identical), two ranks on the
+  one card over gloo (10 fp32 steps against one process, with two faulty
+  all-reduces that must fail the gate; 20 timed bf16 steps per rank with
+  the all-reduce's share; a ``--fast`` run whose grids stay identical
+  across the ranks), and ``render``/``score`` at the default
+  ``--data-parallel 1`` (each chunk split over a one-card mesh) against
+  the checkpoint's unsharded chunk (identical frames and scores);
 - ``[score]``, with imageio and PIL hidden, runs the score CLI
   (``score.main``) on that tree's test split for the trainer's 64+128
   checkpoint at ``--frames-per-dispatch`` 1 and 8 (the same scores; the
@@ -76,6 +88,11 @@ and the sampler's weights, times and samples must be identical), then:
 frames, the sampler hook per call, the probe wrapper) for the package under
 ROOT, this checkout by default: run on this checkout and on an older one
 unpacked inside the repo, in turns, it compares the two in one call.
+``--path-parity`` measures where the fused and the pallas train paths part;
+``--trajectory`` trains the multiframe arm of
+``experiments/r5-parity/trajectory_parity.py`` and holds its PSNR against
+the recorded JAX runs; ``--fault2`` decides ROADMAP Queue 3 fault 2 with a
+paired test over 8 seeds at 1,000 steps.
 
 Prints one line per phase, the card's name and power limit, a JSON line of
 kernel timings, and as its last line ``{"ok": true, "device": {...}}``.
@@ -86,6 +103,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import subprocess
@@ -1568,6 +1586,316 @@ def phase_trainer(dev, tmp: Path, scenes, train_ms: float):
             raise AssertionError("--fast at 20 steps per call left the trajectory of 1 per call")
         return fast_ms
 
+
+# [data-parallel] (b): two ranks share the one card over gloo, which takes
+# CUDA tensors (NCCL takes one card per rank); its fp32 gate on a 10-step
+# run against one process on the same draws, every leaf's L2 gap as a share
+# of its change since the init and every step's loss and grad norm:
+# an all-reduce that skips the division by the world size doubles the loss
+# (Adam hides it in the leaves), one that drops rank 1's rows moves both
+DP_STEPS, DP_FP32_STEPS, DP_FAST_STEPS = 20, 10, 40
+DP_LEAF_SHARE, DP_METRIC_RTOL = 5e-2, 1e-3
+DP_FAULTS = ("divide", "drop")
+
+
+@contextlib.contextmanager
+def faulty_reduce(fault):
+    """Inside, ``parallel.distributed.all_reduce_mean`` is faulty: ``"divide"``
+    sums without dividing by the world size, ``"drop"`` puts zeros in the
+    place of rank 1's shard; ``None`` leaves it as it is."""
+    import torch.distributed as dist
+
+    from minimal_nerf_torch.parallel import distributed
+
+    def around(orig):
+        def faulty(tensors, mesh):
+            flat = torch.cat([t.reshape(-1).float() for t in tensors])
+            if fault == "drop" and mesh.rank == 1:
+                flat = torch.zeros_like(flat)
+            dist.all_reduce(flat)
+            if fault == "drop":
+                flat = flat / mesh.size
+            out, offset = [], 0
+            for t in tensors:
+                out.append(flat[offset:offset + t.numel()].view_as(t))
+                offset += t.numel()
+            return out
+        return faulty
+
+    with (wrapped(distributed, "all_reduce_mean", around) if fault
+          else contextlib.nullcontext()):
+        yield
+
+
+def dp_steps(dev, scene, tcfg, steps: int, bias: float, mesh=None, timed=False):
+    """``steps`` full-width steps of ``make_train_step`` (fused, 64+128,
+    4096 rays) from the seeded init on the draws of seed 0, as one rank of
+    ``mesh`` or alone: the final leaves, each step's loss and grad norm, and
+    with ``timed`` each step's ms (synced) and its all-reduce's ms (CUDA
+    events around ``all_reduce_mean``)."""
+    from minimal_nerf_torch.models.nerf import NeRFConfig
+    from minimal_nerf_torch.parallel import distributed
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.checkpoint import flatten_tree
+
+    cfg = NeRFConfig()
+    step_fn = loop.make_train_step(cfg, tcfg, loop.scene_static(scene), device=dev, mesh=mesh)
+    params = init_train_params(dev, cfg, bias)
+    state = loop.adam_init(params)
+    spans, metrics, ms = [], [], []
+
+    def around(orig):
+        def timed_reduce(tensors, m):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(tensors, m)
+            end.record()
+            spans.append((start, end))
+            return out
+        return timed_reduce
+
+    with (wrapped(distributed, "all_reduce_mean", around) if timed and mesh is not None
+          else contextlib.nullcontext()):
+        for step in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, scene.images, scene.poses, step, 0)
+            metrics.append(torch.stack([m["train_loss"], m["grad_2.0_norm_total"]]))
+            if timed:
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    reduce_ms = [s.elapsed_time(e) for s, e in spans]
+    return ([t.detach().cpu() for t in flatten_tree(params)], torch.stack(metrics).cpu(), ms,
+            reduce_ms)
+
+
+def dp_worker(rank: int, world: int, coordinator: str, tree: str, out_dir: str, bias: float):
+    """Rank ``rank`` of ``[data-parallel]`` (b): ``world`` ranks on card 0
+    over gloo. The fp32 steps (TF32 off) with the all-reduce as it is and
+    with each fault; 20 timed bf16 steps; a ``--fast`` Trainer run over three
+    grid updates. Writes its results to ``out_dir/rank{rank}.pt``."""
+    import dataclasses as dc
+
+    from minimal_nerf_torch.data.synthetic import SyntheticScene
+    from minimal_nerf_torch.models.nerf import NeRFConfig
+    from minimal_nerf_torch.parallel import distributed, make_mesh
+    from minimal_nerf_torch.training.config import TrainConfig
+    from minimal_nerf_torch.training.trainer import Trainer
+
+    distributed.initialize(coordinator, world, rank, backend="gloo", device="cuda")
+    try:
+        mesh = make_mesh(world, device="cuda:0")
+        dev = mesh.device
+        scene = SyntheticScene.load(tree, "train", dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        out = {"backend": distributed.backend(), "device": str(dev)}
+        for fault in (None, *DP_FAULTS):
+            with faulty_reduce(fault), uncounted():
+                out[fault or "ok"] = dp_steps(dev, scene, TrainConfig(precision="fp32"),
+                                              DP_FP32_STEPS, bias, mesh)[:2]
+        dp_steps(dev, scene, TrainConfig(), 2, bias, mesh)  # warm-up
+        reset_counts()
+        _, _, ms, reduce_ms = dp_steps(dev, scene, TrainConfig(), DP_STEPS, bias, mesh,
+                                       timed=True)
+        out["bf16"] = dict(ms=ms, reduce_ms=reduce_ms, counts=counts())
+        tcfg = TrainConfig(occupancy=True, occ_warmup_steps=OCC_WARMUP, max_steps=DP_FAST_STEPS,
+                           log_every=DP_FAST_STEPS)
+        reset_counts()
+        trainer = Trainer(dc.replace(NeRFConfig(), coarse_samples=16, fine_samples=48), tcfg,
+                          tree, Path(out_dir) / f"runs{rank}", name="dpfast", device=dev,
+                          mesh=mesh)
+        trainer.fit()
+        out["fast"] = dict(grid=trainer.final_state[2].cpu(), counts=counts(),
+                           wrote=(Path(out_dir) / f"runs{rank}").exists())
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        distributed.shutdown()
+
+
+def leaf_share(got, want, init):
+    """The largest ``|got - want| / |want - init|`` (L2) over the leaves."""
+    return max(float(torch.linalg.norm(a - b) / torch.linalg.norm(b - c).clamp_min(1e-30))
+               for a, b, c in zip(got, want, init))
+
+
+def phase_data_parallel(dev, tmp: Path, bias: float):
+    """``[data-parallel]``: (a) ``train --data-parallel 1 full`` over NCCL
+    (a world of one in this process) at the published widths, 20 steps
+    then 20 more at ``--steps-per-call 20`` (one CUDA graph holding the NCCL
+    all-reduce), against the same two runs without the flag: rows and final
+    checkpoint bit-identical; (b) two ranks on the one card over gloo (CUDA
+    tensors, 4096 rays = 2048 per rank, 64+128, fused): 10 fp32 steps held
+    against one process on the same draws with a gate that both faulty
+    all-reduces fail, 20 timed bf16 steps per rank with the all-reduce's
+    share, a ``--fast`` run whose grids stay bit-identical across the ranks;
+    (c) ``render`` and ``score`` at the default ``--data-parallel 1`` (each
+    chunk split over a one-card mesh) against the checkpoint's unsharded
+    chunk: identical frames and scores."""
+    import torch.multiprocessing as mp
+
+    from minimal_nerf_torch.data.synthetic import SyntheticScene
+    from minimal_nerf_torch.models.nerf import NeRFConfig
+    from minimal_nerf_torch.parallel import distributed
+    from minimal_nerf_torch.render import render_views
+    from minimal_nerf_torch.score import calculate_scores
+    from minimal_nerf_torch.training.checkpoint import (flatten_tree, latest_checkpoint,
+                                                        load_checkpoint)
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    card = card_line()
+    tree, root = tmp / "tree", tmp / "dp"
+    timing = {"iterations_per_sec", "rays_per_sec", "train iteration speed", "wall_seconds",
+              "val_seconds", "ckpt_seconds"}
+    untimed = lambda rows: [{k: v for k, v in r.items() if k not in timing}  # noqa: E731
+                            for r in rows]
+
+    # (a) a world of one over NCCL against no mesh
+    runs = {}
+    for name, flag in (("dp1", ["--data-parallel", "1"]), ("nodp", [])):
+        base = ["-n", name, "-rd", str(root), "--log-every", "20"] + flag
+        _, wall1, launched1 = run_train_cli(base + ["-s", "20", "full", "-b", str(tree)])
+        with graph_calls() as seen:
+            _, wall2, launched2 = run_train_cli(base + ["-s", "40", "-l", "auto",
+                                                        "--steps-per-call", "20", "full",
+                                                        "-b", str(tree)])
+        _, rows = read_csv(root / name / "metrics.csv")
+        ckpt = latest_checkpoint(root / name / "checkpoints")
+        runs[name] = dict(rows=rows, ckpt=ckpt, leaves=load_checkpoint(ckpt)[1],
+                          launched=(launched1, launched2), graphs=(seen["captures"],
+                                                                   seen["replays"]),
+                          ms=[1e3 * float(r["train iteration speed"]) for r in rows])
+    a, b = runs["dp1"], runs["nodp"]
+    same = (untimed(a["rows"]) == untimed(b["rows"]) and len(a["leaves"]) == len(b["leaves"])
+            and all((a["leaves"][i] == b["leaves"][i]).all() for i in a["leaves"]))
+    want = ((40, 40, 0, 0, 0, 0), (4, 4, 0, 0, 0, 0))
+    ok = (same and a["launched"] == b["launched"] == want and a["graphs"] == (1, 19)
+          and not torch.distributed.is_initialized())
+    print(f"[data-parallel] (a) {card}: train --data-parallel 1 (NCCL, a world of one) -s 20, "
+          f"then -l auto -s 40 --steps-per-call 20 (one CUDA graph with the all-reduce, "
+          f"captures/replays {a['graphs']}), against the same without the flag: rows "
+          f"(timings aside) and the step-40 checkpoint's {len(a['leaves'])} leaves "
+          f"bit-identical: {same}; wrapper launches ({COUNTED}) per run dp1 {a['launched']} "
+          f"no-mesh {b['launched']} (want {want}); ms/step from the CSV (steps 1-20 eager, "
+          f"21-40 replayed) dp1 {[round(x, 2) for x in a['ms']]} no-mesh "
+          f"{[round(x, 2) for x in b['ms']]} {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("--data-parallel 1 left the run without a mesh")
+
+    # (b) two gloo ranks on the one card against one process
+    out_dir = tmp / "dp2"
+    out_dir.mkdir()
+    coord = f"127.0.0.1:{distributed.free_port()}"
+    t0 = time.perf_counter()
+    mp.spawn(dp_worker, args=(2, coord, str(tree), str(out_dir), bias), nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt") for r in (0, 1)]
+    scene = SyntheticScene.load(tree, "train", dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with uncounted():
+        init = [t.cpu() for t in flatten_tree(init_train_params(dev, NeRFConfig(), bias))]
+        want_leaves, want_metrics, _, _ = dp_steps(dev, scene, TrainConfig(precision="fp32"),
+                                                   DP_FP32_STEPS, bias)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    gaps = {}
+    for name in ("ok", *DP_FAULTS):
+        leaves, metrics = ranks[0][name]
+        rel = float(((metrics - want_metrics).abs() / want_metrics.abs()).max())
+        gaps[name] = (leaf_share(leaves, want_leaves, init), rel)
+    passes = {k: g[0] <= DP_LEAF_SHARE and g[1] <= DP_METRIC_RTOL for k, g in gaps.items()}
+    agree = all(torch.equal(x, y) for x, y in zip(ranks[0]["ok"][0], ranks[1]["ok"][0]))
+    ok = passes["ok"] and not any(passes[f] for f in DP_FAULTS) and agree and all(
+        r["backend"] == "gloo" for r in ranks)
+    print(f"[data-parallel] (b) {card}: 2 ranks on {ranks[0]['device']} over "
+          f"{ranks[0]['backend']} (CUDA tensors), {RAYS} rays = {RAYS // 2} per rank, 64+128, "
+          f"fused, fp32 (TF32 off), {DP_FP32_STEPS} steps against one process on the same "
+          f"draws: largest leaf L2 gap / its change since the init, largest relative gap of a "
+          f"step's loss or grad norm: as built {gaps['ok'][0]:.3e}, {gaps['ok'][1]:.3e}; no "
+          f"division by the world size {gaps['divide'][0]:.3e}, {gaps['divide'][1]:.3e}; "
+          f"rank 1's rows dropped {gaps['drop'][0]:.3e}, {gaps['drop'][1]:.3e} (gate "
+          f"{DP_LEAF_SHARE}, {DP_METRIC_RTOL}: {passes}); both ranks' leaves bit-identical: "
+          f"{agree}; the spawn took {spawn_s:.1f} s {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("two gloo ranks left the one-process step, or a fault passed")
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    per_rank = [(med(r["bf16"]["ms"]), med(r["bf16"]["reduce_ms"]), r["bf16"]["counts"])
+                for r in ranks]
+    want = (2 * DP_STEPS, 2 * DP_STEPS, 0, 0, 0, 0)
+    ok = all(c == want for _, _, c in per_rank)
+    print(f"[data-parallel] (b) {card}: {DP_STEPS} bf16 steps per rank (synced per step): "
+          + "; ".join(f"rank {i} median ms/step={m:.2f} all-reduce {r:.2f} ms "
+                      f"({100 * r / m:.1f}% of the step), wrapper launches ({COUNTED}) {c}"
+                      for i, (m, r, c) in enumerate(per_rank))
+          + f" (want {want} on every rank) {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("a rank did not launch the fused kernels on every step")
+    grids = [r["fast"]["grid"] for r in ranks]
+    updates = len(range(0, DP_FAST_STEPS, 16))
+    ok = (torch.equal(grids[0], grids[1]) and float(grids[0].max()) > 0
+          and ranks[0]["fast"]["wrote"] and not ranks[1]["fast"]["wrote"]
+          and all(r["fast"]["counts"][5] >= DP_FAST_STEPS for r in ranks))
+    print(f"[data-parallel] (b) {card}: Trainer --fast (occupancy G=64, 16+48) on 2 ranks, "
+          f"{DP_FAST_STEPS} steps, {updates} grid updates: the ranks' grids bit-identical: "
+          f"{torch.equal(grids[0], grids[1])} (max density {float(grids[0].max()):.3e}); "
+          f"wrapper launches per rank {[r['fast']['counts'] for r in ranks]}; rank 0 wrote "
+          f"its run: {ranks[0]['fast']['wrote']}, rank 1 wrote nothing: "
+          f"{not ranks[1]['fast']['wrote']} {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the --fast ranks' grids parted or rank 1 wrote files")
+
+    # (c) render and score split each chunk over a mesh of local cards (one
+    # here, the default), held against the checkpoint's unsharded chunk
+    from minimal_nerf_torch import views
+    from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
+    from minimal_nerf_torch.ops.image_metrics import psnr, ssim
+    from minimal_nerf_torch.training.trainer import load_state_for_inference
+
+    ckpt = a["ckpt"]
+    params, nerf_cfg, train_cfg, grid, _ = load_state_for_inference(str(ckpt), device=dev)
+    if grid is not None:
+        raise AssertionError(f"{ckpt.name} holds an occupancy grid: (c) wants none")
+    unsharded = views.make_fine_render_chunk(params, nerf_cfg,
+                                             compute_dtype=train_cfg.compute_dtype,
+                                             render_fn=make_fused_render_fn())
+    sweeps = {"mesh": render_views(str(ckpt), rays=RAYS, num_poses=2, height=HW, width=HW,
+                                   device=dev),
+              "unsharded": views.orbit_views(unsharded, height=HW, width=HW, chunk=RAYS,
+                                             num_poses=2, device=dev)}
+    frames, launched, ms = {}, {}, {}
+    for name, sweep in sweeps.items():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames[name] = list(sweep)
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0) / 2
+        launched[name] = counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        scores = calculate_scores(str(ckpt), tree, RAYS, device=dev)
+    test = SyntheticScene.load(tree, "test", dev)
+    psnr_sum = ssim_sum = torch.zeros((), dtype=torch.float64, device=dev)
+    for idx, recon in enumerate(views.render_poses_batched(
+            unsharded, test.poses, test.height, test.width, test.focal, chunk=RAYS,
+            device=dev, device_frames=True)):
+        ssim_sum = ssim_sum + ssim(test.images[idx], recon)
+        psnr_sum = psnr_sum + psnr(test.images[idx], recon)
+    want_scores = tuple(v / test.num_frames for v in torch.stack([psnr_sum, ssim_sum]).tolist())
+    same = (all((x == y).all() for x, y in zip(frames["mesh"], frames["unsharded"]))
+            and scores == want_scores)
+    want = (2 * 2 * math.ceil(HW * HW / RAYS), 0, 0, 0, 0, 0)
+    ok = same and launched["mesh"] == launched["unsharded"] == want
+    print(f"[data-parallel] (c) {card}: render of 2 {HW}x{HW} frames and score of the "
+          f"{TEST_FRAMES} test frames from {ckpt.name} at the default --data-parallel 1 (each "
+          f"chunk's uniforms drawn once, the chunk rendered on card 0 through the one-card "
+          f"mesh) against the checkpoint's unsharded chunk: frames and scores (psnr, ssim) "
+          f"{scores} identical: {same}; render launches {launched['mesh']} / "
+          f"{launched['unsharded']} (want {want}); ms/frame {ms['mesh']:.1f} / "
+          f"{ms['unsharded']:.1f} {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the one-card mesh changed the rendered frames or scores")
 
 
 # the torch metrics on the card against the numpy version on the host, on
@@ -3123,6 +3451,188 @@ def path_parity(dev, out_json=None) -> int:
     return 0 if ok else 1
 
 
+# ``--trajectory``: the multiframe arm of experiments/r5-parity/
+# trajectory_parity.py on its committed scene (tests/torch_data/
+# r5_mf_scene, JAX's ensure_scene tree); the gate of PERFORMANCE.md:260-291
+# and ROADMAP item 1.4: on seeds 0 and 1 the mean of PSNR_port - PSNR_jax
+# over steps 300-600 within 0.5 dB of the recorded jax.csv, per fp32 path
+TRAJ_TREE = Path(__file__).resolve().parent / "tests" / "torch_data" / "r5_mf_scene"
+TRAJ_CSV = Path(__file__).resolve().parent / "experiments" / "r5-parity" / "results"
+TRAJ_RAYS, TRAJ_SAMPLES, TRAJ_STEPS, TRAJ_EVERY, TRAJ_FRAMES = 512, (12, 24), 600, 100, 5
+TRAJ_CROP_EPOCHS, TRAJ_SEEDS, TRAJ_GATE = 4, (0, 1, 2), 0.5
+TRAJ_RUNS = (("fp32", ("xla", "fused", "pallas")), ("bf16", ("fused", "pallas")))
+
+
+def psnr_u8(pred, gt) -> float:
+    """PSNR of uint8 frames (``experiments/r4-parity/overfit_parity.py::psnr``)."""
+    import numpy as np
+
+    mse = np.mean((pred.astype(np.float64) - gt.astype(np.float64)) ** 2)
+    return float(10.0 * np.log10(255.0 ** 2 / mse))
+
+
+def trajectory(dev) -> int:
+    """``python3 chip_smoke.py --trajectory``: the port's ``Trainer`` on the
+    arm (5 train frames of 100x100, 512 rays, 12+24 samples, 5 steps per
+    epoch, the crop handoff after 4 epochs, the LR 5e-4 * 0.1^(epoch/1200)
+    staircased per epoch, JAX's init ``init_nerf_network(PRNGKey(seed))``
+    made by ``utils.threefry``), 600 steps, the PSNR of train frame 0 every
+    100 steps rendered through the run's own path; fp32 (TF32 off) under
+    xla, fused and pallas and bf16 under fused and pallas, seeds 0-2, each
+    beside the recorded JAX run. Returns 1 if an fp32 path misses the gate
+    on seed 0 or 1."""
+    import numpy as np
+
+    from minimal_nerf_torch import views
+    from minimal_nerf_torch.data.synthetic import SyntheticScene
+    from minimal_nerf_torch.models.mlp import params_from_jax
+    from minimal_nerf_torch.models.nerf import NeRFConfig
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.config import TrainConfig
+    from minimal_nerf_torch.training.metrics import NullLogger
+    from minimal_nerf_torch.training.trainer import Trainer
+    from minimal_nerf_torch.utils import threefry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    cfg = NeRFConfig(coarse_samples=TRAJ_SAMPLES[0], fine_samples=TRAJ_SAMPLES[1])
+    scene = SyntheticScene.load(TRAJ_TREE, "train", dev)
+    gt0 = scene.images[0].cpu().numpy()
+    o0, d0 = scene.frame_rays(0)
+    black = psnr_u8(np.zeros_like(gt0), gt0)
+    evals = list(range(TRAJ_EVERY, TRAJ_STEPS + 1, TRAJ_EVERY))
+    late = [s for s in evals if s >= TRAJ_STEPS // 2]
+    record, ok = {}, True
+    print(f"[trajectory] {card}: the multiframe arm on {TRAJ_TREE.name} ({scene.num_frames} "
+          f"train frames {scene.height}x{scene.width}), {TRAJ_RAYS} rays, "
+          f"{cfg.coarse_samples}+{cfg.fine_samples}, {TRAJ_STEPS} steps; an all-black frame 0 "
+          f"scores {black:.4f} dB", flush=True)
+    for precision, kernels in TRAJ_RUNS:
+        for seed in TRAJ_SEEDS:
+            jax_csv = {int(r["step"]): float(r["psnr"])
+                       for r in read_csv(TRAJ_CSV / f"mf_s{seed}" / "jax.csv")[1]}
+            for kernel in kernels:
+                t0 = time.perf_counter()
+                tcfg = TrainConfig(num_rays=TRAJ_RAYS, cropping_epochs=TRAJ_CROP_EPOCHS,
+                                   steps_per_epoch=TRAJ_FRAMES, precision=precision,
+                                   kernel=kernel, log_every=TRAJ_EVERY, seed=seed,
+                                   check_val_every_n_epoch=10 ** 9)
+                params = params_from_jax(threefry.init_nerf_network(seed), dev)
+                state = (params, loop.adam_init(params), None, 0)
+                mlp_apply, render_fn = loop.kernel_hooks(kernel, dev)
+                render_chunk = views.make_param_render_chunk(cfg, tcfg.compute_dtype,
+                                                             mlp_apply, render_fn)
+                psnr = {}
+                with tempfile.TemporaryDirectory() as root, uncounted():
+                    for stop in evals:
+                        trainer = Trainer(cfg, dataclasses.replace(tcfg, max_steps=stop),
+                                          {"train": scene}, root, name="traj",
+                                          mlp_apply=mlp_apply, render_fn=render_fn,
+                                          logger=NullLogger(), initial_state=state, device=dev)
+                        with contextlib.redirect_stderr(io.StringIO()):
+                            trainer.fit()
+                        state = trainer.final_state
+                        pred = views.view_reconstruction_with_params(
+                            render_chunk, state[0], o0, d0, chunk=TRAJ_RAYS, seed=1)
+                        psnr[stop] = psnr_u8(pred, gt0)
+                delta = [psnr[s] - jax_csv[s] for s in evals]
+                mean_late = sum(psnr[s] - jax_csv[s] for s in late) / len(late)
+                breaches = [s for s in evals if abs(psnr[s] - jax_csv[s]) > TRAJ_GATE]
+                gated = precision == "fp32" and seed in (0, 1)
+                passed = abs(mean_late) <= TRAJ_GATE
+                ok &= passed or not gated
+                collapsed = all(abs(psnr[s] - black) < 1e-3 for s in evals)
+                record[f"{precision}/{kernel}/s{seed}"] = dict(psnr=psnr, delta=delta,
+                                                               mean_late=mean_late)
+                secs = time.perf_counter() - t0
+                print(f"[trajectory] {precision} {kernel} seed {seed} ({secs:.1f} s): psnr at {evals} {[round(psnr[s], 4) for s in evals]}; jax.csv "
+                      f"{[round(jax_csv[s], 4) for s in evals]}; delta "
+                      f"{[round(x, 4) for x in delta]}; mean delta over {late[0]}-{late[-1]} "
+                      f"{mean_late:+.4f} dB; single evals beyond {TRAJ_GATE} dB: {breaches}; "
+                      f"all-black at every eval: {collapsed}"
+                      + (f" {'PASS' if passed else 'MISS'} (gate |mean| <= {TRAJ_GATE})"
+                         if gated else " (reported, no gate)"), flush=True)
+    print("[trajectory] " + json.dumps({k: round(v["mean_late"], 4) for k, v in record.items()}),
+          flush=True)
+    return 0 if ok else 1
+
+
+# ``--fault2``: ROADMAP Queue 3 fault 2 in its own configuration ([train]'s
+# scene and init, 64+128, 4096 rays, bf16), fused against pallas, 1,000
+# steps (past the 200-step crop warmup) on each of 8 draw seeds, each
+# checkpoint scored on the 4 test frames through its own path; closed when
+# the paired mean gap is within 2 standard errors of 0 and within 0.5 dB
+FAULT2_STEPS, FAULT2_EVERY, FAULT2_SEEDS, FAULT2_GATE = 1000, 200, tuple(range(8)), 0.5
+
+
+def fault2(dev) -> int:
+    """``python3 chip_smoke.py --fault2``: the paired test of fault 2 (above);
+    prints each seed's PSNR of both paths every 200 steps, the paired
+    differences at step 1000, their mean, standard error and the verdict,
+    and the first step where the two paths' mean PSNR curves part by more
+    than 0.5 dB."""
+    from minimal_nerf_torch.models.nerf import NeRFConfig
+    from minimal_nerf_torch.data.procedural import save_scene_tree
+    from minimal_nerf_torch.training import loop
+    from minimal_nerf_torch.training.checkpoint import checkpoint_name, save_checkpoint
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    card = card_line()
+    scenes = make_train_scene(dev)
+    scene = scenes["train"]
+    cfg, tcfg = NeRFConfig(), TrainConfig()
+    bias = init_density_bias(dev, cfg, tcfg, scene)
+    init = init_train_params(dev, cfg, bias)
+    points = list(range(FAULT2_EVERY, FAULT2_STEPS + 1, FAULT2_EVERY))
+    curves = {k: {s: [] for s in points} for k in PATHS}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tree = save_scene_tree({"test": scenes["test"]}, tmp / "tree")
+        for seed in FAULT2_SEEDS:
+            for kernel in PATHS:
+                t0 = time.perf_counter()
+                k_cfg = dataclasses.replace(tcfg, kernel=kernel)
+                mlp_apply, render_fn = loop.kernel_hooks(kernel, dev)
+                step_fn = loop.make_train_step(cfg, k_cfg, loop.scene_static(scene),
+                                               render_fn=render_fn, device=dev,
+                                               mlp_apply=mlp_apply)
+                params = cloned(init)
+                state = loop.adam_init(params)
+                with uncounted():
+                    for step in range(FAULT2_STEPS):
+                        params, state, metrics = step_fn(params, state, scene.images,
+                                                         scene.poses, step, seed)
+                        if step + 1 in curves[kernel]:
+                            path = save_checkpoint(
+                                tmp / checkpoint_name(f"{kernel}-s{seed}", 0, step + 1), params,
+                                step + 1, cfg.to_dict(), k_cfg.to_dict())
+                            curves[kernel][step + 1].append(scored_psnr(path, tree, dev))
+                print(f"[fault2] {card}: bf16 {kernel} seed {seed}, {FAULT2_STEPS} steps in "
+                      f"{time.perf_counter() - t0:.1f} s (with the scoring): test psnr at "
+                      f"{points} {[round(curves[kernel][s][-1], 4) for s in points]}; last "
+                      f"loss {float(metrics['train_loss']):.5f}", flush=True)
+    final = FAULT2_STEPS
+    diffs = [p - f for p, f in zip(curves["pallas"][final], curves["fused"][final])]
+    n = len(diffs)
+    mean = sum(diffs) / n
+    se = math.sqrt(sum((d - mean) ** 2 for d in diffs) / (n - 1) / n)
+    closed = abs(mean) <= 2 * se and abs(mean) <= FAULT2_GATE
+    means = {k: {s: sum(v) / n for s, v in c.items()} for k, c in curves.items()}
+    part = next((s for s in points if abs(means["pallas"][s] - means["fused"][s]) > FAULT2_GATE),
+                None)
+    print(f"[fault2] {card}: at step {final} over seeds {list(FAULT2_SEEDS)}: fused "
+          f"{[round(x, 4) for x in curves['fused'][final]]}, pallas "
+          f"{[round(x, 4) for x in curves['pallas'][final]]}; pallas - fused per seed "
+          f"{[round(d, 4) for d in diffs]}; mean {mean:+.4f} dB, standard error {se:.4f} dB "
+          f"({mean / se:+.2f} SE); the mean curves at {points}: fused "
+          f"{[round(means['fused'][s], 4) for s in points]} pallas "
+          f"{[round(means['pallas'][s], 4) for s in points]}; first step they part by more "
+          f"than {FAULT2_GATE} dB: {part}; verdict: "
+          f"{'CLOSED (|mean| <= 2 SE and <= 0.5 dB)' if closed else 'OPEN'}", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -3143,6 +3653,9 @@ def main(argv=None) -> int:
     if argv[:1] == ["--path-parity"]:
         build.build_all(KERNELS)
         return path_parity(dev, argv[1] if len(argv) > 1 else None)
+    if argv[:1] in (["--trajectory"], ["--fault2"]):
+        build.build_all(KERNELS)
+        return (trajectory if argv[0] == "--trajectory" else fault2)(dev)
 
     t0 = time.perf_counter()
     build.build_all(KERNELS)
@@ -3179,6 +3692,7 @@ def main(argv=None) -> int:
         phase_occ_reference(dev, scene, o_params, o_grid, o_cfg, o_tcfg)
         multi = phase_multi_step(dev, scene, train["bias"], params)
         phase_trainer(dev, Path(tmp), scenes, train["ms"])
+        phase_data_parallel(dev, Path(tmp), train["bias"])
         single = phase_single(dev, Path(tmp))
         phase_simple(dev, Path(tmp))
         phase_score(dev, Path(tmp), ckpt, pallas["ckpt"], train["ckpt"])

@@ -1,8 +1,8 @@
 """Procedural analytic scenes: self-contained ground truth for training.
 
-Counterpart of ``minimal_nerf_tpu/data/procedural.py`` (the ``field`` and
-``object`` archetypes), with ``save_scene_tree`` to write a Blender-style PNG
-tree and a command line to make one::
+Counterpart of ``minimal_nerf_tpu/data/procedural.py`` (the ``field``,
+``object``, ``thin`` and ``shell`` archetypes), with ``save_scene_tree`` to
+write a Blender-style PNG tree and a command line to make one::
 
     python -m minimal_nerf_torch.data.procedural --out DIR [--scene object]
 
@@ -65,6 +65,54 @@ class SphereField:
             densities=rng.uniform(40.0, 120.0, num_spheres).astype(np.float32),
         )
 
+    @classmethod
+    def random_thin(cls, key: int = 0, num_branches: int = 6,
+                    steps_per_branch: int = 36) -> "SphereField":
+        """Thin branching structure (ficus/mic analogue): tiny beads along
+        random-walk branches growing up from a trunk, sub-percent occupied
+        volume inside the unit ball."""
+        rng = np.random.default_rng(key)
+        centers = [np.linspace([0.0, -0.85, 0.0], [0.0, -0.1, 0.0], 10)]
+        for _ in range(num_branches):
+            pos = np.array([0.0, rng.uniform(-0.3, 0.1), 0.0])
+            step = rng.normal(size=3)
+            step[1] = abs(step[1])  # grow upward
+            step /= np.linalg.norm(step) + 1e-9
+            pts = []
+            for _ in range(steps_per_branch):
+                step += 0.22 * rng.normal(size=3)
+                step[1] = abs(step[1]) * 0.6 + 0.15
+                step /= np.linalg.norm(step) + 1e-9
+                pos = pos + 0.06 * step
+                r = np.linalg.norm(pos)
+                if r > 0.92:  # keep inside the unit ball
+                    pos = pos * (0.92 / r)
+                pts.append(pos.copy())
+            centers.append(np.stack(pts))
+        centers = np.concatenate(centers).astype(np.float32)
+        k = centers.shape[0]
+        return cls(
+            centers=centers,
+            radii=rng.uniform(0.015, 0.04, k).astype(np.float32),
+            colors=rng.uniform(0.15, 1.0, (k, 3)).astype(np.float32),
+            densities=rng.uniform(160.0, 320.0, k).astype(np.float32),
+        )
+
+    @classmethod
+    def random_shell(cls, key: int = 0, num_spheres: int = 110) -> "SphereField":
+        """Hollow shell (ship-hull/materials analogue): beads on an
+        ellipsoid's surface, empty inside and outside."""
+        rng = np.random.default_rng(key)
+        dirs = rng.normal(size=(num_spheres, 3))
+        dirs /= np.linalg.norm(dirs, axis=1, keepdims=True) + 1e-9
+        axes = np.array([0.85, 0.45, 0.65])
+        return cls(
+            centers=(dirs * axes).astype(np.float32),
+            radii=rng.uniform(0.05, 0.12, num_spheres).astype(np.float32),
+            colors=rng.uniform(0.1, 1.0, (num_spheres, 3)).astype(np.float32),
+            densities=rng.uniform(50.0, 140.0, num_spheres).astype(np.float32),
+        )
+
     def field(self, pts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Analytic ``(density [..., 1], rgb [..., 3])`` at points ``[..., 3]``:
         ``sigma_k * sigmoid((r_k - |x - c_k|) / 0.02)`` summed over spheres,
@@ -76,6 +124,11 @@ class SphereField:
         sigma = torch.sum(sigma_k, dim=-1, keepdim=True)
         rgb = (sigma_k @ t(self.colors)) / (sigma + 1e-9)
         return sigma, torch.clamp(rgb, 0.0, 1.0)
+
+
+# the --scene archetypes
+SCENES = {"field": SphereField.random, "object": SphereField.random_object,
+          "thin": SphereField.random_thin, "shell": SphereField.random_shell}
 
 
 def render_analytic_view(field: SphereField, pose, height: int, width: int, focal: float,
@@ -109,12 +162,12 @@ def make_procedural_scene(split_frames=(("train", 20), ("val", 2), ("test", 4)),
     """In-memory ``SyntheticScene``s for each split, on ``device``.
 
     Poses follow the spherical orbit with split-specific azimuth offsets and
-    a slight elevation wobble, as in JAX. ``scene`` is ``"field"`` or
-    ``"object"``. The jitter is drawn from a generator seeded with ``seed``.
+    a slight elevation wobble, as in JAX. ``scene`` is a key of ``SCENES``.
+    The jitter is drawn from a generator seeded with ``seed``.
     Returns ``(dict split -> SyntheticScene, field)``.
     """
     if field is None:
-        field = {"field": SphereField.random, "object": SphereField.random_object}[scene](seed)
+        field = SCENES[scene](seed)
     focal = cameras.focal_from_angle(width, camera_angle_x)
     gen = torch.Generator(device=device).manual_seed(seed)
     offsets = {"train": 0.0, "val": 3.1, "test": 7.3}
@@ -171,9 +224,9 @@ def main(argv=None) -> Path:
                              "(lower for quick fixtures)")
     parser.add_argument("--chunk", type=int, default=65536,
                         help="rays per ground-truth render chunk (lower on the CPU)")
-    parser.add_argument("--scene", choices=["field", "object"], default="field",
-                        help="'object' = compact Blender-like cluster ('thin' and 'shell' "
-                             "are not ported: ROADMAP Queue 1 item 3)")
+    parser.add_argument("--scene", choices=list(SCENES), default="field",
+                        help="'object' = compact Blender-like cluster; 'thin' = branching "
+                             "beads; 'shell' = hollow ellipsoid shell")
     parser.add_argument("--device", default="cuda",
                         help="torch device to render the ground truth on (default cuda)")
     args = parser.parse_args(argv)

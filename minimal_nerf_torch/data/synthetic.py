@@ -10,7 +10,8 @@ its pixels directly (the JAX package's u32 word packing is a TPU gather
 workaround and is not ported).
 
 Random draws come from a ``torch.Generator``, or from given coordinates so
-tests can replay the JAX draws.
+tests can replay the JAX draws. ``SyntheticDataset``, ``SyntheticDataModule``
+and ``getSyntheticDataloader`` are the reference-shaped facade over a scene.
 """
 
 from __future__ import annotations
@@ -116,3 +117,93 @@ def ray_batch_from_arrays(frame_idx, num_rays: int, height: int, width: int, foc
     origin, direc = cameras.rays_for_pixels(xs.float(), ys.float(), height, width, focal, c2w)
     rgb = images[frame_idx, ys, xs].float() / 255.0
     return {"origin": origin, "direc": direc, "rgb": rgb, "xs": xs, "ys": ys}
+
+
+def getSyntheticDataloader(base_dir, tvt: str, num_rays: int, cropping: bool = False,
+                           seed: int = 0, device="cuda") -> "SyntheticDataset":
+    """Factory mirroring the reference's ``dataloader.getSyntheticDataloader``
+    (JAX ``getSyntheticDataloader``): the returned dataset is iterable
+    directly (one ray batch per frame), its split already on ``device``."""
+    return SyntheticDataset(base_dir, tvt, num_rays, cropping=cropping, seed=seed, device=device)
+
+
+class SyntheticDataModule:
+    """Reference-shaped data module (JAX ``SyntheticDataModule``): a
+    center-cropped and a full train dataset and a val dataset;
+    ``train_dataloader`` gives the cropped one while ``current_epoch <
+    cropping_epochs``. The Trainer does not use it: its train step draws
+    the crop itself (``training.loop.draw_step_inputs``)."""
+
+    def __init__(self, base_dir, num_rays: int, cropping_epochs: int, seed: int = 0,
+                 device="cuda"):
+        self.base_dir = base_dir
+        self.num_rays = num_rays
+        self.cropping_epochs = cropping_epochs
+        self.current_epoch = 0
+        self.crop_train_ds = SyntheticDataset(base_dir, "train", num_rays, cropping=True,
+                                              seed=seed, device=device)
+        self.train_ds = SyntheticDataset(base_dir, "train", num_rays, cropping=False,
+                                         seed=seed + 1, device=device)
+        self.val_ds = SyntheticDataset(base_dir, "val", num_rays, cropping=False, seed=seed + 2,
+                                       device=device)
+
+    def train_dataloader(self):
+        if self.current_epoch < self.cropping_epochs:
+            return self.crop_train_ds
+        return self.train_ds
+
+    def val_dataloader(self):
+        return self.val_ds
+
+
+class SyntheticDataset(torch.utils.data.Dataset):
+    """Reference-shaped dataset (JAX ``SyntheticDataset``, reference
+    ``dataloader.SyntheticDataset``) over a ``SyntheticScene``.
+
+    ``dataset[idx]`` is ``num_rays`` random pixels of frame ``idx``
+    (``ray_batch_from_arrays``: ``origin``, ``direc``, ``rgb``, ``xs``,
+    ``ys``), plus ``all_origin``, ``all_direc`` ``[H, W, 3]`` and ``image``
+    (fp32 in ``[0, 1]``) for the val and test splits. The ``n``-th item
+    drawn draws from a generator seeded from ``(seed, n)``.
+    """
+
+    def __init__(self, base_dir, tvt: str, num_rays: int, cropping: bool = False,
+                 seed: int = 0, device="cuda"):
+        self.scene = SyntheticScene.load(base_dir, tvt, device)
+        self.tvt = tvt
+        self.num_rays = num_rays
+        self.cropping = cropping
+        self.seed = seed
+        self._count = 0
+
+    @property
+    def focal(self) -> float:
+        return self.scene.focal
+
+    @property
+    def H(self) -> int:
+        return self.scene.height
+
+    @property
+    def W(self) -> int:
+        return self.scene.width
+
+    def __len__(self) -> int:
+        return self.scene.num_frames
+
+    def __getitem__(self, idx: int) -> Dict[str, torch.Tensor]:
+        if not 0 <= idx < len(self):
+            raise IndexError(idx)
+        from minimal_nerf_torch.views import mix_seed
+
+        scene = self.scene
+        gen = torch.Generator(device=scene.images.device).manual_seed(
+            mix_seed(self.seed, self._count))
+        self._count += 1
+        batch = ray_batch_from_arrays(idx, self.num_rays, scene.height, scene.width,
+                                      scene.focal, scene.images, scene.poses, self.cropping, gen)
+        if self.tvt != "train":
+            all_o, all_d = scene.frame_rays(idx)
+            batch = dict(batch, all_origin=all_o, all_direc=all_d,
+                         image=scene.images[idx].float() / 255.0)
+        return batch

@@ -4,7 +4,9 @@ Counterpart of ``minimal_nerf_tpu/inference.py``: load a checkpoint, apply
 the inference-time sample-count overrides, attach the occupancy sampler (the
 checkpoint's grid, or one baked from the trained densities), resolve the
 kernel (by default the one the checkpoint trained under,
-``views.resolve_inference_kernel``) and build the render chunk on ``device``.
+``views.resolve_inference_kernel``) and build the render chunk: one copy of
+it per device, each chunk split over them (``--data-parallel``,
+``views.make_sharded_render_chunk``; one device by default).
 """
 
 from __future__ import annotations
@@ -29,6 +31,13 @@ def build_render_chunk(ckpt: str, rays: int, kernel: str = "auto",
     jittered passes drawn from a generator seeded with 0 on ``device``; the
     JAX package draws them from ``PRNGKey(0)``, so the two bakes differ).
 
+    Every chunk is split over ``data_parallel = N`` devices from ``device``
+    on (``parallel.local_devices``: N cards, more than are visible raising,
+    or the CPU N times; 0 is taken as 1, as JAX renders unsharded at N <= 1),
+    each with its own copy of the parameters, grid and kernel hooks; the
+    whole chunk's uniforms are drawn once and sliced, so any N renders the
+    frames of one device's chunk bit for bit.
+
     A ``mode="single"`` checkpoint raises ``ValueError``: its one coarse
     MLP has no fine network to render views with (JAX's render path needs
     ``params["coarse"]``, and its ``--bake-occupancy`` refuses one).
@@ -36,6 +45,7 @@ def build_render_chunk(ckpt: str, rays: int, kernel: str = "auto",
     import torch
 
     from minimal_nerf_torch import views
+    from minimal_nerf_torch.models.mlp import map_params
     from minimal_nerf_torch.ops import occupancy as occ
     from minimal_nerf_torch.training.checkpoint import read_header
     from minimal_nerf_torch.training.trainer import checkpoint_mode, load_state_for_inference
@@ -44,9 +54,8 @@ def build_render_chunk(ckpt: str, rays: int, kernel: str = "auto",
     if mode != "full":
         raise ValueError(f"{ckpt} is a mode={mode!r} checkpoint (one coarse MLP): render and "
                          "score need a 'full' coarse + fine checkpoint")
-    if data_parallel > 1:
-        raise NotImplementedError(
-            "data-parallel rendering is not ported yet (ROADMAP Queue 1 item 7, data parallel)")
+    if data_parallel < 0:
+        raise ValueError(f"--data-parallel {data_parallel}: a mesh of a negative size")
     if rays < 1:
         raise ValueError(f"rays must be positive, got {rays}")
 
@@ -58,7 +67,7 @@ def build_render_chunk(ckpt: str, rays: int, kernel: str = "auto",
             coarse_samples=coarse or nerf_cfg.coarse_samples,
             fine_samples=fine or nerf_cfg.fine_samples,
         )
-    coarse_sampler = None
+    words = None
     occ_cfg = train_cfg.occupancy_config
     if grid is None and bake_occupancy and not ignore_occupancy:
         occ_cfg = occ_cfg or occ.OccupancyConfig()
@@ -68,19 +77,34 @@ def build_render_chunk(ckpt: str, rays: int, kernel: str = "auto",
         ckpt_step = occ_cfg.warmup_steps  # a baked grid is never warmup-forced
     if grid is not None and not ignore_occupancy:
         words = occ.pack_occupancy(grid, occ_cfg, force_all=ckpt_step < occ_cfg.warmup_steps)
-        coarse_sampler = occ.make_occupancy_sampler(words, occ_cfg)
 
     kernel = views.resolve_inference_kernel(kernel, train_cfg, device)
-    render_fn = mlp_apply = None
-    if kernel == "fused":
-        from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
 
-        render_fn = make_fused_render_fn()
-    elif kernel == "pallas":
-        from minimal_nerf_torch.kernels.raymarch import make_mlp_kernel_apply
+    def chunk_on(dev):
+        """The render chunk with its own parameters, grid and hooks on ``dev``."""
+        render_fn = mlp_apply = None
+        if kernel == "fused":
+            from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
 
-        mlp_apply = make_mlp_kernel_apply()
-    render_chunk = views.make_fine_render_chunk(
-        params, nerf_cfg, compute_dtype=train_cfg.compute_dtype, mlp_apply=mlp_apply,
-        render_fn=render_fn, coarse_sampler=coarse_sampler)
+            render_fn = make_fused_render_fn()
+        elif kernel == "pallas":
+            from minimal_nerf_torch.kernels.raymarch import make_mlp_kernel_apply
+
+            mlp_apply = make_mlp_kernel_apply()
+        sampler = (None if words is None else
+                   occ.make_occupancy_sampler(words.to(dev), occ_cfg))
+        return views.make_fine_render_chunk(
+            map_params(lambda t: t.to(dev), params), nerf_cfg,
+            compute_dtype=train_cfg.compute_dtype, mlp_apply=mlp_apply, render_fn=render_fn,
+            coarse_sampler=sampler)
+
+    from minimal_nerf_torch.models.nerf import draw_render_uniforms
+    from minimal_nerf_torch.parallel import local_devices
+
+    devices = local_devices(max(1, data_parallel), device)
+    shards = [chunk_on(dev) for dev in devices]
+    draw_occ = occ_cfg if words is not None else None
+    render_chunk = views.make_sharded_render_chunk(
+        shards, devices, lambda n, generator: draw_render_uniforms(
+            nerf_cfg, n, generator, generator.device, draw_occ))
     return render_chunk, nerf_cfg, train_cfg

@@ -11,7 +11,9 @@ Draws: ``render_rays`` takes a ``torch.Generator`` or a dict of pre-drawn
 uniforms ``{"coarse": [N, Sc], "eps": [N, 1], "jitter": [N, Sf, 1]}`` (the
 JAX order of ``nerf.py:109`` and ``rendering.py:57,170-192``; ``"jitter"``
 is unused under ``fine_sampling="linterp"``); ``render_single`` a generator
-or ``{"coarse": [N, S]}``.
+or ``{"coarse": [N, S]}``; ``draw_render_uniforms`` draws a render's
+uniforms ahead, in its order (the train step's draws, a sharded render
+chunk's).
 """
 
 from __future__ import annotations
@@ -58,6 +60,41 @@ def init_nerf_network(generator: torch.Generator, config: NeRFConfig,
                             device=device, gain=gain)
         for name in ("coarse", "fine")
     }
+
+
+def draw_render_uniforms(config: NeRFConfig, n: int, generator: torch.Generator, device,
+                         occupancy_cfg=None, mode: str = "full") -> Dict[str, Any]:
+    """The uniforms a render of ``n`` rays draws from ``generator``, in the
+    order it draws them: ``"coarse"`` ``[n, Sc]`` (under an occupancy
+    config the sampler's ``(eps [n, 1], frac [n, Sc] or None)``,
+    ``ops.occupancy.make_occupancy_sampler``), then the fine ``"eps" [n,
+    1]`` and, with ``fine_sampling="reference"``, ``"jitter" [n, Sf, 1]``;
+    under ``mode="single"`` (``render_single``) only ``"coarse"``. A render
+    given these as ``uniforms`` equals the render drawing from the same
+    generator state, bit for bit."""
+    rand = lambda *shape: torch.rand(shape, generator=generator, dtype=torch.float32,  # noqa: E731
+                                     device=device)
+    sc = config.coarse_samples
+    if occupancy_cfg is not None:
+        coarse = (rand(n, 1), rand(n, sc) if occupancy_cfg.in_bin_jitter else None)
+    else:
+        coarse = rand(n, sc)
+    uniforms = {"coarse": coarse}
+    if mode != "single":
+        uniforms["eps"] = rand(n, 1)
+        if config.fine_sampling != "linterp":
+            uniforms["jitter"] = rand(n, config.fine_samples, 1)
+    return uniforms
+
+
+def map_uniforms(fn, uniforms: Dict[str, Any]) -> Dict[str, Any]:
+    """``fn`` applied to every tensor of ``draw_render_uniforms``'s dict."""
+    def one(u):
+        if isinstance(u, tuple):
+            return tuple(None if t is None else fn(t) for t in u)
+        return fn(u)
+
+    return {k: one(v) for k, v in uniforms.items()}
 
 
 def fine_times(config: NeRFConfig, o_rays, d_rays, coarse_weights, coarse_ts,

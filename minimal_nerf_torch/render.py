@@ -2,7 +2,9 @@
 
     python -m minimal_nerf_torch.render -c CKPT_PATH -r 4096 -p 40 -s SAVE_DIR
 
-Same flags as the JAX package's ``render.py``, plus ``--device``. The orbit
+Same flags as the JAX package's ``render.py``, plus ``--device``;
+``--data-parallel N`` splits each ray chunk over N cards
+(``inference.build_render_chunk``; default 1, one card). The orbit
 is swept ``--frames-per-dispatch`` poses at a time (default 8), the next
 batch queued on the device before this one is fetched
 (``views.render_poses_batched``); the frames are the same for any value.
@@ -74,7 +76,8 @@ def main(argv=None) -> Path:
     parser.add_argument("--kernel", choices=["auto", "xla", "pallas", "fused"],
                         default="auto")
     parser.add_argument("--data-parallel", type=int, default=1,
-                        help="shard each ray chunk over this many devices (not ported)")
+                        help="split each ray chunk over this many cards of this process "
+                             "(the CPU N times with --device cpu)")
     parser.add_argument("--ignore-occupancy", action="store_true",
                         help="uniform coarse sampling for occupancy checkpoints")
     parser.add_argument("--bake-occupancy", action="store_true",

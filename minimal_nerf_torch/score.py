@@ -2,7 +2,9 @@
 
     python -m minimal_nerf_torch.score -c CKPT_PATH -r 4096 -b BASE_DIR
 
-Same flags as the JAX package's ``score.py``, plus ``--device``. Every test
+Same flags as the JAX package's ``score.py``, plus ``--device``;
+``--data-parallel N`` splits each ray chunk over N cards
+(``inference.build_render_chunk``; default 1, one card). Every test
 view (or the first ``--limit``) is rendered through the kernel the
 checkpoint trained under (``inference.build_render_chunk``), swept
 ``--frames-per-dispatch`` frames at a time with the frames kept on the
@@ -69,7 +71,8 @@ def main(argv=None):
     parser.add_argument("--kernel", choices=["auto", "xla", "pallas", "fused"],
                         default="auto")
     parser.add_argument("--data-parallel", type=int, default=1,
-                        help="shard each ray chunk over this many devices (not ported)")
+                        help="split each ray chunk over this many cards of this process "
+                             "(the CPU N times with --device cpu)")
     parser.add_argument("--ignore-occupancy", action="store_true",
                         help="uniform coarse sampling for occupancy checkpoints")
     parser.add_argument("--bake-occupancy", action="store_true",

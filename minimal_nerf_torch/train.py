@@ -18,12 +18,21 @@ auto`` resume (``full``, ``single``), ``--profile DIR`` (a
 ``torch.profiler`` trace) and ``--debug-nans``. Runs on ``--device cuda``
 (the default; without a card it raises) or ``--device cpu``, where the
 kernels run their plain versions. ``--kernel auto`` is ``fused`` on the
-card. Not ported, and raising: ``--data-parallel N > 1`` and
-``--multihost`` (ROADMAP Queue 1 item 7), ``--wandb``. ``--steps-per-call
-N`` runs N train steps per call between boundaries
-(``training.loop.make_multi_step``: on the card, replays of one captured
-CUDA graph of the step), as ``train_nerf.py`` does with one dispatch; the
-steps are those of one per call, bit for bit.
+card. Not ported, and raising: ``--wandb``. ``--steps-per-call N`` runs N
+train steps per call between boundaries (``training.loop.make_multi_step``:
+on the card, replays of one captured CUDA graph of the step), as
+``train_nerf.py`` does with one dispatch; the steps are those of one per
+call, bit for bit.
+
+Data parallel (``full`` and ``single``; ``parallel/``): ``--data-parallel
+N`` trains N ranks on this host over ``torch.distributed``, one card each
+over NCCL (more cards than are visible raise), or with ``--device cpu`` N
+gloo ranks on the CPU; N = 1 runs in this process, N > 1 spawns the ranks.
+``--multihost --coordinator HOST:PORT --num-processes K --process-id I``
+makes this process rank I of K started elsewhere (one card each; rank 0
+listens at the coordinator's address). Every rank draws the whole step and
+renders its share of the rays (``training.loop``); rank 0 alone writes the
+run directory.
 """
 
 from __future__ import annotations
@@ -59,13 +68,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--precision", choices=["bf16", "fp32"], default="bf16",
                         help="matmul compute dtype (params always fp32)")
     parser.add_argument("--data-parallel", type=int, default=0,
-                        help="shard the ray batch over this many devices (not ported: "
-                             "ROADMAP Queue 1 item 7)")
+                        help="shard the ray batch over this many ranks on this host, one card "
+                             "each (gloo ranks with --device cpu); 0 = one device")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-process training (not ported: ROADMAP Queue 1 item 7)")
-    parser.add_argument("--coordinator", type=str, default=None, help="see --multihost")
-    parser.add_argument("--num-processes", type=int, default=None, help="see --multihost")
-    parser.add_argument("--process-id", type=int, default=None, help="see --multihost")
+                        help="join a multi-process run as one of its ranks "
+                             "(torch.distributed); rank 0 owns the checkpoint and metric writes")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="HOST:PORT where rank 0 listens, for --multihost")
+    parser.add_argument("--num-processes", type=int, default=None,
+                        help="total number of ranks, for --multihost")
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="this process's rank, for --multihost")
     parser.add_argument("--kernel", choices=["auto", "xla", "pallas", "fused"], default="auto",
                         help="compute path: 'xla' = plain PyTorch; 'pallas' = the point-level "
                              "MLP kernels; 'fused' = the fused ray-march kernels; 'auto' = "
@@ -279,8 +292,9 @@ def apply_finetune_steps(args) -> None:
     args.steps = ckpt_lib.read_header(ckpt)["step"] + finetune
 
 
-def train_full_nerf(args):
-    """Run the phases of a ``full`` run, each a ``Trainer``; returns the last."""
+def train_full_nerf(args, mesh=None):
+    """Run the phases of a ``full`` run, each a ``Trainer`` (one rank of
+    ``mesh`` under data parallel); returns the last."""
     from minimal_nerf_torch import resolve_device
     from minimal_nerf_torch.training.loop import kernel_hooks, resolve_kernel
     from minimal_nerf_torch.training.trainer import Trainer
@@ -312,7 +326,8 @@ def train_full_nerf(args):
     trainer = None
     for coarse, fine, end_step in phases:
         mlp_apply, render_fn = kernel_hooks(kernel, dev)
-        common = dict(name=args.name, mlp_apply=mlp_apply, render_fn=render_fn, device=dev)
+        common = dict(name=args.name, mlp_apply=mlp_apply, render_fn=render_fn, device=dev,
+                      mesh=mesh)
         cfgs = (dataclasses.replace(nerf_cfg, coarse_samples=coarse, fine_samples=fine),
                 dataclasses.replace(train_cfg, max_steps=end_step))
         if trainer is None:
@@ -326,7 +341,7 @@ def train_full_nerf(args):
     return trainer
 
 
-def train_single_nerf(args):
+def train_single_nerf(args, mesh=None):
     """``train single`` (JAX ``train_single_nerf``): one ``Trainer(mode=
     "single")`` at ``-c`` coarse samples, no crop warmup, one step per call
     unless ``--steps-per-call`` says otherwise; returns the Trainer."""
@@ -344,7 +359,8 @@ def train_single_nerf(args):
         val_render_every=args.val_render_every, kernel=kernel)
     mlp_apply, _ = kernel_hooks(kernel, dev, mode="single")
     trainer = Trainer(nerf_cfg, train_cfg, args.base_dir, args.root_dir, name=args.name,
-                      resume_ckpt=args.ckpt, mlp_apply=mlp_apply, mode="single", device=dev)
+                      resume_ckpt=args.ckpt, mlp_apply=mlp_apply, mode="single", device=dev,
+                      mesh=mesh)
     trainer.fit()
     return trainer
 
@@ -359,30 +375,69 @@ def train_simple_image(args):
                device=args.device)
 
 
-_MODES = {"full": train_full_nerf, "single": train_single_nerf, "simple": train_simple_image}
+# simple runs on one device: main refuses a mesh for it
+_MODES = {"full": train_full_nerf, "single": train_single_nerf,
+          "simple": lambda args, mesh: train_simple_image(args)}
+
+
+def _train(args, mesh=None):
+    """The mode's run on this process (one rank of ``mesh``), inside the
+    profiler (rank 0's only) and anomaly mode when asked for."""
+    from minimal_nerf_torch.parallel import distributed
+    from minimal_nerf_torch.utils import profiling
+
+    with contextlib.ExitStack() as stack:
+        if args.profile and distributed.is_primary():
+            stack.enter_context(profiling.trace(args.profile))
+        if args.debug_nans:
+            stack.enter_context(profiling.debug_mode())
+        return _MODES[args.type](args, mesh)
+
+
+def _train_rank(rank: int, args, world: int, coordinator: str):
+    """Rank ``rank`` of a ``world``-rank run meeting at ``coordinator``:
+    joins the world, trains, leaves it."""
+    from minimal_nerf_torch.parallel import distributed, make_mesh
+
+    distributed.initialize(coordinator, world, rank, device=args.device)
+    try:
+        return _train(args, make_mesh(world, device=args.device))
+    finally:
+        distributed.shutdown()
 
 
 def main(argv=None):
     """Parse ``argv`` and train; returns what the mode's function returns
     (``full``: the last phase's ``Trainer``; ``single``: its ``Trainer``;
-    ``simple``: the image MLP's parameters)."""
+    ``simple``: the image MLP's parameters), this rank's under
+    ``--multihost`` or ``--data-parallel 1``; None when ``--data-parallel
+    N > 1`` spawned the ranks."""
     args = build_parser().parse_args(argv)
     if args.type not in _MODES:
         build_parser().error("choose a subcommand: simple | single | full")
-    if args.data_parallel > 1 or args.multihost:
-        raise NotImplementedError("--data-parallel N > 1 and --multihost are not ported yet "
-                                  "(ROADMAP Queue 1 item 7, data parallel)")
     if args.wandb:
         raise NotImplementedError("--wandb is not ported: it needs the wandb package and a "
                                   "network; metrics go to metrics.csv")
-    from minimal_nerf_torch.utils import profiling
+    if not (args.multihost or args.data_parallel):
+        return _train(args)
+    if args.type == "simple":
+        raise ValueError("train simple runs on one device: drop --data-parallel/--multihost")
+    if args.multihost:
+        if args.data_parallel and args.data_parallel != args.num_processes:
+            raise ValueError(f"--data-parallel {args.data_parallel} with --multihost: the "
+                             f"mesh is the world of --num-processes {args.num_processes}")
+        return _train_rank(args.process_id, args, args.num_processes, args.coordinator)
+    from minimal_nerf_torch.parallel import distributed, local_devices
 
-    with contextlib.ExitStack() as stack:
-        if args.profile:
-            stack.enter_context(profiling.trace(args.profile))
-        if args.debug_nans:
-            stack.enter_context(profiling.debug_mode())
-        return _MODES[args.type](args)
+    world = args.data_parallel
+    local_devices(world, args.device)  # more cards than are visible raise
+    coordinator = f"127.0.0.1:{distributed.free_port()}"
+    if world == 1:
+        return _train_rank(0, args, 1, coordinator)
+    import torch.multiprocessing as mp
+
+    mp.spawn(_train_rank, args=(args, world, coordinator), nprocs=world, join=True)
+    return None
 
 
 if __name__ == "__main__":

@@ -1,9 +1,8 @@
 """The train and eval steps: batch sampling, hierarchical render, loss,
 Adam, LR; several train steps per call.
 
-Counterpart of ``minimal_nerf_tpu/training/loop.py`` (single device; data
-parallelism is not ported yet). A train step is two parts (``_build_step``,
-the counterpart of JAX's ``_build_step_runner``):
+Counterpart of ``minimal_nerf_tpu/training/loop.py``. A train step is two
+parts (``_build_step``, the counterpart of JAX's ``_build_step_runner``):
 
 - ``draw_step_inputs``: every random draw and host decision of one step
   (the frame, the pixel coordinates after the crop/full choice, the render
@@ -26,6 +25,16 @@ counterpart of JAX's ``make_occupancy_loss``).
 coarse-only render through the same draw and body: its step draws only the
 coarse uniforms, and its loss is ``single_nerf_loss``.
 
+Data parallel (``mesh``, a ``parallel.mesh.Mesh``; JAX
+``make_sharded_grad_fn``): every rank draws the WHOLE step's inputs as one
+device would, and the body renders only the rank's contiguous rows of the
+pixels and uniforms; the gradients, the loss and the metrics then cross the
+ranks in one all-reduce of a flat fp32 buffer, divided by the world size
+(JAX's ``pmean``), before the grad norm and Adam. So an N-rank step is the
+1-rank step on the same draws up to the summation order, and a world of one
+is the step without a mesh, bit for bit. (JAX gives each shard its own
+render key, ``fold_in(key, axis_index)``.)
+
 Adam is written as plain functions over ``{"count", "mu", "nu"}`` with ``mu``
 and ``nu`` in the parameter tree's layout, the state optax keeps, so the
 moments map onto the checkpoint's leaves without reshaping.
@@ -46,8 +55,10 @@ import torch
 
 from minimal_nerf_torch.data.synthetic import ray_batch_from_arrays, sample_random_coordinates
 from minimal_nerf_torch.models.mlp import map_params
-from minimal_nerf_torch.models.nerf import NeRFConfig
+from minimal_nerf_torch.models.nerf import NeRFConfig, draw_render_uniforms, map_uniforms
 from minimal_nerf_torch.ops import occupancy as occ
+from minimal_nerf_torch.parallel import distributed
+from minimal_nerf_torch.parallel.mesh import shard_batch
 from minimal_nerf_torch.training.checkpoint import flatten_tree, unflatten_tree
 from minimal_nerf_torch.training.config import TrainConfig
 
@@ -152,17 +163,20 @@ _DENSITY_STAT_KEYS = ("coarse_density_sumsq", "coarse_density_non_zeros",
                       "fine_density_sumsq", "fine_density_non_zeros")
 
 
-def finalize_metrics(metrics: Dict[str, torch.Tensor], grads: Params) -> Dict[str, torch.Tensor]:
-    """The reference's logged names (``minimal_nerf_tpu/training/loop.py:86-106``
-    on one device): the density sums of squares become
-    ``{coarse,fine}_density_norms`` (their square roots), the non-zero counts
-    stay, and ``grad_2.0_norm_total`` is the gradients' global norm. The
+def finalize_metrics(metrics: Dict[str, torch.Tensor], grads: Params,
+                     num_shards: int = 1) -> Dict[str, torch.Tensor]:
+    """The reference's logged names (``minimal_nerf_tpu/training/loop.py:86-106``):
+    the density sums of squares become ``{coarse,fine}_density_norms`` (the
+    square roots of the whole batch's sums: the mean over ``num_shards``
+    ranks is undone first), the non-zero counts become whole-batch counts
+    likewise, and ``grad_2.0_norm_total`` is the gradients' global norm. The
     fused render has no density statistics, as in JAX."""
     m = dict(metrics)
     for name in ("coarse", "fine"):
         k = f"{name}_density_sumsq"
         if k in m:
-            m[f"{name}_density_norms"] = torch.sqrt(m.pop(k))
+            m[f"{name}_density_norms"] = torch.sqrt(m.pop(k) * num_shards)
+            m[f"{name}_density_non_zeros"] = m[f"{name}_density_non_zeros"] * num_shards
     m["grad_2.0_norm_total"] = global_norm(grads)
     return m
 
@@ -376,19 +390,9 @@ def draw_step_inputs(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: Scene
     frame, xs, ys = draw_train_pixels(step, static, train_cfg.num_rays, steps_per_epoch,
                                       train_cfg.cropping_epochs, seed,
                                       step_generator(seed, step, _BATCH_STREAM, device), device)
-    gen = step_generator(seed, step, _RENDER_STREAM, device)
-    rand = lambda *shape: torch.rand(shape, generator=gen, dtype=torch.float32,  # noqa: E731
-                                     device=device)
-    n, sc = train_cfg.num_rays, nerf_cfg.coarse_samples
-    if occupancy_cfg is not None:
-        coarse = (rand(n, 1), rand(n, sc) if occupancy_cfg.in_bin_jitter else None)
-    else:
-        coarse = rand(n, sc)
-    uniforms = {"coarse": coarse}
-    if mode != "single":
-        uniforms["eps"] = rand(n, 1)
-        if nerf_cfg.fine_sampling != "linterp":
-            uniforms["jitter"] = rand(n, nerf_cfg.fine_samples, 1)
+    uniforms = draw_render_uniforms(nerf_cfg, train_cfg.num_rays,
+                                    step_generator(seed, step, _RENDER_STREAM, device), device,
+                                    occupancy_cfg, mode)
     warm = occupancy_cfg is not None and step < occupancy_cfg.warmup_steps
     return {"frame": frame, "force_all": warm, "adam": adam_scalars(lr_sched(count), count + 1),
             "lr": lr_sched(step), "xs": xs, "ys": ys, "uniforms": uniforms}
@@ -430,8 +434,17 @@ def _clone_inputs(inp: Dict[str, Any]) -> Dict[str, Any]:
                 uniforms={k: coarse if k == "coarse" else c(v) for k, v in u.items()})
 
 
+def _all_reduce_mean(metrics: Dict[str, torch.Tensor], grads: Params, mesh):
+    """``(metrics, grads)`` averaged over the ranks in ONE all-reduce of a
+    flat fp32 buffer (``parallel.distributed.all_reduce_mean``)."""
+    leaves, names = flatten_tree(grads), list(metrics)
+    reduced = distributed.all_reduce_mean(leaves + [metrics[k] for k in names], mesh)
+    return (dict(zip(names, reduced[len(leaves):])),
+            unflatten_tree(grads, reduced[:len(leaves)]))
+
+
 def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
-                render_fn, device, mlp_apply, occupancy_cfg, mode: str = "full"):
+                render_fn, device, mlp_apply, occupancy_cfg, mode: str = "full", mesh=None):
     """The ONE implementation of a train step (JAX ``_build_step_runner``):
     ``(draw, update_grid, body)``, which ``make_train_step`` and
     ``make_multi_step`` both drive, so the eager and the replayed step
@@ -444,7 +457,9 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
     step on ``inputs_on_device`` inputs, reading no host value: it packs the
     grid (occupancy), gathers the batch, renders, takes the gradients and
     applies Adam in place. ``mode="single"``: the coarse-only loss of one
-    MLP, no render hook and no occupancy.
+    MLP, no render hook and no occupancy. With a ``mesh`` the body renders
+    this rank's rows of the drawn pixels and uniforms and averages the
+    gradients and metrics over the ranks before Adam.
     """
     from minimal_nerf_torch import resolve_device
     from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
@@ -473,14 +488,20 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
         if occupancy_cfg is not None:
             words, occ_fraction = pack_step_grid(occupancy_cfg, grid, inp["force_all"])
             sampler = occ.make_occupancy_sampler(words, occupancy_cfg)
-        batch = ray_batch_from_arrays(inp["frame"], train_cfg.num_rays, static.height,
-                                      static.width, static.focal, images, poses,
-                                      coords=(inp["xs"], inp["ys"]))
+        xs, ys, uniforms = inp["xs"], inp["ys"], inp["uniforms"]
+        if mesh is not None:
+            xs, ys, uniforms = (shard_batch(xs, mesh), shard_batch(ys, mesh),
+                                map_uniforms(lambda t: shard_batch(t, mesh), uniforms))
+        batch = ray_batch_from_arrays(inp["frame"], xs.shape[0], static.height, static.width,
+                                      static.focal, images, poses, coords=(xs, ys))
         metrics, grads = loss_and_grads(params, nerf_cfg, batch, train_cfg.compute_dtype,
-                                        render, uniforms=inp["uniforms"], mlp_apply=mlp_apply,
+                                        render, uniforms=uniforms, mlp_apply=mlp_apply,
                                         coarse_sampler=sampler, mode=mode)
+        if mesh is not None:
+            metrics, grads = _all_reduce_mean(metrics, grads, mesh)
         opt_state = adam_apply(params, grads, opt_state, inp["adam"])
-        metrics = dict(finalize_metrics(metrics, grads), lr=inp["lr"])
+        metrics = dict(finalize_metrics(metrics, grads, mesh.size if mesh is not None else 1),
+                       lr=inp["lr"])
         if occ_fraction is not None:
             metrics["occ_fraction"] = occ_fraction
         return params, opt_state, metrics
@@ -490,7 +511,7 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
 
 def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
                     render_fn=None, device="cuda", mlp_apply=None,
-                    occupancy_cfg=None, mode: str = "full") -> Callable:
+                    occupancy_cfg=None, mode: str = "full", mesh=None) -> Callable:
     """The train step ``step_fn(params, opt_state, images, poses, step, seed)
     -> (params, opt_state, metrics)``: ``draw_step_inputs``, then the body
     of ``_build_step``.
@@ -513,9 +534,13 @@ def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
     MLP, the loss ``single_nerf_loss`` through ``mlp_apply`` (the point
     kernels' hook under ``--kernel pallas``, else the plain MLP), the
     metrics ``train_loss``, ``grad_2.0_norm_total`` and ``lr``.
+
+    ``mesh`` (``parallel.mesh.Mesh``): one rank's data-parallel step, which
+    every rank of the mesh runs (module doc); ``train_cfg.num_rays`` is the
+    whole step's and must divide by the mesh size.
     """
     draw, update_grid, body = _build_step(nerf_cfg, train_cfg, static, render_fn, device,
-                                          mlp_apply, occupancy_cfg, mode)
+                                          mlp_apply, occupancy_cfg, mode, mesh)
 
     def run(params, opt_state, grid, images, poses, step: int, seed: int):
         inp = inputs_on_device([draw(step, opt_state["count"], seed)], images.device)[0]
@@ -598,7 +623,7 @@ class _StepGraph:
 
 def make_multi_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
                     num_inner: int, render_fn=None, device="cuda", mlp_apply=None,
-                    occupancy_cfg=None, mode: str = "full") -> Callable:
+                    occupancy_cfg=None, mode: str = "full", mesh=None) -> Callable:
     """``num_inner`` train steps in one call (JAX ``make_multi_step``), the
     same steps as ``make_train_step`` called ``num_inner`` times, bit for
     bit.
@@ -613,10 +638,18 @@ def make_multi_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
     ``_build_step`` once per step, each occupancy update before its step: on
     a CUDA device as replays of one captured CUDA graph (``_StepGraph``), on
     the CPU eagerly. State is updated in place, as by ``make_train_step``;
-    ``mode`` is ``make_train_step``'s.
+    ``mode`` and ``mesh`` are ``make_train_step``'s. Under a mesh on CUDA
+    devices the graph holds the step's NCCL all-reduce (captured after the
+    eager first step has run it once); a gloo group of more than one rank
+    raises there, since gloo's collectives cannot be captured.
     """
+    if (mesh is not None and mesh.size > 1 and torch.device(device).type == "cuda"
+            and distributed.backend() != "nccl"):
+        raise ValueError(f"several steps per call on CUDA devices replay a CUDA graph, which "
+                         f"cannot hold a {distributed.backend()} collective: run one step "
+                         "per call (--steps-per-call 1) or use NCCL")
     draw, update_grid, body = _build_step(nerf_cfg, train_cfg, static, render_fn, device,
-                                          mlp_apply, occupancy_cfg, mode)
+                                          mlp_apply, occupancy_cfg, mode, mesh)
     graph = _StepGraph(update_grid, body)
 
     def run(params, opt_state, grid, images, poses, start_step: int, seed: int, inputs):

@@ -1,9 +1,10 @@
 """The training orchestrator (epochs, validation, checkpoints, resume), and
 loading a trained model for inference.
 
-Counterpart of ``minimal_nerf_tpu/training/trainer.py`` on one device, for
+Counterpart of ``minimal_nerf_tpu/training/trainer.py``, for
 ``mode="full"`` (the coarse + fine network) and ``mode="single"`` (one MLP
-on the coarse-only render, no occupancy): a plain loop around
+on the coarse-only render, no occupancy), on one device or as one rank of a
+data-parallel ``mesh`` (``parallel.mesh``): a plain loop around
 ``training/loop.py``'s train step, with the reference's semantics:
 
 - ``steps_per_call`` steps in one call (``loop.make_multi_step``: on a card
@@ -23,7 +24,12 @@ on the coarse-only render, no occupancy): a plain loop around
   written on a background thread; resume from a path or ``"auto"`` (the
   latest in the run), or in memory from a previous phase's ``final_state``;
   a ``mode="single"`` checkpoint holds one MLP's leaves and its header says
-  so (``extra["mode"]``), as in JAX.
+  so (``extra["mode"]``), as in JAX;
+- data parallel: every rank starts from rank 0's state (a broadcast, after
+  a check that every rank resumed at the same step) and runs the same
+  steps; rank 0 alone logs, validates, renders and saves, the others write
+  nothing (a ``NullLogger``) and meet it again at the next step's
+  all-reduce.
 """
 
 from __future__ import annotations
@@ -39,10 +45,11 @@ from minimal_nerf_torch import resolve_device
 from minimal_nerf_torch.models.mlp import map_params, nerf_mlp_shapes
 from minimal_nerf_torch.models.mlp import init_nerf_mlp
 from minimal_nerf_torch.models.nerf import NeRFConfig, init_nerf_network, render_single
+from minimal_nerf_torch.parallel import distributed
 from minimal_nerf_torch.training import checkpoint as ckpt_lib
 from minimal_nerf_torch.training import loop
 from minimal_nerf_torch.training.config import TrainConfig
-from minimal_nerf_torch.training.metrics import MetricsLogger
+from minimal_nerf_torch.training.metrics import MetricsLogger, NullLogger
 from minimal_nerf_torch.utils import profiling
 
 # generator streams of the validation view: which frame, and its draws
@@ -89,13 +96,14 @@ def fetch_scalars(metrics) -> dict:
 
 
 class Trainer:
-    """End-to-end NeRF training on one device (``mode="full"`` or
-    ``"single"``)."""
+    """End-to-end NeRF training on one device or one rank of a data mesh
+    (``mode="full"`` or ``"single"``)."""
 
     def __init__(self, nerf_config: NeRFConfig, train_config: TrainConfig, base_dir, root_dir,
                  name: str = "nerf", resume_ckpt: Optional[str] = None, mlp_apply=None,
                  render_fn=None, logger=None, mode: str = "full",
-                 wandb_project: Optional[str] = None, initial_state=None, device="cuda"):
+                 wandb_project: Optional[str] = None, initial_state=None, device="cuda",
+                 mesh=None):
         """``base_dir`` is a Blender-style scene tree (``train`` and, if
         present, ``val`` are loaded onto ``device``) or a dict ``{split:
         SyntheticScene}`` already on ``device``. ``resume_ckpt`` is a
@@ -108,11 +116,15 @@ class Trainer:
         hooks (``loop.kernel_hooks``); with neither, those of
         ``train_config.kernel`` on ``device``. ``mode="single"`` trains one
         MLP on the coarse-only render (``render_fn`` unused); occupancy
-        then raises, as in JAX."""
+        then raises, as in JAX. ``mesh`` (``parallel.mesh.make_mesh``) makes
+        this Trainer one rank of a data-parallel run on ``mesh.device``;
+        only rank 0 writes."""
         from minimal_nerf_torch.data.synthetic import SyntheticScene
 
         self.mode = _check_mode(mode)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.device)
+        self.mesh = mesh
+        self.is_primary = distributed.is_primary()
         self.nerf_config = nerf_config
         self.train_config = train_config
         self.name = name
@@ -123,10 +135,13 @@ class Trainer:
             latest = ckpt_lib.latest_checkpoint(self.ckpt_dir)
             resume_ckpt = str(latest) if latest else None
         self.resume_ckpt = resume_ckpt
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
-        self.logger = logger or MetricsLogger(
-            self.run_dir, name=name, wandb_project=wandb_project,
-            resume=resume_ckpt is not None or initial_state is not None)
+        if self.is_primary:
+            self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+            self.logger = logger or MetricsLogger(
+                self.run_dir, name=name, wandb_project=wandb_project,
+                resume=resume_ckpt is not None or initial_state is not None)
+        else:
+            self.logger = logger or NullLogger()
 
         if isinstance(base_dir, dict):
             self.train_scene, self.val_scene = base_dir["train"], base_dir.get("val")
@@ -143,12 +158,12 @@ class Trainer:
             mlp_apply, render_fn = loop.kernel_hooks(train_config.kernel, self.device, mode)
         self.mlp_apply, self.render_fn = mlp_apply, render_fn
         self.step_fn = loop.make_train_step(nerf_config, train_config, self.static, render_fn,
-                                            self.device, mlp_apply, self._occ_cfg, mode)
+                                            self.device, mlp_apply, self._occ_cfg, mode, mesh)
         self.multi_fn = None
         if train_config.steps_per_call > 1:
             self.multi_fn = loop.make_multi_step(
                 nerf_config, train_config, self.static, train_config.steps_per_call, render_fn,
-                self.device, mlp_apply, self._occ_cfg, mode)
+                self.device, mlp_apply, self._occ_cfg, mode, mesh)
         self._grid = None
         self._batched_eval = None
         self._val_render_chunk = None
@@ -213,6 +228,14 @@ class Trainer:
         cfg = self.train_config
         params, opt_state, step = self.init_state()
         grid = self._grid
+        if self.mesh is not None:
+            # before the early return below, so that ranks resumed at
+            # different steps raise here instead of leaving some ranks
+            # waiting in a collective
+            distributed.check_same_step(step, self.mesh)
+            distributed.put_replicated(
+                [t for t in (params, opt_state["mu"], opt_state["nu"], grid) if t is not None],
+                self.mesh)
         if step >= cfg.max_steps:
             print(f"[trainer] resume step {step} >= max_steps {cfg.max_steps}: nothing to do",
                   file=sys.stderr)
@@ -239,6 +262,8 @@ class Trainer:
                 step += n
                 profiling.check_finite("train_loss", metrics["train_loss"], step - 1)
 
+            if not self.is_primary:
+                continue
             if step % cfg.log_every == 0 or step == cfg.max_steps:
                 fetched = fetch_scalars(metrics)
                 rates = timer.rates()
@@ -260,7 +285,8 @@ class Trainer:
             elif step % cfg.ckpt_every_steps == 0:
                 self.save(params, opt_state, step)
 
-        self.save(params, opt_state, cfg.max_steps, blocking=True)
+        if self.is_primary:
+            self.save(params, opt_state, cfg.max_steps, blocking=True)
         self.final_state = (params, opt_state, grid, cfg.max_steps)
         return params
 
@@ -373,3 +399,12 @@ def load_state_for_inference(ckpt_path, device="cuda"):
     params, _, grid = restore_to_device(header, leaves, nerf_cfg, train_cfg.occupancy_config,
                                         dev)
     return params, nerf_cfg, train_cfg, grid, int(header["step"])
+
+
+def load_model_for_inference(ckpt_path, device="cuda"):
+    """``(params, nerf_cfg, train_cfg)`` of a checkpoint (JAX
+    ``load_model_for_inference``, the reference's
+    ``NeRFNetwork.load_from_checkpoint``): ``load_state_for_inference``
+    without the grid and the step; either mode's checkpoint."""
+    params, nerf_cfg, train_cfg, _, _ = load_state_for_inference(ckpt_path, device)
+    return params, nerf_cfg, train_cfg

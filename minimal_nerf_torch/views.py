@@ -7,7 +7,8 @@ from ``(frame seed, i)``, so a frame renders the same whatever else runs.
 A ``render_chunk`` is ``(o [C, 3], d [C, 3], generator) -> rgb [C, 3]``.
 
 ``photo_nerf_to_image`` sweeps a 2-D image model over every pixel of a
-photo (``train simple``).
+photo (``train simple``). ``make_sharded_render_chunk`` splits each chunk
+over several devices of this process (render and score ``--data-parallel``).
 
 Many poses (the render CLI's orbit, the score CLI's test split) go through
 ``render_poses_batched``: ``frames_per_dispatch`` frames per batch, the next
@@ -165,12 +166,14 @@ def make_param_render_chunk(config: NeRFConfig, compute_dtype=None, mlp_apply=No
     hierarchical render (``render_fn``, default the plain
     ``models.nerf.render_rays``) with its fine color out. For parameters
     that change between views (the trainer's validation, which updates them
-    in place; the fused render's packing cache follows the update)."""
+    in place; the fused render's packing cache follows the update).
+    ``uniforms`` replaces the generator's draws
+    (``models.nerf.draw_render_uniforms``)."""
     render = render_fn or render_rays
 
-    def render_chunk_p(params, o, d, generator):
+    def render_chunk_p(params, o, d, generator, uniforms=None):
         out = render(params, config, o, d, generator, compute_dtype=compute_dtype,
-                     mlp_apply=mlp_apply, coarse_sampler=coarse_sampler)
+                     mlp_apply=mlp_apply, coarse_sampler=coarse_sampler, uniforms=uniforms)
         return out["fine_rgb_rays"]
 
     return render_chunk_p
@@ -215,7 +218,39 @@ def make_fine_render_chunk(params, config: NeRFConfig, compute_dtype=None,
     """
     render_chunk_p = make_param_render_chunk(config, compute_dtype, mlp_apply, render_fn,
                                              coarse_sampler)
-    return lambda o, d, generator: render_chunk_p(params, o, d, generator)
+    return lambda o, d, generator, uniforms=None: render_chunk_p(params, o, d, generator,
+                                                                 uniforms)
+
+
+def make_sharded_render_chunk(shard_chunks: Sequence[Callable], devices: Sequence,
+                              draw: Callable) -> Callable:
+    """A ``render_chunk`` whose rays are split over several devices of this
+    process (JAX ``make_sharded_render_chunk`` over a local mesh).
+
+    ``shard_chunks[k]`` is a ``render_chunk`` on ``devices[k]`` that takes
+    ``uniforms=`` (``make_fine_render_chunk``) with its own copy of the
+    parameters (and its own kernel launches);
+    ``draw(n, generator)`` draws a chunk's uniforms
+    (``models.nerf.draw_render_uniforms``). Each call draws the WHOLE
+    chunk's uniforms once from the caller's generator, gives shard ``k`` its
+    contiguous block of the rays and the uniforms (``torch.tensor_split``:
+    any chunk size), queues every shard before it gathers their colors on
+    the caller's device: N shards render what one does, bit for bit. (JAX
+    folds the shard index into each shard's key instead.)
+    """
+    n_shards = len(devices)
+
+    def render_chunk(o, d, generator):
+        from minimal_nerf_torch.models.nerf import map_uniforms
+
+        uniforms = draw(o.shape[0], generator)
+        outs = []
+        for k, (fn, dev) in enumerate(zip(shard_chunks, devices)):
+            rows = lambda t: torch.tensor_split(t, n_shards)[k].to(dev)  # noqa: E731
+            outs.append(fn(rows(o), rows(d), None, uniforms=map_uniforms(rows, uniforms)))
+        return torch.cat([c.to(o.device) for c in outs])
+
+    return render_chunk
 
 
 def orbit_views(render_chunk: Callable, height: int = 800, width: int = 800,

@@ -83,4 +83,4 @@ def test_procedural_cli_writes_a_tree(tmp_path, capsys):
         scene = JScene.load(out, split)
         assert scene.images.shape == (n, 8, 8, 3)
     with pytest.raises(SystemExit):
-        t_proc.main(["--out", str(tmp_path / "x"), "--scene", "thin", "--device", "cpu"])
+        t_proc.main(["--out", str(tmp_path / "x"), "--scene", "cube", "--device", "cpu"])

@@ -316,8 +316,8 @@ def test_render_chunk_and_view_on_jax_checkpoint(tmp_path):
 def test_inference_options_not_ported_raise(tmp_path):
     path = tmp_path / "c.ckpt"
     _jax_ckpt(path)
-    with pytest.raises(NotImplementedError, match="data parallel"):
-        t_inf.build_render_chunk(str(path), 64, data_parallel=2, device="cpu")
+    with pytest.raises(ValueError, match="negative"):
+        t_inf.build_render_chunk(str(path), 64, data_parallel=-1, device="cpu")
     with pytest.raises(ValueError, match="unknown kernel"):
         t_inf.build_render_chunk(str(path), 64, kernel="triton", device="cpu")
 

@@ -150,11 +150,13 @@ def test_frames_do_not_depend_on_frames_per_dispatch(tiny_ckpt):
 
 
 def test_data_parallel_raises(fixture_scene, tiny_ckpt):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_score.calculate_scores(tiny_ckpt, fixture_scene, 1024, data_parallel=2,
+    """A mesh of a negative size raises (``--data-parallel N >= 1`` scores,
+    tests/test_torch_parallel.py)."""
+    with pytest.raises(ValueError, match="negative"):
+        t_score.calculate_scores(tiny_ckpt, fixture_scene, 1024, data_parallel=-1,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="data parallel"):
-        t_score.main(["-c", tiny_ckpt, "-b", str(fixture_scene), "--data-parallel", "2",
+    with pytest.raises(ValueError, match="negative"):
+        t_score.main(["-c", tiny_ckpt, "-b", str(fixture_scene), "--data-parallel", "-2",
                       "--device", "cpu"])
 
 

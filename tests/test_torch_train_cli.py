@@ -129,10 +129,10 @@ def test_two_phase_run_on_the_cpu(fixture_scene, tmp_path):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--data-parallel", "2", "single"], NotImplementedError, "item 7"),
-    (["--multihost", "simple"], NotImplementedError, "item 7"),
-    (["--data-parallel", "2", "full"], NotImplementedError, "item 7"),
-    (["--multihost", "full"], NotImplementedError, "item 7"),
+    (["--data-parallel", "2", "simple"], ValueError, "one device"),
+    (["--multihost", "simple"], ValueError, "one device"),
+    (["--data-parallel", "-1", "full"], ValueError, "mesh"),
+    (["--multihost", "full"], ValueError, "coordinator"),
     (["--wandb", "NeRF", "full"], NotImplementedError, "wandb"),
     (["full", "--finish-steps", "2", "--budget-schedule", "16+48"], SystemExit, None),
     (["full", "--budget-schedule", "16+48:3,64+128:3"], SystemExit, None),
