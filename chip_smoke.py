@@ -82,7 +82,12 @@ and the sampler's weights, times and samples must be identical), then:
   ``--frames-per-dispatch`` 1 and 8, one train step, one pallas train step,
   one occupancy train step (with the coarse-sampler hook's span), one
   replayed call of 20 occupancy steps and one 16+48 frame through the
-  occupancy grid for the kernels' and the idle shares.
+  occupancy grid for the kernels' and the idle shares;
+- ``[bench]`` runs ``python -m minimal_nerf_torch.bench`` (training rays/s
+  of fused 64+128, pallas 64+128 and the fast recipe, 20 replayed steps per
+  call) in a process of its own, checks its JSON line and each path's rate,
+  loss and launches, and counts the kernels of one replayed call of each
+  path in a profiler trace.
 
 ``--occ-timing [ROOT]`` instead times the occupancy path alone (steps,
 frames, the sampler hook per call, the probe wrapper) for the package under
@@ -3074,6 +3079,91 @@ def phase_profile(ckpt: Path, dev, train_step, pallas_step, occ_step, occ_ckpt: 
           f"{group_us['sampler kernel'] / 1e3:.3f} ms in all", flush=True)
 
 
+BENCH_TIMEOUT = 480
+# the keys of the JSON line bench.py prints, plus the card's
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "config",
+              "production_64_128_rays_per_sec", "production_vs_baseline", "device",
+              "power_limit"}
+# per path, in the bench's order: each counted kernel's launches in one step
+# (``COUNTED`` order)
+BENCH_STEP_LAUNCHES = ((2, 2, 0, 0, 0, 0), (0, 0, 2, 2, 0, 0), (2, 2, 0, 0, 0, 1))
+
+
+def phase_bench(dev):
+    """``python -m minimal_nerf_torch.bench`` as a user runs it, in a process of
+    its own (this one's cached device memory released first): the bench.py
+    measurements of the port (training rays/s of fused 64+128, pallas 64+128
+    and the fast recipe, 20 replayed steps per call, on the 100-frame 800x800
+    random scene). Gates: rc 0, the JSON line's keys exactly ``BENCH_KEYS``,
+    the fast metric, each path a finite rate above 0 and a finite loss, its
+    wrapper launches (above 0 for its kernels, 0 for the others,
+    ``BENCH_STEP_LAUNCHES``); then, in
+    this process, one replayed call of each path through the bench's own
+    call (``bench.TrainCalls``) after its warm-up call, its kernels counted
+    by name in a profiler trace (``traced_launches``): 20 steps' worth."""
+    from minimal_nerf_torch import bench
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "minimal_nerf_torch.bench"],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    results = []
+    for line in proc.stderr.splitlines():
+        if line.startswith("[bench] result "):
+            results.append(json.loads(line[len("[bench] result "):]))
+        elif line.startswith("[bench]"):
+            print(line, flush=True)
+    if proc.returncode != 0 or not proc.stdout.strip():
+        print(proc.stderr[-4000:], flush=True)
+        raise AssertionError(f"[bench] python -m minimal_nerf_torch.bench exited "
+                             f"{proc.returncode} after {seconds:.1f} s")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(json.dumps(line), flush=True)
+    for r in results:
+        print(f"[bench] windows {r['label']}: {[round(x, 1) for x in r['rates']]} rays/s, "
+              f"median {r['median']:.1f}, best {r['best']:.1f}; loss {r['loss']:.6f}; build "
+              f"{r['build_s']:.2f} s, warm-up {r['warmup_s']:.2f} s; peak "
+              f"{r['peak_bytes'] / 2 ** 20:.1f} MiB", flush=True)
+    finite = lambda x: isinstance(x, float) and math.isfinite(x)  # noqa: E731
+    launched = [tuple(r["launches"][k] for k in KERNELS) for r in results]
+    ok = (set(line) == BENCH_KEYS and line["metric"] == "train_rays_per_sec_per_chip_fast"
+          and len(results) == 3
+          and all(finite(r["best"]) and r["best"] > 0 and finite(r["loss"])
+                  and all(finite(x) and x > 0 for x in r["rates"]) for r in results)
+          and all((n > 0) == (w > 0) for c, per_step in zip(launched, BENCH_STEP_LAUNCHES)
+                  for n, w in zip(c, per_step)))
+    print(f"[bench] {card_line()}: python -m minimal_nerf_torch.bench rc {proc.returncode} in "
+          f"{seconds:.1f} s; keys as bench.py's plus device and power_limit: "
+          f"{set(line) == BENCH_KEYS}; wrapper launches per path ({COUNTED}) {launched} "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("[bench] the bench's line or a path's launches are wrong")
+
+    images, poses, static = bench.bench_scene(device=dev)
+    tcfg = TrainConfig(num_rays=RAYS, cropping_epochs=0, precision="bf16")
+    for (_, label, nerf_cfg, kernel, occ_cfg), per_step in zip(bench.bench_paths(),
+                                                               BENCH_STEP_LAUNCHES):
+        calls = bench.TrainCalls(nerf_cfg, tcfg, static, kernel, bench.bench_init(nerf_cfg, dev),
+                                 dev, occ_cfg, MULTI_STEPS)
+        calls(images, poses, 0)
+        with graph_calls() as seen:
+            traced = traced_launches(lambda: calls(images, poses, MULTI_STEPS))
+        want = tuple(MULTI_STEPS * n for n in per_step)
+        good = traced == want and seen["captures"] == 0 and seen["replays"] > 0
+        print(f"[bench] {label}: one replayed call of {MULTI_STEPS} steps (steps "
+              f"{MULTI_STEPS}-{2 * MULTI_STEPS - 1}, after the warm-up call) ran {traced} "
+              f"({COUNTED}; profiler trace; want {want}), captures {seen['captures']} "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+        ok = ok and good
+    print(f"[bench] phase in {time.perf_counter() - t0:.1f} s", flush=True)
+    if not ok:
+        raise AssertionError("[bench] a replayed call of the bench ran other kernels")
+
+
 OCC_TIMING_STEPS = 64
 
 
@@ -3704,6 +3794,8 @@ def main(argv=None) -> int:
                       lambda: o_step_fn(o_params, o_state, o_grid, scene.images, scene.poses,
                                         TRAIN_STEPS + 1, 0), occ_train["ckpt"],
                       multi["fast_call"])
+        multi = None  # the fast call's graph pool goes before the bench's process starts
+        phase_bench(dev)
 
     def entry(name, replaces, shapes, launches):
         # one 4096-ray chunk or step of the main paths: S=64 and S=192, bf16

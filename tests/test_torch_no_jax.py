@@ -34,6 +34,6 @@ def test_port_and_chip_smoke_import_without_jax():
                  "minimal_nerf_torch.data.photo", "minimal_nerf_torch.models.image_nerf",
                  "minimal_nerf_torch.training.simple", "minimal_nerf_torch.nerf_helpers",
                  "minimal_nerf_torch.parallel.mesh", "minimal_nerf_torch.parallel.distributed",
-                 "chip_smoke"):
+                 "minimal_nerf_torch.bench", "chip_smoke"):
         assert name in names
     assert not any(n.startswith(("jax", "minimal_nerf_tpu")) for n in names)
