@@ -46,8 +46,8 @@ and the sampler's weights, times and samples must be identical), then:
   captured CUDA graph of the step, replayed once per step) for fused bf16,
   pallas bf16 and the fast recipe against as many eager steps: the state
   and last metrics bit-identical, the second call with the device's syncs
-  made errors, the wrappers' launches those of one eager step and its
-  capture, the kernels of a third, replayed call counted in a profiler
+  made errors, the launch counters those of one eager step, its capture and
+  39 replays of it, the kernels of a third, replayed call counted in a profiler
   trace, the capture's time, the device memory of eager and replayed steps,
   and the replayed call's ms/step beside the eager steps';
 - ``[trainer]``, with imageio and PIL hidden, writes the ``[train]`` scene
@@ -158,30 +158,28 @@ POINT_TOL = {"fp32": (TOL["fp32"], TOL["fp32"]),
 SEP_MAX, SEP_MEAN = 3, 100
 
 
-COUNTERS = {"fused_raymarch": ("launches", "bwd_launches", "wgrad_launches"),
-            "raymarch": ("launches", "bwd_launches"), "occupancy_probe": ("launches",),
-            "occupancy_sampler": ("launches",)}
-
-
 @contextlib.contextmanager
 def uncounted():
-    """Launches inside do not count: the kernels' counts are restored after
-    (those of the kernel modules the imported package has: ``--occ-timing``
-    may time an older checkout)."""
-    import importlib
+    """Launches inside do not count: the counters (``utils.profiling``) are
+    restored after (nothing is restored for a package without them:
+    ``--occ-timing`` may time an older checkout)."""
+    from minimal_nerf_torch.utils import profiling
 
-    saved = []
-    for name, attrs in COUNTERS.items():
-        try:
-            module = importlib.import_module(f"minimal_nerf_torch.kernels.{name}")
-        except ModuleNotFoundError:
-            continue
-        saved += [(module, a, getattr(module, a)) for a in attrs]
+    saved = profiling.counters() if hasattr(profiling, "counters") else None
     try:
         yield
     finally:
-        for module, a, value in saved:
-            setattr(module, a, value)
+        if saved is not None:
+            profiling.reset()
+            for name, n in saved.items():
+                profiling.count(name, n)
+
+
+def launched(name: str) -> int:
+    """The launch counter ``name`` (a wrapper module's ``*LAUNCHES``)."""
+    from minimal_nerf_torch.utils import profiling
+
+    return profiling.counter(name)
 
 
 COUNTED = "fused fwd, bwd, point fwd, bwd, probe, sampler"
@@ -195,17 +193,14 @@ def counts():
     from minimal_nerf_torch.kernels import occupancy_sampler as osk
     from minimal_nerf_torch.kernels import raymarch as rm
 
-    return fr.launches, fr.bwd_launches, rm.launches, rm.bwd_launches, op.launches, osk.launches
+    return tuple(launched(n) for n in (fr.FWD_LAUNCHES, fr.BWD_LAUNCHES, rm.FWD_LAUNCHES,
+                                       rm.BWD_LAUNCHES, op.LAUNCHES, osk.LAUNCHES))
 
 
 def reset_counts():
-    from minimal_nerf_torch.kernels import fused_raymarch as fr
-    from minimal_nerf_torch.kernels import occupancy_probe as op
-    from minimal_nerf_torch.kernels import occupancy_sampler as osk
-    from minimal_nerf_torch.kernels import raymarch as rm
+    from minimal_nerf_torch.utils import profiling
 
-    fr.launches = fr.bwd_launches = fr.wgrad_launches = rm.launches = rm.bwd_launches = 0
-    op.launches = osk.launches = 0
+    profiling.reset()
 
 
 @contextlib.contextmanager
@@ -231,8 +226,9 @@ def graph_calls():
     ._StepGraph``): ``{"captures", "replays", "capture_s"}``, the last the
     host seconds of each capture (the graph's instantiation included, the
     device idle before it). A wrapper counts a launch where it records it
-    into a capture; a replay runs every recorded launch and no wrapper, so
-    the kernels a replay ran are counted in a trace (``traced_launches``)."""
+    into a capture; a replay runs every recorded launch and no wrapper, and
+    adds the capture's counts again (``training.loop._StepGraph``); the
+    kernels a replay ran are also counted in a trace (``traced_launches``)."""
     from minimal_nerf_torch.training import loop
 
     seen = {"captures": 0, "replays": 0, "capture_s": []}
@@ -1002,14 +998,14 @@ def phase_kernel_occ_sampler(dev, report):
                 for n in (RAYS, RAYS - 1, 5):
                     cfg, words, o, d, eps, frac = sampler_inputs(n, s, g, jitter, gen, dev)
                     with uncounted():
-                        before = osk.launches
+                        before = launched(osk.LAUNCHES)
                         k = occ.occupancy_sample(words, o, d, eps, frac, cfg, s, near, far,
                                                  with_weights=True)
-                        launched = osk.launches - before
+                        ran = launched(osk.LAUNCHES) - before
                     p = occ.occupancy_sample_plain(words, o, d, eps, frac, cfg, s, near, far)
                     mism = [int((a != b).sum()) for a, b in zip(k, p)]
                     worst = max(worst, *((a - b).abs().max().item() for a, b in zip(k, p)))
-                    ok_all &= mism == [0, 0, 0] and launched == 1
+                    ok_all &= mism == [0, 0, 0] and ran == 1
                     if any(mism):
                         bad[(s, jitter, n)] = mism
         print(f"[kernel-occ-sampler] G={g}, B={SAMPLER_BINS}, floor 0.25: samples/ts/weights "
@@ -1100,7 +1096,7 @@ def phase_main_path(dev, tmp: Path):
     frames = list(frames_iter)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fr.launches
+    launches = launched(fr.FWD_LAUNCHES)
     chunks = math.ceil(HW * HW / RAYS)
     want = POSES * chunks * 2
     ok = launches == want and len(frames) == POSES
@@ -1237,7 +1233,7 @@ def phase_render_cli(dev, ckpt: Path, tmp: Path):
                                "--frames-per-dispatch", str(fpd)])
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0) / poses
-        launches = fr.launches
+        launches = launched(fr.FWD_LAUNCHES)
         data = out.read_bytes()
         written[(packages, fpd)] = data
         w, h, images, loop, trailer = gif_blocks(data)
@@ -1363,7 +1359,8 @@ def phase_train(dev, tmp: Path, scene):
         params, state, metrics = step_fn(params, state, scene.images, scene.poses, step, 0)
         losses.append(metrics["train_loss"].item())
         times.append(time.perf_counter() - t0)
-    counts = dict(fwd=fr.launches, bwd=fr.bwd_launches, wgrad=fr.wgrad_launches)
+    counts = dict(fwd=launched(fr.FWD_LAUNCHES), bwd=launched(fr.BWD_LAUNCHES),
+                  wgrad=launched(fr.WGRAD_LAUNCHES))
     ms = 1e3 * sorted(times)[len(times) // 2]
     first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
     want = 2 * TRAIN_STEPS
@@ -1383,9 +1380,10 @@ def phase_train(dev, tmp: Path, scene):
                            params, TRAIN_STEPS, cfg.to_dict(), tcfg.to_dict())
     frames_iter = render_views(str(ckpt), rays=RAYS, num_poses=1, height=HW, width=HW,
                                device=dev)
-    before = fr.launches
-    frame = next(iter(frames_iter))
-    renders, fr.launches = fr.launches - before, before
+    with uncounted():
+        before = launched(fr.FWD_LAUNCHES)
+        frame = next(iter(frames_iter))
+        renders = launched(fr.FWD_LAUNCHES) - before
     want_r = 2 * math.ceil(HW * HW / RAYS)
     ok = frame.shape == (HW, HW, 3) and str(frame.dtype) == "uint8" and renders == want_r
     print(f"[train] checkpoint {ckpt.name} rendered through the render path: {frame.shape} "
@@ -1540,10 +1538,11 @@ def phase_trainer(dev, tmp: Path, scenes, train_ms: float):
             cfg = fast.train_config
             want_updates = len(range(0, fast_steps, cfg.occ_update_every))
             # at 20 per call the first step of the first call runs eagerly
-            # and is captured once; the rest are replays, which no wrapper
-            # runs (``[multi-step]`` counts a replayed call's kernels)
+            # and is captured once; the rest are replays, each counting the
+            # launches its capture counted (``[multi-step]`` also counts a
+            # replayed call's kernels in a trace)
             graphs = (1, fast_steps - 1) if spc > 1 else (0, 0)
-            wrapped_steps = fast_steps - graphs[1] + graphs[0]
+            wrapped_steps = fast_steps + graphs[0]
             want = (2 * wrapped_steps + val_fwd, 2 * wrapped_steps, 0, 0, 0,
                     wrapped_steps + VAL_FRAMES + chunks)
             fracs = [float(r["occ_fraction"]) for r in rows if r["occ_fraction"]]
@@ -1563,8 +1562,9 @@ def phase_trainer(dev, tmp: Path, scenes, train_ms: float):
                   f") in {wall:.1f} s: grid updates {len(updates)} (want {want_updates}); "
                   f"occ_fraction per row {[round(f, 4) for f in fracs]}; captures, replays "
                   f"({seen['captures']}, {seen['replays']}) (want {graphs}); wrapper launches "
-                  f"({COUNTED}) {launched} (want {want}: {wrapped_steps} steps eager or captured "
-                  f"x 2 passes, the sampler once per such step and per validation chunk, "
+                  f"({COUNTED}) {launched} (want {want}: {wrapped_steps} steps eager, captured "
+                  f"or replayed x 2 passes, the sampler once per such step and per "
+                  f"validation chunk, "
                   f"{VAL_FRAMES} + {chunks}); {ckpt.name}: {leaves} leaves "
                   f"(want 123); columns equal the JAX Trainer's: "
                   f"{head == TRAINER_FAST_COLUMNS}; steady ms/step={ms:.2f} rays/s="
@@ -1774,7 +1774,8 @@ def phase_data_parallel(dev, tmp: Path, bias: float):
     a, b = runs["dp1"], runs["nodp"]
     same = (untimed(a["rows"]) == untimed(b["rows"]) and len(a["leaves"]) == len(b["leaves"])
             and all((a["leaves"][i] == b["leaves"][i]).all() for i in a["leaves"]))
-    want = ((40, 40, 0, 0, 0, 0), (4, 4, 0, 0, 0, 0))
+    # the second run: its first step eager, its capture, 19 replays
+    want = ((40, 40, 0, 0, 0, 0), (42, 42, 0, 0, 0, 0))
     ok = (same and a["launched"] == b["launched"] == want and a["graphs"] == (1, 19)
           and not torch.distributed.is_initialized())
     print(f"[data-parallel] (a) {card}: train --data-parallel 1 (NCCL, a world of one) -s 20, "
@@ -2205,7 +2206,8 @@ def phase_train_pallas(dev, tmp: Path, scene, bias: float):
         params, state, metrics = step_fn(params, state, scene.images, scene.poses, step, 0)
         losses.append(metrics["train_loss"].item())
         times.append(time.perf_counter() - t0)
-    counts = dict(fwd=rm.launches, bwd=rm.bwd_launches, fused=fr.launches + fr.bwd_launches)
+    counts = dict(fwd=launched(rm.FWD_LAUNCHES), bwd=launched(rm.BWD_LAUNCHES),
+                  fused=launched(fr.FWD_LAUNCHES) + launched(fr.BWD_LAUNCHES))
     ms = 1e3 * sorted(times)[len(times) // 2]
     first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
     want = 2 * TRAIN_STEPS
@@ -2621,8 +2623,9 @@ def phase_train_occ(dev, tmp: Path, scene, start_params, uniform_ckpt: Path):
             losses.append(metrics["train_loss"].item())
             times.append(time.perf_counter() - t0)
             fractions.append(metrics["occ_fraction"].item())
-    launched = dict(fwd=fr.launches, bwd=fr.bwd_launches, wgrad=fr.wgrad_launches,
-                    probe=op.launches, sampler=osk.launches)
+    step_launches = dict(fwd=launched(fr.FWD_LAUNCHES), bwd=launched(fr.BWD_LAUNCHES),
+                         wgrad=launched(fr.WGRAD_LAUNCHES), probe=launched(op.LAUNCHES),
+                         sampler=launched(osk.LAUNCHES))
     live_end = live_share()
     ms = 1e3 * sorted(times)[len(times) // 2]
     first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
@@ -2630,7 +2633,7 @@ def phase_train_occ(dev, tmp: Path, scene, start_params, uniform_ckpt: Path):
     want = dict(fwd=2 * TRAIN_STEPS, bwd=2 * TRAIN_STEPS, wgrad=2 * TRAIN_STEPS, probe=0,
                 sampler=TRAIN_STEPS)
     ok = (all(math.isfinite(x) for x in losses) and last < first
-          and len(updates) == want_updates and launched == want
+          and len(updates) == want_updates and step_launches == want
           and all(f == 1.0 for f in fractions[:OCC_WARMUP]) and 0.0 < fractions[-1] < 1.0)
     print(f"[train-occ] {TRAIN_STEPS} steps, {tcfg.num_rays} rays, {tcfg.precision}, "
           f"{cfg.coarse_samples}+{cfg.fine_samples} samples, width 256/128, occupancy G="
@@ -2643,7 +2646,7 @@ def phase_train_occ(dev, tmp: Path, scene, start_params, uniform_ckpt: Path):
           f"step {OCC_WARMUP - 1}, {fractions[OCC_WARMUP]:.4f} at step {OCC_WARMUP}, "
           f"{fractions[-1]:.4f} at the end (want 1 in the warmup, strictly between 0 and 1 at "
           f"the end; the live density field's occupied share {live_start:.4f} at the start, "
-          f"{live_end:.4f} at the end); launches {launched} (want {want}) "
+          f"{live_end:.4f} at the end); launches {step_launches} (want {want}) "
           f"{'PASS' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("occupancy training did not run as expected")
@@ -2677,7 +2680,7 @@ def phase_train_occ(dev, tmp: Path, scene, start_params, uniform_ckpt: Path):
           f"means {[round(m, 2) for m in frame_means]} {'PASS' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("render from the occupancy checkpoint failed")
-    return (dict(ms=ms, ms_frame=ms_frame, counts=launched, frame_samplers=ran[5], ckpt=ckpt),
+    return (dict(ms=ms, ms_frame=ms_frame, counts=step_launches, frame_samplers=ran[5], ckpt=ckpt),
             step_fn, params, state, grid, cfg, tcfg)
 
 
@@ -2849,6 +2852,7 @@ def phase_multi_step(dev, scene, bias: float, trained_params):
                 torch.cuda.set_sync_debug_mode("default")
             replay_peak = torch.cuda.max_memory_allocated()
             multi_launches = counts()
+            replays = launched("graph.replays")
             calls = dict(seen)
         same = (eager[1]["count"] == multi[1]["count"] == 2 * MULTI_STEPS
                 and all((a is None and b is None) or torch.equal(a, b) for a, b in zip(
@@ -2860,10 +2864,13 @@ def phase_multi_step(dev, scene, bias: float, trained_params):
         with graph_calls() as third:
             traced = traced_launches(lambda: call(multi_fn, multi, start + 2 * MULTI_STEPS))
         want_traced = tuple(MULTI_STEPS * p for p in per_step)
+        # the eager first step, its capture and 2 * MULTI_STEPS - 1 replays
+        want_multi = tuple((2 * MULTI_STEPS + 1) * p for p in per_step)
         ok = (same and eager_launches == tuple(2 * MULTI_STEPS * p for p in per_step)
-              and any(per_step) and multi_launches == tuple(2 * p for p in per_step)
+              and any(per_step) and multi_launches == want_multi
               and calls["captures"] == 1 and calls["replays"] == 2 * MULTI_STEPS - 1
-              and third["captures"] == 0 and traced == want_traced)
+              and replays == calls["replays"] and third["captures"] == 0
+              and traced == want_traced)
         loss = float(multi_metrics["train_loss"])
         print(f"[multi-step] {label} ({cfg.coarse_samples}+{cfg.fine_samples}, {tcfg.num_rays} "
               f"rays, {tcfg.precision}, --kernel {tcfg.kernel}"
@@ -2874,8 +2881,9 @@ def phase_multi_step(dev, scene, bias: float, trained_params):
               + ("grid, " if occ_cfg else "") + f"last metrics bit-identical: {same} (last "
               f"loss {loss:.6f}); the second call under sync debug mode 'error' raised nothing; "
               f"wrapper launches ({COUNTED}) over the 2 calls {multi_launches} (want "
-              f"{tuple(2 * p for p in per_step)}: the eager first step and its capture), over "
-              f"the eager steps {eager_launches}; a third call's {MULTI_STEPS} replays ran "
+              f"{want_multi}: the eager first step, its capture and {replays} replays counted "
+              f"as graph.replays), over the eager steps {eager_launches}; a third call's "
+              f"{MULTI_STEPS} replays ran "
               f"{traced} (profiler trace; want {want_traced} = {MULTI_STEPS} x an eager "
               f"step's) {'PASS' if ok else 'FAIL'}", flush=True)
         print(f"[multi-step] {label} {card_line()}: ms/step over the second call "

@@ -57,6 +57,8 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
+from minimal_nerf_torch.utils import profiling
+
 BASELINE_RAYS_PER_SEC = 17_600.0  # the reference's scoring rate on a Colab P100
 SEED = 0  # the draws' seed and JAX's PRNGKey(0) of the init
 FOCAL = 1111.111
@@ -126,20 +128,21 @@ def _kernel_modules():
 
 
 def reset_launches() -> None:
-    """Every kernel wrapper's launch count set to 0."""
-    fr, rm, op, osk = _kernel_modules()
-    fr.launches = fr.bwd_launches = fr.wgrad_launches = 0
-    rm.launches = rm.bwd_launches = op.launches = osk.launches = 0
+    """Every launch counter set to 0 (``utils.profiling.reset``)."""
+    profiling.reset()
 
 
 def launch_counts() -> Dict[str, int]:
-    """The kernel wrappers' launch counts by kernel. On the card a replayed
-    step runs no wrapper: a call counts its eager first step and the
-    capture, once each."""
+    """The kernel wrappers' launch counters by kernel (``utils.profiling``).
+    On the card a replayed step runs no wrapper: each replay adds the
+    launches its graph's capture counted."""
     fr, rm, op, osk = _kernel_modules()
-    return {"fused_raymarch_fwd": fr.launches, "fused_raymarch_bwd": fr.bwd_launches,
-            "raymarch_mlp_fwd": rm.launches, "raymarch_mlp_bwd": rm.bwd_launches,
-            "occupancy_probe": op.launches, "occupancy_sampler": osk.launches}
+    return {"fused_raymarch_fwd": profiling.counter(fr.FWD_LAUNCHES),
+            "fused_raymarch_bwd": profiling.counter(fr.BWD_LAUNCHES),
+            "raymarch_mlp_fwd": profiling.counter(rm.FWD_LAUNCHES),
+            "raymarch_mlp_bwd": profiling.counter(rm.BWD_LAUNCHES),
+            "occupancy_probe": profiling.counter(op.LAUNCHES),
+            "occupancy_sampler": profiling.counter(osk.LAUNCHES)}
 
 
 def path_kernels(kernel: str, occupancy_cfg=None):

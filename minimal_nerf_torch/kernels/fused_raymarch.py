@@ -10,8 +10,9 @@ weight and bias gradients summed over all rays.
 - ``fused_forward`` / ``fused_backward`` are the wrappers: for CUDA tensors
   they launch the hand-written kernels in ``csrc/fused_raymarch_fwd.cu``
   (whose bf16 MLP is ``csrc/mlp_fwd_sm90.cuh``) and
-  ``csrc/fused_raymarch_bwd.cu`` (adding one to ``launches`` /
-  ``bwd_launches``); for CPU tensors they run ``fused_forward_plain`` /
+  ``csrc/fused_raymarch_bwd.cu`` (adding one to the counters
+  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` and ``WGRAD_LAUNCHES`` of
+  ``utils.profiling``); for CPU tensors they run ``fused_forward_plain`` /
   ``fused_backward_plain``, the same functions in plain PyTorch with the same
   rounding points. Any other device raises; there is no fallback.
 - ``_FusedPass`` is the ``torch.autograd.Function`` joining the two: it takes
@@ -19,7 +20,9 @@ weight and bias gradients summed over all rays.
   from, and maps the kernel's flat gradients back onto those tensors. ``o``,
   ``d`` and ``ts`` get no gradient (as in ``_fused_core_bwd``).
 - ``fused_render_pass`` / ``render_rays_fused`` / ``make_fused_render_fn``
-  mirror the JAX entry points and are differentiable in the parameters.
+  mirror the JAX entry points and are differentiable in the parameters;
+  ``render_rays_fused`` traces its coarse pass, the sorted union between the
+  passes and the fine pass (``nerf.render.*`` spans).
 """
 
 from __future__ import annotations
@@ -34,15 +37,16 @@ from minimal_nerf_torch.models.mlp import round_to
 from minimal_nerf_torch.ops import rendering
 from minimal_nerf_torch.ops.encoding import positional_encoding
 from minimal_nerf_torch.training.checkpoint import flatten_tree
+from minimal_nerf_torch.utils import profiling
 
 Params = Dict[str, Any]
 
-# kernel launches since the last reset (each wrapper adds one per launch):
-# the forward kernel, the backward's per-ray kernel, and the backward's
-# weight-gradient kernel (which is followed by its fixed-order reduction)
-launches = 0
-bwd_launches = 0
-wgrad_launches = 0
+# the launch counters (``profiling.count``; each wrapper adds one per
+# launch): the forward kernel, the backward's per-ray kernel, and the
+# backward's weight-gradient kernel (followed by its fixed-order reduction)
+FWD_LAUNCHES = "fused_raymarch_fwd.launches"
+BWD_LAUNCHES = "fused_raymarch_bwd.launches"
+WGRAD_LAUNCHES = "fused_raymarch_wgrad.launches"
 
 KERNEL = "fused_raymarch_fwd"
 BWD_KERNEL = "fused_raymarch_bwd"
@@ -387,7 +391,6 @@ def _ptrs(ts_list):
 
 
 def _launch(fm: FusedMLP, o, d, ts, position_dim, direction_dim):
-    global launches
     from minimal_nerf_torch.kernels import build
 
     n, s = ts.shape
@@ -409,7 +412,7 @@ def _launch(fm: FusedMLP, o, d, ts, position_dim, direction_dim):
                 _maps_arg(fm, dev), color.data_ptr(), weights.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{KERNEL} launch failed with code {rc}")
-    launches += 1
+    profiling.count(FWD_LAUNCHES)
     return color, weights
 
 
@@ -443,7 +446,6 @@ def _bwd_sizes(n: int, s: int) -> Tuple[int, ...]:
 
 
 def _launch_bwd(fm: FusedMLP, o, d, ts, dcolor, dweights, position_dim, direction_dim):
-    global bwd_launches, wgrad_launches
     from minimal_nerf_torch.kernels import build
 
     n, s = ts.shape
@@ -484,8 +486,8 @@ def _launch_bwd(fm: FusedMLP, o, d, ts, dcolor, dweights, position_dim, directio
                 bias_partial.data_ptr(), grads.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{BWD_KERNEL} launch failed with code {rc}")
-    bwd_launches += 1
-    wgrad_launches += 1
+    profiling.count(BWD_LAUNCHES)
+    profiling.count(WGRAD_LAUNCHES)
     return _split_grads(grads, fm)
 
 
@@ -590,7 +592,9 @@ def render_rays_fused(params: Params, config, o_rays, d_rays,
     """Hierarchical render with both passes through the fused pass.
 
     Same draws and math as ``models.nerf.render_rays``; sampling and the
-    sorted union run in PyTorch between the two passes, and the fine pass's
+    sorted union run in PyTorch between the two passes (the spans
+    ``nerf.render.coarse_pass``, with the coarse samples, ``union`` and
+    ``fine_pass``), and the fine pass's
     times carry no gradient (``sg(all_ts)`` in JAX). ``params`` holds
     ``"coarse"`` and ``"fine"`` MLP trees or ``FusedMLP``s. ``mlp_apply`` and
     ``return_stats`` are accepted for interface parity and ignored: the
@@ -600,16 +604,19 @@ def render_rays_fused(params: Params, config, o_rays, d_rays,
 
     sample_coarse = coarse_sampler or rendering.generate_coarse_samples
     uniforms = uniforms or {}
-    _, coarse_ts = sample_coarse(o_rays, d_rays, config.coarse_samples, config.near,
-                                 config.far, generator=generator,
-                                 uniforms=uniforms.get("coarse"))
     pass_ = lambda mlp, ts: fused_render_pass(  # noqa: E731
         mlp, o_rays, d_rays, ts, config.position_dim, config.direction_dim,
         compute_dtype=compute_dtype)
-    coarse_color, coarse_weights = pass_(params["coarse"], coarse_ts)
-    all_ts = fine_times(config, o_rays, d_rays, coarse_weights, coarse_ts,
-                        generator, uniforms)
-    fine_color, _ = pass_(params["fine"], all_ts.detach())
+    with profiling.span("nerf.render.coarse_pass"):
+        _, coarse_ts = sample_coarse(o_rays, d_rays, config.coarse_samples, config.near,
+                                     config.far, generator=generator,
+                                     uniforms=uniforms.get("coarse"))
+        coarse_color, coarse_weights = pass_(params["coarse"], coarse_ts)
+    with profiling.span("nerf.render.union"):
+        all_ts = fine_times(config, o_rays, d_rays, coarse_weights, coarse_ts,
+                            generator, uniforms)
+    with profiling.span("nerf.render.fine_pass"):
+        fine_color, _ = pass_(params["fine"], all_ts.detach())
     return {"fine_rgb_rays": fine_color, "coarse_rgb_rays": coarse_color}
 
 

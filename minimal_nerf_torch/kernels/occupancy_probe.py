@@ -14,9 +14,10 @@ This wrapper stays as the counterpart of the JAX public
 ``probe_bits_plain``.
 
 - ``probe_bits`` is the wrapper: for CUDA tensors it launches the
-  hand-written kernel in ``csrc/occupancy_probe.cu`` (adding one to
-  ``launches``); for CPU tensors it runs ``probe_bits_plain``, the same
-  function in plain PyTorch. Any other device raises; there is no fallback.
+  hand-written kernel in ``csrc/occupancy_probe.cu`` (adding one to the
+  counter ``LAUNCHES`` of ``utils.profiling``); for CPU tensors it runs
+  ``probe_bits_plain``, the same function in plain PyTorch. Any other device
+  raises; there is no fallback.
 - The TPU kernel resolves each word by a one-hot matmul against a u16 table
   (the TPU has no gather unit); on Hopper the gather is native, so the
   kernel reads the word directly. The probe has no gradient.
@@ -28,8 +29,9 @@ import ctypes
 
 import torch
 
-# kernel launches since the last reset
-launches = 0
+from minimal_nerf_torch.utils import profiling
+
+LAUNCHES = "occupancy_probe.launches"  # the launch counter (``profiling.count``)
 
 KERNEL = "occupancy_probe"
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -59,7 +61,6 @@ def _check(occ_words: torch.Tensor, lin: torch.Tensor):
 
 
 def _launch(occ_words: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
-    global launches
     from minimal_nerf_torch.kernels import build
 
     _check(occ_words, lin)
@@ -73,7 +74,7 @@ def _launch(occ_words: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
                 lin.numel(), stream)
     if rc != 0:
         raise RuntimeError(f"{KERNEL} launch failed with code {rc}")
-    launches += 1
+    profiling.count(LAUNCHES)
     return bits
 
 

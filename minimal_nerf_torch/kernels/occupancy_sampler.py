@@ -12,10 +12,10 @@ sample, its place in the bin, the sort and ``samples = o + ts * d`` in one
 launch. The plain version is ``ops.occupancy.occupancy_sample_plain`` (the
 existing PyTorch math); ``ops.occupancy.occupancy_sample`` dispatches.
 
-- ``sample`` is the wrapper: CUDA tensors only (adding one to ``launches``
-  per launch), with no fallback; ``check_inputs`` holds what every version
-  takes, ``check_kernel_limits`` what only the kernel takes (B and S up to
-  256, a floor of at least 0).
+- ``sample`` is the wrapper: CUDA tensors only (adding one to the counter
+  ``LAUNCHES`` of ``utils.profiling`` per launch), with no fallback;
+  ``check_inputs`` holds what every version takes, ``check_kernel_limits``
+  what only the kernel takes (B and S up to 256, a floor of at least 0).
 - ``BinConstants`` are the scalars as the plain version rounds them:
   ``scale = G / (2 bound)`` and ``width = (far - near) / B`` computed in
   double, then each scalar rounded to float32, as torch rounds a Python
@@ -34,8 +34,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-# kernel launches since the last reset
-launches = 0
+from minimal_nerf_torch.utils import profiling
+
+LAUNCHES = "occupancy_sampler.launches"  # the launch counter (``profiling.count``)
 
 KERNEL = "occupancy_sampler"
 MAX_BINS = 256
@@ -122,7 +123,6 @@ def sample(occ_words: torch.Tensor, o_rays: torch.Tensor, d_rays: torch.Tensor,
     3], ts [N, S, 1], weights [N, B] or None)``; with ``num_samples = 0`` and
     ``eps = None`` only the weights (``(None, None, weights)``). ``frac``
     (in-bin jitter) or None picks the jitter or the exact CDF inverse."""
-    global launches
     from minimal_nerf_torch.kernels import build
 
     if o_rays.device.type != "cuda":
@@ -149,6 +149,6 @@ def sample(occ_words: torch.Tensor, o_rays: torch.Tensor, d_rays: torch.Tensor,
                 consts.floor, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{KERNEL} launch failed with code {rc}")
-    launches += 1
+    profiling.count(LAUNCHES)
     return samples, ts, weights
 

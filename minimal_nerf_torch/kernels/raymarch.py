@@ -14,8 +14,9 @@ over all points.
   the weights packed by ``fused_raymarch.prepare_fused_mlp``.
 - ``points_forward`` / ``points_backward`` are the wrappers: for CUDA tensors
   they launch the hand-written kernels in ``csrc/raymarch_mlp_fwd.cu`` and
-  ``csrc/raymarch_mlp_bwd.cu`` (adding one to ``launches`` /
-  ``bwd_launches``); for CPU tensors they run ``points_forward_plain`` /
+  ``csrc/raymarch_mlp_bwd.cu`` (adding one to the counters
+  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` of ``utils.profiling``); for CPU
+  tensors they run ``points_forward_plain`` /
   ``points_backward_plain``, the same functions in plain PyTorch with the
   TPU kernels' rounding points. Any other device raises; there is no
   fallback.
@@ -35,14 +36,15 @@ from minimal_nerf_torch.kernels import fused_raymarch as fr
 from minimal_nerf_torch.models.mlp import round_to
 from minimal_nerf_torch.ops.encoding import normalize_coordinates
 from minimal_nerf_torch.training.checkpoint import flatten_tree
+from minimal_nerf_torch.utils import profiling
 
 Params = Dict[str, Any]
 
-# kernel launches since the last reset: the forward kernel, and the backward
-# (its per-point kernel, weight-gradient kernel and two fixed-order
+# the launch counters (``profiling.count``): the forward kernel, and the
+# backward (its per-point kernel, weight-gradient kernel and two fixed-order
 # reductions count as one launch)
-launches = 0
-bwd_launches = 0
+FWD_LAUNCHES = "raymarch_mlp_fwd.launches"
+BWD_LAUNCHES = "raymarch_mlp_bwd.launches"
 
 KERNEL = "raymarch_mlp_fwd"
 BWD_KERNEL = "raymarch_mlp_bwd"
@@ -177,7 +179,6 @@ def points_backward_plain(fm: fr.FusedMLP, x_pts, d_pts, dsig, drgb, position_di
 
 
 def _launch(fm: fr.FusedMLP, x_pts, d_pts, position_dim, direction_dim):
-    global launches
     from minimal_nerf_torch.kernels import build
 
     p = x_pts.shape[0]
@@ -198,7 +199,7 @@ def _launch(fm: fr.FusedMLP, x_pts, d_pts, position_dim, direction_dim):
                 sigma.data_ptr(), rgb.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{KERNEL} launch failed with code {rc}")
-    launches += 1
+    profiling.count(FWD_LAUNCHES)
     return sigma, rgb
 
 
@@ -232,7 +233,6 @@ def _bwd_sizes(p: int, is_bf16: bool) -> Tuple[int, ...]:
 
 
 def _launch_bwd(fm: fr.FusedMLP, x_pts, d_pts, dsig, drgb, position_dim, direction_dim):
-    global bwd_launches
     from minimal_nerf_torch.kernels import build
 
     p = x_pts.shape[0]
@@ -269,7 +269,7 @@ def _launch_bwd(fm: fr.FusedMLP, x_pts, d_pts, dsig, drgb, position_dim, directi
                 grads.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{BWD_KERNEL} launch failed with code {rc}")
-    bwd_launches += 1
+    profiling.count(BWD_LAUNCHES)
     return fr._split_grads(grads, fm)
 
 

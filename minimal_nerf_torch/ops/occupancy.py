@@ -44,6 +44,7 @@ from minimal_nerf_torch.kernels import occupancy_probe, occupancy_sampler
 from minimal_nerf_torch.models.mlp import nerf_mlp_apply
 from minimal_nerf_torch.ops.rendering import draw_uniform
 from minimal_nerf_torch.training.checkpoint import flatten_tree
+from minimal_nerf_torch.utils import profiling
 
 Params = Dict[str, Any]
 
@@ -283,16 +284,18 @@ def make_occupancy_sampler(occ_words: torch.Tensor, cfg: OccupancyConfig) -> Cal
     [N, 1]`` and then, with in-bin jitter, ``frac [N, S]`` from
     ``generator`` (or takes ``uniforms = (eps, frac)``), and calls
     ``occupancy_sample`` on the rays made contiguous (a batch's origins are
-    its camera's position expanded, ``ops.cameras.rays_for_pixels``)."""
+    its camera's position expanded, ``ops.cameras.rays_for_pixels``), in the
+    span ``nerf.occupancy.sample``."""
     def sampler(o_rays, d_rays, num_samples, near, far, generator=None, uniforms=None):
-        eps_u, frac_u = uniforms if uniforms is not None else (None, None)
-        o_rays, d_rays = o_rays.contiguous(), d_rays.contiguous()
-        n = o_rays.shape[0]
-        eps = draw_uniform((n, 1), o_rays, generator, eps_u)
-        frac = (draw_uniform((n, num_samples), o_rays, generator, frac_u)
-                if cfg.in_bin_jitter else None)
-        samples, ts, _ = occupancy_sample(occ_words, o_rays, d_rays, eps, frac, cfg,
-                                          num_samples, near, far)
+        with profiling.span("nerf.occupancy.sample"):
+            eps_u, frac_u = uniforms if uniforms is not None else (None, None)
+            o_rays, d_rays = o_rays.contiguous(), d_rays.contiguous()
+            n = o_rays.shape[0]
+            eps = draw_uniform((n, 1), o_rays, generator, eps_u)
+            frac = (draw_uniform((n, num_samples), o_rays, generator, frac_u)
+                    if cfg.in_bin_jitter else None)
+            samples, ts, _ = occupancy_sample(occ_words, o_rays, d_rays, eps, frac, cfg,
+                                              num_samples, near, far)
         return samples, ts
 
     return sampler

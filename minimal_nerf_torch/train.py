@@ -15,7 +15,8 @@ runs its MLP through the point kernels, any other choice through the plain
 MLP, as in JAX. ``simple``: the image MLP overfit to one photo
 (``training.simple.train_simple_image``). For every mode ``-l PATH`` / ``-l
 auto`` resume (``full``, ``single``), ``--profile DIR`` (a
-``torch.profiler`` trace) and ``--debug-nans``. Runs on ``--device cuda``
+``torch.profiler`` trace with the program's ``nerf.*`` spans,
+``utils.profiling``) and ``--debug-nans``. Runs on ``--device cuda``
 (the default; without a card it raises) or ``--device cpu``, where the
 kernels run their plain versions. ``--kernel auto`` is ``fused`` on the
 card. Not ported, and raising: ``--wandb``. ``--steps-per-call N`` runs N
@@ -98,7 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "last loss (a host sync per call; a captured step runs without "
                              "anomaly detection)")
     parser.add_argument("--profile", type=str, default=None, metavar="DIR",
-                        help="write a torch.profiler Chrome trace of the whole run to DIR")
+                        help="write a torch.profiler Chrome trace of the whole run, with "
+                             "the program's nerf.* spans, to DIR")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="device to train on (default cuda; cpu runs the kernels' plain "

@@ -21,6 +21,12 @@ the body at every ``update_every``-th step, eagerly between replays
 coarse points through it (``coarse_sampler`` of ``nerf_loss``, the
 counterpart of JAX's ``make_occupancy_loss``).
 
+Spans (``utils.profiling``): a call of either is ``nerf.train.call`` (unit
+its first step, ``n`` its steps), holding ``nerf.train.draw`` (the draws put
+on the device), ``nerf.train.grid_update`` (each occupancy update), and per
+step ``nerf.train.body`` (eager), ``nerf.train.capture`` or
+``nerf.train.replay``.
+
 ``mode="single"`` (JAX ``loss_fn=single_nerf_loss``) trains one MLP on the
 coarse-only render through the same draw and body: its step draws only the
 coarse uniforms, and its loss is ``single_nerf_loss``.
@@ -61,6 +67,7 @@ from minimal_nerf_torch.parallel import distributed
 from minimal_nerf_torch.parallel.mesh import shard_batch
 from minimal_nerf_torch.training.checkpoint import flatten_tree, unflatten_tree
 from minimal_nerf_torch.training.config import TrainConfig
+from minimal_nerf_torch.utils import profiling
 
 Params = Dict[str, Any]
 
@@ -479,9 +486,10 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
                                 occupancy_cfg, mode)
 
     def update_grid(params, grid, step: int, seed: int):
-        if occupancy_cfg is not None:
-            update_step_grid(occupancy_cfg, nerf_cfg, train_cfg.compute_dtype, params, grid,
-                             step, seed)
+        if occupancy_cfg is not None and step % occupancy_cfg.update_every == 0:
+            with profiling.span("nerf.train.grid_update", step):
+                update_step_grid(occupancy_cfg, nerf_cfg, train_cfg.compute_dtype, params,
+                                 grid, step, seed)
 
     def body(params, opt_state, grid, images, poses, inp):
         sampler = occ_fraction = None
@@ -543,9 +551,12 @@ def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
                                           mlp_apply, occupancy_cfg, mode, mesh)
 
     def run(params, opt_state, grid, images, poses, step: int, seed: int):
-        inp = inputs_on_device([draw(step, opt_state["count"], seed)], images.device)[0]
-        update_grid(params, grid, step, seed)
-        return body(params, opt_state, grid, images, poses, inp)
+        with profiling.span("nerf.train.call", step):
+            with profiling.span("nerf.train.draw"):
+                inp = inputs_on_device([draw(step, opt_state["count"], seed)], images.device)[0]
+            update_grid(params, grid, step, seed)
+            with profiling.span("nerf.train.body"):
+                return body(params, opt_state, grid, images, poses, inp)
 
     if occupancy_cfg is None:
         def step_fn(params, opt_state, images, poses, step: int, seed: int):
@@ -579,19 +590,29 @@ class _StepGraph:
     one graph serves a call at any start step, the occupancy update runs
     eagerly between replays at any phase of its period, and the capture's
     time and the graph's memory pool are one step's.
+
+    The capture runs the body's spans once (under ``nerf.train.capture``);
+    a replay runs no Python of the body, so each replayed step is one span,
+    ``nerf.train.replay`` (its input copies and ``graph.replay()``). The
+    launch counters the capture raised (``utils.profiling``) are added again
+    for each replay, beside ``graph.replays``.
     """
 
     def __init__(self, update_grid, body):
         self.update_grid, self.body = update_grid, body
         self.graph = self.key = self.inputs = self.metrics = None
+        self.launched: Dict[str, int] = {}
 
     def _capture(self, key, params, opt_state, grid, images, poses, inp):
         self.graph = self.inputs = self.metrics = self.key = None  # release the old pool
         inputs = _clone_inputs(inp)
         graph = torch.cuda.CUDAGraph()
+        before = profiling.counters()
         # anomaly mode's checks read values on the host, which a capture forbids
         with torch.autograd.set_detect_anomaly(False), torch.cuda.graph(graph):
             _, _, metrics = self.body(params, opt_state, grid, images, poses, inputs)
+        self.launched = {k: v - before.get(k, 0) for k, v in profiling.counters().items()
+                         if v != before.get(k, 0)}
         self.graph, self.key, self.inputs, self.metrics = graph, key, inputs, metrics
 
     def run(self, params, opt_state, grid, images, poses, steps, inputs, seed):
@@ -603,14 +624,22 @@ class _StepGraph:
         first, metrics = 0, None
         if key != self.key:
             self.update_grid(params, grid, steps[0], seed)
-            _, _, metrics = self.body(params, opt_state, grid, images, poses, inputs[0])
-            self._capture(key, params, opt_state, grid, images, poses, inputs[0])
+            with profiling.span("nerf.train.body", steps[0]):
+                _, _, metrics = self.body(params, opt_state, grid, images, poses, inputs[0])
+            with profiling.span("nerf.train.capture", steps[0]):
+                self._capture(key, params, opt_state, grid, images, poses, inputs[0])
             first = 1
         for step, inp in zip(steps[first:], inputs[first:]):
             self.update_grid(params, grid, step, seed)
-            for dst, src in zip(_input_tensors(self.inputs), _input_tensors(inp)):
-                dst.copy_(src)
-            self.graph.replay()
+            with profiling.span("nerf.train.replay", step):
+                for dst, src in zip(_input_tensors(self.inputs), _input_tensors(inp)):
+                    dst.copy_(src)
+                self.graph.replay()
+        replays = len(steps) - first
+        if replays:
+            profiling.count("graph.replays", replays)
+            for name, n in self.launched.items():
+                profiling.count(name, n * replays)
         if first < len(steps):
             metrics = {k: v.clone() for k, v in self.metrics.items()}
             # the replays changed the parameters in place behind autograd's
@@ -655,17 +684,22 @@ def make_multi_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
     def run(params, opt_state, grid, images, poses, start_step: int, seed: int, inputs):
         steps = list(range(start_step, start_step + num_inner))
         count = opt_state["count"]
-        if inputs is None:
-            inputs = [draw(step, count + i, seed) for i, step in enumerate(steps)]
-        if len(inputs) != num_inner:
-            raise ValueError(f"{len(inputs)} steps' inputs for a call of {num_inner} steps")
-        inputs = inputs_on_device(inputs, images.device)
-        if images.device.type == "cuda":
-            metrics = graph.run(params, opt_state, grid, images, poses, steps, inputs, seed)
-        else:
-            for step, inp in zip(steps, inputs):
-                update_grid(params, grid, step, seed)
-                params, opt_state, metrics = body(params, opt_state, grid, images, poses, inp)
+        with profiling.span("nerf.train.call", start_step, num_inner):
+            with profiling.span("nerf.train.draw"):
+                if inputs is None:
+                    inputs = [draw(step, count + i, seed) for i, step in enumerate(steps)]
+                if len(inputs) != num_inner:
+                    raise ValueError(f"{len(inputs)} steps' inputs for a call of {num_inner} "
+                                     "steps")
+                inputs = inputs_on_device(inputs, images.device)
+            if images.device.type == "cuda":
+                metrics = graph.run(params, opt_state, grid, images, poses, steps, inputs, seed)
+            else:
+                for step, inp in zip(steps, inputs):
+                    update_grid(params, grid, step, seed)
+                    with profiling.span("nerf.train.body", step):
+                        params, opt_state, metrics = body(params, opt_state, grid, images,
+                                                          poses, inp)
         return (params, dict(opt_state, count=count + num_inner),
                 dict(metrics, lr=inputs[-1]["lr"]))
 

@@ -27,6 +27,7 @@ import torch
 
 from minimal_nerf_torch.models.nerf import NeRFConfig, render_rays
 from minimal_nerf_torch.ops import cameras
+from minimal_nerf_torch.utils import profiling
 
 # Blender-synthetic default horizontal FoV (reference nerf_helpers.py:163)
 DEFAULT_CAM_ANGLE_X = 0.6911112070083618
@@ -104,7 +105,9 @@ def render_poses_batched(render_chunk: Callable, poses, height: int, width: int,
 
     Rays are made on ``device`` for each chunk's own pixels; frame ``i``
     seeds its chunks from ``frame_seeds[i]`` (default ``mix_seed(0, i)``), so
-    the frames are the same for every ``frames_per_dispatch``. The chunks of
+    the frames are the same for every ``frames_per_dispatch``. Frame ``i`` is
+    the span ``nerf.view.frame`` of unit ``i``, and each of its chunks (rays,
+    generator, ``render_chunk``) the span ``nerf.view.chunk``. The chunks of
     batch ``b + 1`` are queued before batch ``b`` is waited for, so the
     caller's work on a batch's frames overlaps the device's work on the
     next. On a CUDA device a batch comes back in one ``non_blocking`` copy
@@ -124,14 +127,16 @@ def render_poses_batched(render_chunk: Callable, poses, height: int, width: int,
 
     def render_frame(f: int) -> torch.Tensor:
         out = []
-        for i, lo in enumerate(range(0, n_pix, chunk)):
-            flat = torch.arange(lo, min(lo + chunk, n_pix), device=poses.device)
-            o, d = cameras.rays_for_pixels(
-                (flat % width).float(), (flat // width).float(),
-                height, width, focal, poses[f])
-            g = chunk_generator(frame_seeds[f], i, poses.device)
-            out.append(render_chunk(o.contiguous(), d.contiguous(), g))
-        return _to_uint8(torch.cat(out)).reshape(height, width, 3)
+        with profiling.span("nerf.view.frame", f):
+            for i, lo in enumerate(range(0, n_pix, chunk)):
+                with profiling.span("nerf.view.chunk"):
+                    flat = torch.arange(lo, min(lo + chunk, n_pix), device=poses.device)
+                    o, d = cameras.rays_for_pixels(
+                        (flat % width).float(), (flat // width).float(),
+                        height, width, focal, poses[f])
+                    g = chunk_generator(frame_seeds[f], i, poses.device)
+                    out.append(render_chunk(o.contiguous(), d.contiguous(), g))
+            return _to_uint8(torch.cat(out)).reshape(height, width, 3)
 
     def dispatch(lo: int):
         """Queue the frames ``lo ..`` of one batch and, on a card, their copy

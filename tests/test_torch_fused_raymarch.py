@@ -16,6 +16,7 @@ from minimal_nerf_torch.kernels import fused_raymarch as t_fused
 from minimal_nerf_torch.models import mlp as t_mlp
 from minimal_nerf_torch.models import nerf as t_nerf
 from minimal_nerf_torch.ops.encoding import positional_encoding
+from minimal_nerf_torch.utils import profiling
 from minimal_nerf_tpu.kernels import fused_raymarch as j_fused
 from minimal_nerf_tpu.models import mlp as j_mlp
 from minimal_nerf_tpu.models import nerf as j_nerf
@@ -65,7 +66,7 @@ def _inputs(seed, n, s):
 
 @pytest.fixture(autouse=True)
 def _reset_launches():
-    t_fused.launches = 0
+    profiling.reset()
     yield
 
 
@@ -78,7 +79,7 @@ def test_plain_pass_fp32_matches_jax(n, s):
     tc, tw = t_fused.fused_render_pass(tp, T(o), T(d), T(ts))
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **FP32_TOL)
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), **FP32_TOL)
-    assert t_fused.launches == 0  # CPU tensors never launch the kernel
+    assert profiling.counter(t_fused.FWD_LAUNCHES) == 0  # CPU tensors never launch the kernel
 
 
 def test_plain_pass_bf16_matches_jax(monkeypatch):
@@ -153,7 +154,7 @@ def test_render_slice_matches_jax_render_rays_fused(fine_sampling):
     plain = t_nerf.render_rays(tp, tcfg, T(o), T(d), uniforms=_jax_draws(key, 8, jcfg))
     for k in ("coarse_rgb_rays", "fine_rgb_rays"):
         np.testing.assert_allclose(plain[k].numpy(), out[k].numpy(), rtol=1e-4, atol=1e-5)
-    assert t_fused.launches == 0
+    assert profiling.counter(t_fused.FWD_LAUNCHES) == 0
 
 
 def test_render_fn_hook_caches_prepared_params():
@@ -282,7 +283,7 @@ def test_plain_backward_matches_jax(monkeypatch, precision, with_dweights):
     assert [tuple(g.shape) for g in gws + gbs] == [tuple(np.shape(r)) for r in ref]
     assert min(np.abs(np.asarray(r)).max() for r in ref) > 1e-2  # every leaf has signal
     assert max(_leaf_errors(ref, gws + gbs)) < rtol
-    assert t_fused.bwd_launches == 0
+    assert profiling.counter(t_fused.BWD_LAUNCHES) == 0
     if precision == "bf16":
         monkeypatch.setattr(t_fused, "_grad_act", lambda v, mask, dtype: v * mask)
         gws, gbs = t_fused.fused_backward(*args)

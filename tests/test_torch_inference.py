@@ -23,6 +23,7 @@ from minimal_nerf_torch.training import checkpoint as t_ckpt
 from minimal_nerf_torch.training import loop as t_loop
 from minimal_nerf_torch.training import trainer as t_trainer
 from minimal_nerf_torch.training.config import TrainConfig as TTrainConfig
+from minimal_nerf_torch.utils import profiling
 from minimal_nerf_tpu.models.nerf import NeRFConfig, init_nerf_network
 from minimal_nerf_tpu.training import checkpoint as j_ckpt
 from minimal_nerf_tpu.training.config import TrainConfig
@@ -46,7 +47,7 @@ def _jax_ckpt(path, train_cfg=TrainConfig(kernel="fused"), occupancy_grid=None,
 
 @pytest.fixture(autouse=True)
 def _reset_launches():
-    t_fused.launches = 0
+    profiling.reset()
     yield
 
 
@@ -239,7 +240,7 @@ def test_render_chunk_with_occupancy_grid(tmp_path, saved_at):
     focal = t_cam.focal_from_angle(12, t_views.DEFAULT_CAM_ANGLE_X)
     o, d = t_cam.get_rays(12, 12, focal, t_cam.pose_spherical(30.0, -30.0, 4.0), device="cpu")
     view = lambda chunk: t_views.view_reconstruction(chunk, o, d, chunk=64, seed=1)  # noqa: E731
-    t_probe.launches = 0
+    profiling.reset()
     chunk, _, _ = t_inf.build_render_chunk(str(path), 64, kernel="xla", device="cpu")
     words = t_occ.pack_occupancy(grid, occ_cfg, force_all=saved_at < occ_cfg.warmup_steps)
     by_hand = t_views.make_fine_render_chunk(tp, SMALL, compute_dtype=torch.bfloat16,
@@ -255,7 +256,7 @@ def test_render_chunk_with_occupancy_grid(tmp_path, saved_at):
     # and through the fused render's plain version
     fused, _, _ = t_inf.build_render_chunk(str(path), 64, kernel="fused", device="cpu")
     assert view(fused).shape == (12, 12, 3)
-    assert t_probe.launches == 0 and t_fused.launches == 0
+    assert profiling.counter(t_probe.LAUNCHES) == profiling.counter(t_fused.FWD_LAUNCHES) == 0
 
 
 def test_bake_occupancy_on_a_uniform_checkpoint(tmp_path):
@@ -310,7 +311,7 @@ def test_render_chunk_and_view_on_jax_checkpoint(tmp_path):
         chunk, cameras.pose_spherical(30.0, -30.0, 4.0)[None], 16, 16, focal, chunk=64,
         frame_seeds=[1], device="cpu"))
     np.testing.assert_array_equal(frames[0], ims["xla"])
-    assert t_fused.launches == 0
+    assert profiling.counter(t_fused.FWD_LAUNCHES) == 0
 
 
 def test_inference_options_not_ported_raise(tmp_path):
@@ -362,7 +363,7 @@ def test_render_cli_writes_gif(tmp_path):
     frames = list(t_render.render_views(str(path), rays=100, num_poses=2, height=12,
                                         width=10, device="cpu"))
     assert len(frames) == 2 and frames[0].shape == (12, 10, 3)
-    assert t_fused.launches == 0
+    assert profiling.counter(t_fused.FWD_LAUNCHES) == 0
 
 
 def test_render_cli_gif_does_not_depend_on_frames_per_dispatch(tmp_path):
@@ -402,7 +403,7 @@ def test_pallas_checkpoint_renders_through_the_point_kernel(tmp_path, monkeypatc
                          "--height", "8", "--width", "8", "--kernel", "pallas",
                          "--device", "cpu"])
     assert out == tmp_path / "o" / "epoch=1-360.gif" and out.stat().st_size > 0
-    assert t_rm.launches == 0
+    assert profiling.counter(t_rm.FWD_LAUNCHES) == 0
 
 
 def _imports(path):

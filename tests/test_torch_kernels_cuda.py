@@ -20,6 +20,7 @@ from minimal_nerf_torch.kernels import occupancy_sampler as osk
 from minimal_nerf_torch.kernels import raymarch as rm
 from minimal_nerf_torch.models.mlp import init_nerf_mlp
 from minimal_nerf_torch.ops import occupancy as occ
+from minimal_nerf_torch.utils import profiling
 
 # the bounds of chip_smoke.py: every element |k - p| <= atol + rtol * |p|,
 # and mean |k - p| <= mean_rtol * mean |p|. fp32: same rounding points, other
@@ -42,10 +43,13 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    fr.launches = fr.bwd_launches = fr.wgrad_launches = 0
-    rm.launches = rm.bwd_launches = 0
-    op.launches = osk.launches = 0
+    profiling.reset()
     return torch.device("cuda")
+
+
+def _counts(*names):
+    """The launch counters ``names`` (``utils.profiling``)."""
+    return tuple(profiling.counter(n) for n in names)
 
 
 def _assert_close(k, p, tol):
@@ -78,7 +82,7 @@ def test_fused_kernel_matches_plain(cuda_device, dtype, n, s):
     torch.cuda.synchronize()
     _assert_close(kc, pc, TOL[dtype])
     _assert_close(kw, pw, TOL[dtype])
-    assert fr.launches == 1
+    assert profiling.counter(fr.FWD_LAUNCHES) == 1
 
 
 @pytest.mark.cuda
@@ -108,7 +112,7 @@ def test_fused_kernel_rejects_bad_inputs(cuda_device):
         fr.fused_forward(fm, o, d, ts.t())
     with pytest.raises(ValueError):
         fr.fused_forward(fm, o, d, torch.zeros(4, 2000, device=cuda_device))
-    assert fr.launches == 0
+    assert profiling.counter(fr.FWD_LAUNCHES) == 0
 
 
 def _bf16_forward(kind, dev, fm, seed=5):
@@ -227,7 +231,7 @@ def test_backward_kernel_matches_plain(cuda_device, dtype, n, s, with_dw):
     print(f"bwd {dtype} n={n} s={s}: worst max {max(e[0] for e in errs):.3e} "
           f"worst mean {max(e[1] for e in errs):.3e}")
     assert _bwd_ok(errs, _bwd_tol(dtype, n * s, "fused")), errs
-    assert fr.bwd_launches == 1 and fr.wgrad_launches == 1 and fr.launches == 0
+    assert _counts(fr.BWD_LAUNCHES, fr.WGRAD_LAUNCHES, fr.FWD_LAUNCHES) == (1, 1, 0)
 
 
 @pytest.mark.cuda
@@ -312,7 +316,7 @@ def test_fused_pass_gradients_on_the_card(cuda_device):
     want = fr.flatten_tree(rm.unflatten_mlp_grads(pw, pb))
     got = [t.grad for t in fr.flatten_tree(params)]
     assert _bwd_ok(_bwd_errors(got, want), BWD_TOL[torch.bfloat16])
-    assert fr.launches == 1 and fr.bwd_launches == 1
+    assert profiling.counter(fr.FWD_LAUNCHES) == 1 and profiling.counter(fr.BWD_LAUNCHES) == 1
 
 
 # ------------------------------------------------ point-level MLP kernels
@@ -354,14 +358,14 @@ def test_point_kernel_matches_plain(cuda_device, dtype, p):
     """The point forward kernel against ``points_forward_plain`` within
     POINT_TOL (same MLP, same rounding points, other sum order)."""
     fm, x, d, _, _ = _point_case(cuda_device, dtype, p)
-    rm.launches = 0
+    profiling.reset()
     ks, kr = rm.points_forward(fm, x, d)
     ps, pr = rm.points_forward_plain(fm, x, d)
     torch.cuda.synchronize()
     assert ks.shape == (p, 1) and kr.shape == (p, 3)
     _assert_close(ks, ps, POINT_TOL[dtype][0])
     _assert_close(kr, pr, POINT_TOL[dtype][1])
-    assert rm.launches == 1 and fr.launches == 0
+    assert profiling.counter(rm.FWD_LAUNCHES) == 1 and profiling.counter(fr.FWD_LAUNCHES) == 0
 
 
 @pytest.mark.cuda
@@ -388,7 +392,7 @@ def test_point_backward_kernel_matches_plain(cuda_device, dtype, p):
     weight products; the bias sums of the fp32 gradients are formed per tile
     in the kernel and per column in the plain version."""
     fm, x, d, dsig, drgb = _point_case(cuda_device, dtype, p)
-    rm.bwd_launches = 0
+    profiling.reset()
     kw, kb = rm.points_backward(fm, x, d, dsig, drgb)
     pw, pb = rm.points_backward_plain(fm, x, d, dsig, drgb)
     torch.cuda.synchronize()
@@ -397,7 +401,7 @@ def test_point_backward_kernel_matches_plain(cuda_device, dtype, p):
     print(f"point bwd {dtype} p={p}: worst max {max(e[0] for e in errs):.3e} "
           f"worst mean {max(e[1] for e in errs):.3e}")
     assert _bwd_ok(errs, _bwd_tol(dtype, p, "point")), errs
-    assert rm.bwd_launches == 1 and fr.bwd_launches == 0
+    assert profiling.counter(rm.BWD_LAUNCHES) == 1 and profiling.counter(fr.BWD_LAUNCHES) == 0
 
 
 @pytest.mark.cuda
@@ -427,7 +431,7 @@ def test_point_backward_bounds_reject_faults(cuda_device, dtype):
 @pytest.mark.cuda
 def test_point_kernels_reject_bad_inputs(cuda_device):
     fm, x, d, dsig, drgb = _point_case(cuda_device, torch.bfloat16, 64)
-    rm.launches = rm.bwd_launches = 0
+    profiling.reset()
     with pytest.raises(ValueError):
         rm.points_forward(fm, x.double(), d)
     with pytest.raises(ValueError):
@@ -443,7 +447,7 @@ def test_point_kernels_reject_bad_inputs(cuda_device):
     cpu = fr.prepare_fused_mlp(init_nerf_mlp(torch.Generator().manual_seed(0), device="cpu"))
     with pytest.raises(ValueError):
         rm.points_forward(cpu, x, d)  # weights not packed on the card
-    assert rm.launches == 0 and rm.bwd_launches == 0
+    assert profiling.counter(rm.FWD_LAUNCHES) == 0 and profiling.counter(rm.BWD_LAUNCHES) == 0
 
 
 @pytest.mark.cuda
@@ -457,7 +461,7 @@ def test_point_mlp_gradients_on_the_card(cuda_device):
     x, d = _points(3, 50 * 64, cuda_device)
     samples = (x * np.pi).reshape(50, 64, 3)
     direc = d.reshape(50, 64, 3)[:, 0]
-    rm.launches = rm.bwd_launches = 0
+    profiling.reset()
     sig, rgb = rm.nerf_mlp_kernel_apply(params, samples, direc, compute_dtype=torch.bfloat16)
     (sig.square().sum() + rgb.sum()).backward()
     fm = fr.prepare_fused_mlp(params, torch.bfloat16)
@@ -469,7 +473,7 @@ def test_point_mlp_gradients_on_the_card(cuda_device):
     want = fr.flatten_tree(rm.unflatten_mlp_grads(pw, pb))
     got = [t.grad for t in fr.flatten_tree(params)]
     assert _bwd_ok(_bwd_errors(got, want), BWD_TOL[torch.bfloat16])
-    assert rm.launches == 1 and rm.bwd_launches == 1 and fr.launches == 0
+    assert _counts(rm.FWD_LAUNCHES, rm.BWD_LAUNCHES, fr.FWD_LAUNCHES) == (1, 1, 0)
 
 
 def _probe_inputs(seed, g, p, dev):
@@ -505,7 +509,7 @@ def test_probe_kernel_matches_plain(cuda_device, g, p):
     assert got.dtype == torch.int32 and got.shape == lin.shape
     assert torch.equal(got, want)
     assert p < 1000 or 0.4 < got.float().mean().item() < 0.6  # half of the bits set
-    assert op.launches == 1
+    assert profiling.counter(op.LAUNCHES) == 1
 
 
 @pytest.mark.cuda
@@ -522,7 +526,7 @@ def test_probe_kernel_shapes_unaligned_and_out_of_range(cuda_device):
     bad = torch.tensor([-1, -33, 0, 127, 128, 4096, 2 ** 31 - 1], dtype=torch.int32,
                        device=cuda_device)
     assert op.probe_bits(full, bad).tolist() == [0, 0, 1, 1, 0, 0, 0]
-    assert op.launches == 3
+    assert profiling.counter(op.LAUNCHES) == 3
 
 
 @pytest.mark.cuda
@@ -541,7 +545,7 @@ def test_probe_kernel_rejects_bad_inputs(cuda_device):
                                (words, lin.reshape(16, 16).t())):
         with pytest.raises(ValueError):
             op.probe_bits(bad_words, bad_lin)
-    assert op.launches == 0
+    assert profiling.counter(op.LAUNCHES) == 0
 
 
 def _sampler_inputs(seed, n, s, g, jitter, dev, floor=0.25):
@@ -619,7 +623,7 @@ def test_sampler_kernel_matches_plain(cuda_device, n, s, jitter, g):
                                                with_weights=True)
     want_s, want_t, want_w = _plain_sample(cfg, words, o, d, eps, frac, s)
     torch.cuda.synchronize()
-    assert osk.launches == 1 and op.launches == 0
+    assert profiling.counter(osk.LAUNCHES) == 1 and profiling.counter(op.LAUNCHES) == 0
     assert got_t.shape == (n, s, 1) and got_s.shape == (n, s, 3) and got_w.shape == (n, 64)
     assert torch.equal(got_w, want_w) and torch.equal(got_t, want_t)
     assert torch.equal(got_s, want_s)
@@ -667,11 +671,11 @@ def test_sampler_weights_and_hook_on_the_card(cuda_device):
     once, giving the plain version's samples on those draws."""
     cfg, words, o, d, _, _ = _sampler_inputs(3, 4096, 16, 64, True, cuda_device)
     got = occ.query_bin_weights(words, o, d, cfg, 64, 2.0, 6.0)
-    assert osk.launches == 1
+    assert profiling.counter(osk.LAUNCHES) == 1
     assert torch.equal(got, occ.query_bin_weights_plain(words, o, d, cfg, 64, 2.0, 6.0))
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     samples, ts = occ.make_occupancy_sampler(words, cfg)(o, d, 16, 2.0, 6.0, generator=gen)
-    assert osk.launches == 2 and op.launches == 0
+    assert profiling.counter(osk.LAUNCHES) == 2 and profiling.counter(op.LAUNCHES) == 0
     again = torch.Generator(device=cuda_device).manual_seed(5)
     eps = torch.rand((4096, 1), generator=again, device=cuda_device)
     frac = torch.rand((4096, 16), generator=again, device=cuda_device)
@@ -704,7 +708,7 @@ def test_sampler_kernel_rejects_bad_inputs(cuda_device):
         a.update(change)
         with pytest.raises(ValueError):
             osk.sample(a["words"], a["o"], a["d"], a["eps"], a["frac"], a["consts"], a["s"])
-    assert osk.launches == 0
+    assert profiling.counter(osk.LAUNCHES) == 0
 
 
 # ------------------------------------------------- several steps per call
@@ -817,6 +821,31 @@ def test_multi_step_replays_equal_eager_steps(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fused", "fast"])
+def test_multi_step_replays_count_their_launches(cuda_device, case):
+    """A first ``make_multi_step`` call of 20 steps (one eager step, the
+    capture, 19 replays) counts 19 ``graph.replays`` and the launches of 21
+    eager steps; a second call adds 20 replays and 20 steps' launches."""
+    from minimal_nerf_torch.training import loop
+
+    cfg, tcfg, scene, state, (mlp_apply, render_fn) = _multi_setup(cuda_device, case)
+    static, occ_cfg = loop.scene_static(scene), tcfg.occupancy_config
+    step_fn = loop.make_train_step(cfg, tcfg, static, render_fn, cuda_device, mlp_apply,
+                                   occ_cfg)
+    _call(step_fn, state(), scene, 10)
+    per_step = profiling.counters()
+    assert per_step and all(name.endswith(".launches") for name in per_step)
+    multi_fn = loop.make_multi_step(cfg, tcfg, static, 20, render_fn, cuda_device, mlp_apply,
+                                    occ_cfg)
+    multi = state()
+    for start, steps, replays in ((0, 21, 19), (20, 20, 20)):
+        profiling.reset()
+        _call(multi_fn, multi, scene, start)
+        want = {name: steps * n for name, n in per_step.items()}
+        assert profiling.counters() == dict(want, **{"graph.replays": replays})
+
+
+@pytest.mark.cuda
 def test_adam_apply_on_the_card_equals_the_update_on_python_floats(cuda_device):
     """The Adam update on device scalars equals, bit for bit, the one with
     the LR and bias corrections as Python floats (which torch applies to a
@@ -853,7 +882,6 @@ def test_multi_step_under_the_train_cli_contexts(cuda_device, context, tmp_path)
     from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
     from minimal_nerf_torch.training import loop
     from minimal_nerf_torch.training.checkpoint import flatten_tree
-    from minimal_nerf_torch.utils import profiling
 
     cfg, tcfg, scene, state, _ = _multi_setup(cuda_device, "fused")
     static = loop.scene_static(scene)
@@ -910,7 +938,8 @@ def test_single_step_through_the_point_kernels_matches_plain(cuda_device):
                                              mlp_apply=mlp_apply, mode="single")
         out.append((metrics["train_loss"].item(), fr.flatten_tree(to_cpu(grads))))
     (card_loss, card_g), (cpu_loss, cpu_g) = out
-    assert rm.launches == 1 and rm.bwd_launches == 1 and fr.launches == fr.bwd_launches == 0
+    assert _counts(rm.FWD_LAUNCHES, rm.BWD_LAUNCHES, fr.FWD_LAUNCHES, fr.BWD_LAUNCHES) == (
+        1, 1, 0, 0)
     assert abs(card_loss - cpu_loss) <= 1e-3 * cpu_loss
     assert _bwd_ok(_bwd_errors(card_g, cpu_g), BWD_TOL[torch.bfloat16])
 
@@ -935,7 +964,7 @@ def test_fused_and_pallas_paths_agree_at_the_init(cuda_device, dtype):
     tcfg = TrainConfig(num_rays=1024, precision="bf16" if dtype else "fp32")
     scene = make_procedural_scene((("train", 3),), height=64, width=64, gt_samples=64,
                                   scene="object", device=cuda_device)[0]["train"]
-    fr.launches = fr.bwd_launches = rm.launches = rm.bwd_launches = 0
+    profiling.reset()
     static = loop.scene_static(scene)
     init = init_nerf_network(torch.Generator(device=cuda_device).manual_seed(0), cfg,
                              device=cuda_device)
@@ -958,7 +987,8 @@ def test_fused_and_pallas_paths_agree_at_the_init(cuda_device, dtype):
 
     fused = grads("fused", init)
     assert gap(fused, grads("pallas", init)) <= PATH_GRAD_TOL[dtype]
-    assert fr.launches == fr.bwd_launches == 2 and rm.launches == rm.bwd_launches == 2
+    assert _counts(fr.FWD_LAUNCHES, fr.BWD_LAUNCHES, rm.FWD_LAUNCHES, rm.BWD_LAUNCHES) == (
+        2, 2, 2, 2)
     if dtype is not None:
         moved = map_params(lambda t: t.detach().clone(), init)
         loop.adam_update(moved, unflatten_tree(init, fused), loop.adam_init(moved), 5e-4)

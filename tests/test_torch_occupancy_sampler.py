@@ -18,6 +18,7 @@ import torch
 
 from minimal_nerf_torch.kernels import occupancy_sampler as t_sampler
 from minimal_nerf_torch.ops import occupancy as t_occ
+from minimal_nerf_torch.utils import profiling
 from minimal_nerf_tpu.ops import occupancy as j_occ
 
 NEAR, FAR = 2.0, 6.0
@@ -128,7 +129,7 @@ def test_plain_sampler_matches_jax(g, b, s, jitter, floor):
             atol_s = 1e-6 + atol_t * np.abs(d)[:, None, :]
     diff_t, diff_s = np.abs(got_t.numpy() - want_t), np.abs(got_s.numpy() - want_s)
     assert (diff_t <= atol_t)[keep].all() and (diff_s <= atol_s)[keep].all()
-    assert t_sampler.launches == 0
+    assert profiling.counter(t_sampler.LAUNCHES) == 0
 
 
 def floor_f32(x):
@@ -260,7 +261,7 @@ def test_sampler_rejects_bad_inputs(case):
         with pytest.raises(ValueError, match="device"):
             t_occ.query_bin_weights(inputs["occ_words"], inputs["o_rays"], inputs["d_rays"],
                                     cfg, 32, NEAR, FAR)
-    assert t_sampler.launches == 0
+    assert profiling.counter(t_sampler.LAUNCHES) == 0
 
 
 def test_kernel_limits_and_cpu_tensors():
@@ -280,4 +281,4 @@ def test_kernel_limits_and_cpu_tensors():
         t_sampler.sample(a["occ_words"], a["o_rays"], a["d_rays"], a["eps"], a["frac"],
                          t_sampler.bin_constants(t_occ.OccupancyConfig(resolution=16), 32,
                                                  NEAR, FAR), 16)
-    assert t_sampler.launches == 0
+    assert profiling.counter(t_sampler.LAUNCHES) == 0

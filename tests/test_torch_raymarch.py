@@ -20,6 +20,7 @@ from minimal_nerf_torch.models import mlp as t_mlp
 from minimal_nerf_torch.models import nerf as t_nerf
 from minimal_nerf_torch.ops.encoding import positional_encoding
 from minimal_nerf_torch.training.checkpoint import flatten_tree
+from minimal_nerf_torch.utils import profiling
 from minimal_nerf_tpu.kernels import raymarch as j_rm
 from minimal_nerf_tpu.models import mlp as j_mlp
 from minimal_nerf_tpu.models import nerf as j_nerf
@@ -87,9 +88,10 @@ def _leaf_errors(ref, got):
 
 @pytest.fixture(autouse=True)
 def _reset_launches():
-    t_rm.launches = t_rm.bwd_launches = 0
+    profiling.reset()
     yield
-    assert t_rm.launches == 0 and t_rm.bwd_launches == 0  # CPU tensors never launch
+    # CPU tensors never launch
+    assert profiling.counter(t_rm.FWD_LAUNCHES) == profiling.counter(t_rm.BWD_LAUNCHES) == 0
 
 
 def _jax_apply(jp, samples, direc, pd, dd, jdtype):

@@ -28,6 +28,7 @@ from minimal_nerf_torch.training import checkpoint as t_ckpt
 from minimal_nerf_torch.training import config as t_config
 from minimal_nerf_torch.training import loop as t_loop
 from minimal_nerf_torch.training import trainer as t_trainer
+from minimal_nerf_torch.utils import profiling
 from minimal_nerf_tpu.data import synthetic as j_synth
 from minimal_nerf_tpu.kernels import raymarch as j_rm
 from minimal_nerf_tpu.models import mlp as j_mlp
@@ -99,10 +100,10 @@ def test_render_single_matches_jax(kernel):
     j_apply, t_apply = _hooks(kernel)
     want = j_nerf.render_single(jax.tree_util.tree_map(jnp.asarray, jp), jcfg, jnp.asarray(o),
                                 jnp.asarray(d), key, mlp_apply=j_apply)
-    before = t_rm.launches
+    before = profiling.counter(t_rm.FWD_LAUNCHES)
     got = t_nerf.render_single(t_mlp.params_from_jax(jp, "cpu"), tcfg, T(o), T(d),
                                mlp_apply=t_apply, uniforms=_coarse(key, 16))
-    assert t_rm.launches == before  # the plain versions launch nothing
+    assert profiling.counter(t_rm.FWD_LAUNCHES) == before  # the plain versions launch nothing
     assert sorted(got) == sorted(want) == ["deltas", "density", "pred_rgbs", "samples", "ts"]
     for k in want:
         assert tuple(got[k].shape) == tuple(want[k].shape), k

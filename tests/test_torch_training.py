@@ -25,6 +25,7 @@ from minimal_nerf_torch.ops import occupancy as t_occ
 from minimal_nerf_torch.training import config as t_config
 from minimal_nerf_torch.training import loop as t_loop
 from minimal_nerf_torch.training.checkpoint import flatten_tree
+from minimal_nerf_torch.utils import profiling
 from minimal_nerf_tpu.data import procedural as j_proc
 from minimal_nerf_tpu.kernels import fused_raymarch as j_fused
 from minimal_nerf_tpu.kernels import raymarch as j_rm
@@ -342,7 +343,7 @@ def test_make_train_step_with_occupancy_runs_and_learns(kernel):
     before = fixed_loss()
     grid = t_occ.init_grid(occ_cfg, "cpu")
     state = t_loop.adam_init(params)
-    t_probe.launches = 0
+    profiling.reset()
     fractions, changed = [], []
     for step in range(6):
         prev = grid.clone()
@@ -356,7 +357,8 @@ def test_make_train_step_with_occupancy_runs_and_learns(kernel):
     assert {"train_loss", "grad_2.0_norm_total", "lr", "occ_fraction"} <= set(metrics)
     assert all(np.isfinite(v.item()) for v in metrics.values())
     assert state["count"] == 6 and fixed_loss() < before
-    assert t_fused.launches == t_fused.bwd_launches == t_rm.launches == t_probe.launches == 0
+    assert not any(profiling.counter(n) for n in (t_fused.FWD_LAUNCHES, t_fused.BWD_LAUNCHES,
+                                                  t_rm.FWD_LAUNCHES, t_probe.LAUNCHES))
 
 
 def _tiny_scene(frames=5, hw=12):
@@ -438,8 +440,8 @@ def test_make_train_step_runs_and_learns(render):
     assert all(np.isfinite(v.item()) for v in metrics.values())
     assert state["count"] == 5 and not torch.equal(first, flatten_tree(params)[0])
     assert fixed_loss() < before
-    assert t_fused.launches == 0 and t_fused.bwd_launches == 0
-    assert t_rm.launches == 0 and t_rm.bwd_launches == 0
+    assert profiling.counter(t_fused.FWD_LAUNCHES) == profiling.counter(t_fused.BWD_LAUNCHES) == 0
+    assert profiling.counter(t_rm.FWD_LAUNCHES) == profiling.counter(t_rm.BWD_LAUNCHES) == 0
 
 
 @pytest.mark.parametrize("maker", ["random", "random_object"])
