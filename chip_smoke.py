@@ -2932,7 +2932,9 @@ def timed_sampler_hooks():
     ``ops.occupancy.make_occupancy_sampler`` makes inside: CUDA events
     around the call (its device span, which includes the device's waits for
     the host's launches) and the host's clock (the call's host time, no
-    synchronisation). Yields the list of ``(start, end, host seconds)``."""
+    synchronisation). Yields the list of ``(start, end, host seconds)``. A
+    call inside a CUDA graph's capture (the view sweep's, whose replays run
+    the hook's kernels and no Python) is not timed."""
     from minimal_nerf_torch.ops import occupancy as occ
 
     calls = []
@@ -2942,6 +2944,8 @@ def timed_sampler_hooks():
             hook = make(*args, **kwargs)
 
             def timed(*a, **k):
+                if torch.cuda.is_current_stream_capturing():
+                    return hook(*a, **k)
                 start, end = (torch.cuda.Event(enable_timing=True),
                               torch.cuda.Event(enable_timing=True))
                 t0 = time.perf_counter()
@@ -3025,7 +3029,8 @@ def phase_profile(ckpt: Path, dev, train_step, pallas_step, occ_step, occ_ckpt: 
     the coarse-sampler hook (CUDA events around each call) beside the
     sampler kernel's time; one more replayed call of ``MULTI_STEPS`` steps
     of the fast recipe (``[multi-step]``'s); then one 16+48 frame through
-    the ``[train-occ]`` checkpoint's grid, with its 157 hook calls."""
+    the ``[train-occ]`` checkpoint's grid, with its hook calls (the eager
+    first and last chunks; the other 155 chunks are graph replays)."""
     from minimal_nerf_torch.render import render_views
 
     profile_shares(f"1 frame {HW}x{HW}",

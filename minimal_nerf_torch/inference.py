@@ -38,6 +38,10 @@ def build_render_chunk(ckpt: str, rays: int, kernel: str = "auto",
     whole chunk's uniforms are drawn once and sliced, so any N renders the
     frames of one device's chunk bit for bit.
 
+    On one device the render chunk is a ``views.StaticRenderChunk``: its
+    state is never updated, so on a card ``views.render_poses_batched``
+    sweeps its full chunks as replays of one captured CUDA graph.
+
     A ``mode="single"`` checkpoint raises ``ValueError``: its one coarse
     MLP has no fine network to render views with (JAX's render path needs
     ``params["coarse"]``, and its ``--bake-occupancy`` refuses one).
@@ -107,4 +111,7 @@ def build_render_chunk(ckpt: str, rays: int, kernel: str = "auto",
     render_chunk = views.make_sharded_render_chunk(
         shards, devices, lambda n, generator: draw_render_uniforms(
             nerf_cfg, n, generator, generator.device, draw_occ))
+    if len(devices) == 1:
+        # nothing updates the loaded state: the sweep may replay a graph of it
+        render_chunk = views.StaticRenderChunk(render_chunk)
     return render_chunk, nerf_cfg, train_cfg

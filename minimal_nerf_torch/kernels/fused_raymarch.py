@@ -632,10 +632,14 @@ def make_fused_render_fn():
     The MLPs are flattened and packed once per state of the parameters, not
     per call: the cache is keyed on the params object and every leaf's
     ``_version``, which an in-place update (an optimizer step) advances.
-    While the stream captures a CUDA graph the hook packs on every call and
-    keeps nothing: the packing is then part of the graph, and each replay
-    packs the weights as they stand (a cached packing would replay stale
-    weights).
+    While the stream captures a CUDA graph of parameters that are trained
+    (a leaf requires gradients: the train step's graph, whose replays update
+    them in place) the hook packs on every call and keeps nothing: the
+    packing is then part of the graph, and each replay packs the weights as
+    they stand (a cached packing would replay stale weights). A graph of
+    frozen parameters (no leaf requires gradients: the view sweep's,
+    ``views._ChunkGraph``) reads the packing cached before the capture, or
+    packs inside the graph without caching where there is none.
     """
     cache: Dict[str, Any] = {}
 
@@ -643,11 +647,12 @@ def make_fused_render_fn():
                   mlp_apply=None, coarse_sampler=None, uniforms=None, return_stats=False):
         pack = lambda: {k: prepare_fused_mlp(params[k], compute_dtype)  # noqa: E731
                         for k in ("coarse", "fine")}
-        if capturing(o_rays):
+        leaves = flatten_tree(params)
+        key = (id(params), compute_dtype, tuple((id(t), t._version) for t in leaves))
+        if capturing(o_rays) and (cache.get("key") != key
+                                  or any(t.requires_grad for t in leaves)):
             prepared = pack()
         else:
-            key = (id(params), compute_dtype,
-                   tuple((id(t), t._version) for t in flatten_tree(params)))
             if cache.get("key") != key:
                 cache.update(key=key, params=params, prepared=pack())
             prepared = cache["prepared"]

@@ -360,17 +360,21 @@ def make_mlp_kernel_apply():
     the cache is keyed on the MLP object, the compute dtype and every leaf's
     ``_version``, which an in-place update (an optimizer step) advances. It
     keeps the ``_CACHED_MLPS`` MLPs seen last. While the stream captures a
-    CUDA graph it packs on every call and keeps nothing, so that each replay
-    packs the weights as they stand (``fused_raymarch.make_fused_render_fn``).
+    CUDA graph of trained parameters it packs on every call and keeps
+    nothing, so that each replay packs the weights as they stand; a graph of
+    frozen ones reads the cached packing where there is one
+    (``fused_raymarch.make_fused_render_fn``).
     """
     cache: Dict[int, Tuple[Any, Any, fr.FusedMLP]] = {}
 
     def apply_fn(params, samples, direc, position_dim=10, direction_dim=4,
                  compute_dtype=None):
-        if fr.capturing(samples):
+        leaves = flatten_tree(params)
+        key = (compute_dtype, tuple((id(t), t._version) for t in leaves))
+        if fr.capturing(samples) and (cache.get(id(params), (None,))[0] != key
+                                      or any(t.requires_grad for t in leaves)):
             return nerf_mlp_kernel_apply(fr.prepare_fused_mlp(params, compute_dtype), samples,
                                          direc, position_dim, direction_dim)
-        key = (compute_dtype, tuple((id(t), t._version) for t in flatten_tree(params)))
         hit = cache.pop(id(params), None)
         if hit is None or hit[0] != key:
             hit = (key, params, fr.prepare_fused_mlp(params, compute_dtype))

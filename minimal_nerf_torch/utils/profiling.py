@@ -5,8 +5,8 @@ one tracer:
 
 - ``span(name, unit)``: a named span of the program's host path (the
   ``nerf.*`` spans at its layer boundaries: the train call and its draw,
-  grid update, body, capture and replays; the view sweep's frame and
-  chunk; the occupancy sampler hook; the render passes). A span records
+  grid update, body, capture and replays; the view sweep's frame, chunk
+  and graph capture; the occupancy sampler hook; the render passes). A span records
   its name, start and end, its id, its parent's id and its ``unit`` (the
   step, or the frame's index in its sweep; a child inherits its parent's),
   and ``n``, the units it covers (a call's steps). Spans are kept only
@@ -19,8 +19,10 @@ one tracer:
   Chrome trace's ``ts`` plus its ``baseTimeNanoseconds``. Finished spans
   go to one bounded buffer in memory (``spans()``, ``dropped()``);
 - ``count(name, n)``: always-on counters (``counters()``): the kernel
-  wrappers' launches (``<kernel>.launches``) and ``graph.replays``, a
-  replayed train step adding the launches its capture counted;
+  wrappers' launches (``<kernel>.launches``), ``graph.replays``, a
+  replayed train step adding the launches its capture counted, and
+  ``view.graph_replays``, a replayed view chunk adding them too (the view
+  sweep takes its capture's counts back);
   ``reset()`` clears the spans and the counters;
 - ``trace(logdir)``: a ``torch.profiler`` trace of the enclosed block (host
   and, on a card, device activity) with the tracer on, written as one

@@ -13,14 +13,17 @@ over several devices of this process (render and score ``--data-parallel``).
 Many poses (the render CLI's orbit, the score CLI's test split) go through
 ``render_poses_batched``: ``frames_per_dispatch`` frames per batch, the next
 batch queued on the device before this one is waited for, each batch
-fetched in one asynchronous copy (or kept on the device for scoring).
+fetched in one asynchronous copy (or kept on the device for scoring). A
+``StaticRenderChunk`` (the serving set-up's, whose state never changes) has
+its full chunks swept on a CUDA device as replays of one captured CUDA graph
+of the whole per-chunk chain (``_ChunkGraph``), the same frames bit for bit.
 """
 
 from __future__ import annotations
 
 import sys
 from pathlib import Path
-from typing import Callable, Iterator, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +34,8 @@ from minimal_nerf_torch.utils import profiling
 
 # Blender-synthetic default horizontal FoV (reference nerf_helpers.py:163)
 DEFAULT_CAM_ANGLE_X = 0.6911112070083618
+# the devices on which a StaticRenderChunk's full chunks are graph replays
+_GRAPH_DEVICES = ("cuda",)
 
 
 def mix_seed(*ints: int) -> int:
@@ -80,6 +85,102 @@ def _to_uint8(rgb: torch.Tensor) -> torch.Tensor:
     return torch.clamp(rgb * 255.0, 0, 255).to(torch.uint8)
 
 
+def _chunk_rays(flat: torch.Tensor, height: int, width: int, focal,
+               pose: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Contiguous ``o, d [N, 3]`` of the row-major pixel indices ``flat [N]``
+    of a ``height x width`` view from ``pose``."""
+    o, d = cameras.rays_for_pixels((flat % width).float(), (flat // width).float(),
+                                   height, width, focal, pose)
+    return o.contiguous(), d.contiguous()
+
+
+class StaticRenderChunk:
+    """A ``render_chunk`` whose state (parameters, grid, packed weights) is
+    never updated after it is built: the serving set-up's, on one device
+    (``inference.build_render_chunk``). On a CUDA device
+    ``render_poses_batched`` sweeps its full chunks as replays of one
+    captured CUDA graph, which it keeps here (``graph``) for the next sweep;
+    a chunk of another size, view or device captures again. Called, it is
+    the render chunk it wraps."""
+
+    def __init__(self, render_chunk: Callable):
+        self.render_chunk = render_chunk
+        self.graph: Optional[_ChunkGraph] = None
+
+    def __call__(self, o, d, generator):
+        return self.render_chunk(o, d, generator)
+
+
+class _ChunkGraph:
+    """A view sweep's chain for one full chunk of ``n`` rays, captured as
+    one CUDA graph and replayed for every full chunk of every frame.
+
+    The graph holds everything from the chunk's pixel offset to its colors:
+    the pixel indices (a static ``arange(n)`` plus ``offset``, the eager
+    loop's ``arange(lo, lo + n)``), the rays from the static ``pose``, the
+    chunk's draws from ``generator`` (registered with the graph, so that each
+    replay draws from the seed it was given), the render, the colors written
+    into their rows of the static ``frame``, and ``offset`` advanced by
+    ``n``. A replay refills the offset in place where the last one did not
+    leave it at the chunk's pixel (a frame's first replay), and seeds the
+    generator with the chunk's ``mix_seed(frame seed, i)``: chunk ``i``
+    draws and renders what the eager loop's does, bit for bit. The chunk's
+    kernel hooks read the weights they packed before the capture (the state
+    never changes).
+
+    The capture (span ``nerf.view.capture``) launches nothing: the launch
+    counters it raised are taken back, and each replay adds them, with one
+    ``view.graph_replays``.
+    """
+
+    def __init__(self, render_chunk: Callable, key: tuple, pose: torch.Tensor,
+                 colors: torch.Tensor):
+        """``key``: ``(n, height, width, focal, pose shape, device)``;
+        ``pose`` the first frame's; ``colors`` a chunk's, whose dtype and
+        width the frame takes."""
+        n, height, width, focal, _, dev = self.key = key
+        self.index = torch.arange(n, device=dev)
+        self.offset = torch.zeros((), dtype=torch.int64, device=dev)
+        self.next_lo = 0  # ``offset`` once every queued replay has run
+        self.pose = pose.clone()
+        self.frame = torch.empty((height * width,) + colors.shape[1:], dtype=colors.dtype,
+                                 device=dev)
+        self.generator = torch.Generator(device=dev)
+
+        def body():
+            flat = self.index + self.offset
+            o, d = _chunk_rays(flat, height, width, focal, self.pose)
+            self.frame.index_copy_(0, flat, render_chunk(o, d, self.generator))
+            self.offset.add_(n)
+
+        before = profiling.counters()
+        with profiling.span("nerf.view.capture"):
+            self.graph = self._capture(body)
+        self.launched = {k: v - before.get(k, 0) for k, v in profiling.counters().items()
+                         if v != before.get(k, 0)}
+        for name, v in self.launched.items():
+            profiling.count(name, -v)
+
+    def _capture(self, body: Callable) -> torch.cuda.CUDAGraph:
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        with torch.cuda.graph(graph):
+            body()
+        return graph
+
+    def replay(self, lo: int, seed: int) -> None:
+        """Render the full chunk at pixel ``lo``, drawn from ``seed``, into
+        its rows of ``frame``."""
+        if lo != self.next_lo:
+            self.offset.fill_(lo)
+        self.generator.manual_seed(seed)
+        self.graph.replay()
+        self.next_lo = lo + self.index.shape[0]
+        profiling.count("view.graph_replays")
+        for name, v in self.launched.items():
+            profiling.count(name, v)
+
+
 def view_reconstruction(render_chunk: Callable, all_o_rays: torch.Tensor,
                         all_d_rays: torch.Tensor, chunk: int = 4096,
                         seed: int = 0) -> np.ndarray:
@@ -107,7 +208,11 @@ def render_poses_batched(render_chunk: Callable, poses, height: int, width: int,
     seeds its chunks from ``frame_seeds[i]`` (default ``mix_seed(0, i)``), so
     the frames are the same for every ``frames_per_dispatch``. Frame ``i`` is
     the span ``nerf.view.frame`` of unit ``i``, and each of its chunks (rays,
-    generator, ``render_chunk``) the span ``nerf.view.chunk``. The chunks of
+    generator, ``render_chunk``) the span ``nerf.view.chunk``. For a
+    ``StaticRenderChunk`` on a CUDA device every full chunk but the first the
+    render chunk ever met is a replay of its ``_ChunkGraph`` (the span holds
+    the replay's refills and ``graph.replay()``), captured after that first
+    chunk ran eagerly; a short last chunk runs eagerly. The chunks of
     batch ``b + 1`` are queued before batch ``b`` is waited for, so the
     caller's work on a batch's frames overlaps the device's work on the
     next. On a CUDA device a batch comes back in one ``non_blocking`` copy
@@ -124,19 +229,38 @@ def render_poses_batched(render_chunk: Callable, poses, height: int, width: int,
     if frame_seeds is None:
         frame_seeds = [mix_seed(0, i) for i in range(n)]
     on_cuda = poses.device.type == "cuda"
+    graphed = (isinstance(render_chunk, StaticRenderChunk)
+               and poses.device.type in _GRAPH_DEVICES)
+    key = (chunk, height, width, focal, tuple(poses.shape[1:]), poses.device)
 
     def render_frame(f: int) -> torch.Tensor:
-        out = []
+        eager = []  # (pixel, colors) of the chunks rendered eagerly
         with profiling.span("nerf.view.frame", f):
+            graph = None
+            if graphed and render_chunk.graph is not None and render_chunk.graph.key == key:
+                graph = render_chunk.graph
+                graph.pose.copy_(poses[f])
             for i, lo in enumerate(range(0, n_pix, chunk)):
+                full = lo + chunk <= n_pix
                 with profiling.span("nerf.view.chunk"):
+                    if graph is not None and full:
+                        graph.replay(lo, mix_seed(frame_seeds[f], i))
+                        continue
                     flat = torch.arange(lo, min(lo + chunk, n_pix), device=poses.device)
-                    o, d = cameras.rays_for_pixels(
-                        (flat % width).float(), (flat // width).float(),
-                        height, width, focal, poses[f])
                     g = chunk_generator(frame_seeds[f], i, poses.device)
-                    out.append(render_chunk(o.contiguous(), d.contiguous(), g))
-            return _to_uint8(torch.cat(out)).reshape(height, width, 3)
+                    eager.append((lo, render_chunk(
+                        *_chunk_rays(flat, height, width, focal, poses[f]), g)))
+                if graphed and graph is None and full:
+                    render_chunk.graph = None  # release the old graph's pool first
+                    graph = render_chunk.graph = _ChunkGraph(render_chunk, key, poses[f],
+                                                             eager[-1][1])
+            if graph is None:
+                rgb = torch.cat([colors for _, colors in eager])
+            else:
+                rgb = graph.frame
+                for lo, colors in eager:
+                    rgb[lo:lo + colors.shape[0]] = colors
+            return _to_uint8(rgb).reshape(height, width, 3)
 
     def dispatch(lo: int):
         """Queue the frames ``lo ..`` of one batch and, on a card, their copy

@@ -993,3 +993,79 @@ def test_fused_and_pallas_paths_agree_at_the_init(cuda_device, dtype):
         moved = map_params(lambda t: t.detach().clone(), init)
         loop.adam_update(moved, unflatten_tree(init, fused), loop.adam_init(moved), 5e-4)
         assert gap(fused, grads("pallas", moved)) > PATH_GRAD_TOL[dtype]
+
+
+# render cells: full widths at 64+128 through each kernel, and the fast
+# recipe (16+48 through a grid) through the fused kernel
+VIEW_CASES = {"fused": ({}, dict(kernel="fused")), "pallas": ({}, dict(kernel="pallas")),
+              "fast": (dict(coarse_samples=16, fine_samples=48),
+                       dict(kernel="fused", occupancy=True))}
+VIEW_HW, VIEW_CHUNK = 800, 4096
+
+
+def _view_chunk(dev, case, tmp_path):
+    """``inference.build_render_chunk`` of a checkpoint of the seeded init
+    (He-uniform weights, density bias +0.5), bf16; under occupancy with a
+    ball of density 8 and radius 1 in its grid, saved past the warmup."""
+    from minimal_nerf_torch import inference
+    from minimal_nerf_torch.models.nerf import NeRFConfig, init_nerf_network
+    from minimal_nerf_torch.training.checkpoint import save_checkpoint
+    from minimal_nerf_torch.training.config import TrainConfig
+
+    nerf_kw, train_kw = VIEW_CASES[case]
+    cfg, tcfg = NeRFConfig(**nerf_kw), TrainConfig(**train_kw)
+    params = init_nerf_network(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
+                               gain=HE_GAIN)
+    for mlp in params.values():
+        mlp["density"]["b"] += 0.5
+    grid = None
+    if tcfg.occupancy_config is not None:
+        g, bound = tcfg.occ_resolution, tcfg.occ_bound
+        c = -bound + (torch.arange(g, device=dev) + 0.5) * (2.0 * bound / g)
+        pts = torch.stack(torch.meshgrid(c, c, c, indexing="ij"), dim=-1)
+        grid = torch.where(torch.linalg.norm(pts, dim=-1) < 1.0, 8.0, 0.0)
+    ckpt = save_checkpoint(tmp_path / "view.ckpt", params, tcfg.occ_warmup_steps,
+                           cfg.to_dict(), tcfg.to_dict(), grid=grid)
+    return inference.build_render_chunk(str(ckpt), VIEW_CHUNK, device=dev)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(VIEW_CASES))
+def test_graph_swept_frames_equal_eager_frames(cuda_device, case, tmp_path):
+    """Two 800x800 views in a row (two poses, two frame seeds; 156 full
+    chunks of 4096 rays and a tail of 1024 each) through the serving set-up's
+    ``StaticRenderChunk``: the first full chunk runs eagerly, then one
+    capture, then 2 x 156 - 1 graph replays, the tails eagerly; the frames
+    equal, bit for bit, the eager loop's through the render chunk it wraps,
+    and each chunk counts its kernels' launches once (2 forwards; under
+    occupancy one sampler). A second sweep, its device syncs made errors,
+    replays all 312 full chunks and gives the same frames."""
+    from minimal_nerf_torch import views
+    from minimal_nerf_torch.ops import cameras
+
+    chunk = _view_chunk(cuda_device, case, tmp_path)
+    assert isinstance(chunk, views.StaticRenderChunk)
+    focal = cameras.focal_from_angle(VIEW_HW, views.DEFAULT_CAM_ANGLE_X)
+    poses = torch.as_tensor(cameras.spherical_poses(num_poses=5)[1:3], device=cuda_device)
+    sweep = lambda c: list(views.render_poses_batched(  # noqa: E731
+        c, poses, VIEW_HW, VIEW_HW, focal, chunk=VIEW_CHUNK,
+        frame_seeds=[3141592653, 2 ** 31 + 12345], frames_per_dispatch=1, device=cuda_device,
+        device_frames=True))
+    want = sweep(chunk.render_chunk)
+    assert not torch.equal(want[0], want[1]) and want[0].float().std() > 0
+    forward = rm.FWD_LAUNCHES if case == "pallas" else fr.FWD_LAUNCHES
+    chunks = -(-VIEW_HW * VIEW_HW // VIEW_CHUNK)
+    counted = {forward: 2 * chunks * 2}
+    if case == "fast":
+        counted[osk.LAUNCHES] = 2 * chunks
+    for replays in (2 * (chunks - 1) - 1, 2 * (chunks - 1)):
+        profiling.reset()
+        if replays % 2 == 0:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = sweep(chunk)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert profiling.counters() == dict(counted, **{"view.graph_replays": replays})
+        assert all(torch.equal(a, b) for a, b in zip(want, got))

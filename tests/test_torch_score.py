@@ -15,6 +15,7 @@ from minimal_nerf_torch import views as t_views
 from minimal_nerf_torch.data.synthetic import SyntheticScene
 from minimal_nerf_torch.ops import cameras as t_cam
 from minimal_nerf_torch.ops import image_metrics as t_im
+from minimal_nerf_torch.utils import profiling
 from minimal_nerf_tpu import inference as j_inf
 from minimal_nerf_tpu import views as j_views
 from minimal_nerf_tpu.models.nerf import NeRFConfig, init_nerf_network
@@ -147,6 +148,83 @@ def test_frames_do_not_depend_on_frames_per_dispatch(tiny_ckpt):
     np.testing.assert_array_equal(next(alone), want[2])
     with pytest.raises(ValueError, match="frames_per_dispatch"):
         sweep(0)
+
+
+@pytest.mark.parametrize("data_parallel, static", [(0, True), (1, True), (2, False)])
+def test_only_a_one_device_render_chunk_is_static(tiny_ckpt, data_parallel, static):
+    """``build_render_chunk`` marks its chunk as a ``StaticRenderChunk`` (whose
+    full chunks a card sweeps as graph replays) on one device alone."""
+    chunk, _, _ = t_inf.build_render_chunk(tiny_ckpt, 40, data_parallel=data_parallel,
+                                           device="cpu")
+    assert isinstance(chunk, t_views.StaticRenderChunk) == static
+
+
+def _sweep(chunk, fpd=1, height=10, **kw):
+    poses = t_cam.spherical_poses(num_poses=4)
+    focal = t_cam.focal_from_angle(9, t_views.DEFAULT_CAM_ANGLE_X)
+    return [np.asarray(f) for f in t_views.render_poses_batched(
+        chunk, poses, height, 9, focal, chunk=40, frames_per_dispatch=fpd, device="cpu", **kw)]
+
+
+@pytest.mark.parametrize("static", [False, True])
+def test_the_cpu_sweeps_eagerly(tiny_ckpt, static):
+    """On the CPU a marked render chunk and the one it wraps both take the
+    eager loop: no graph, no replay, the same frames."""
+    chunk, _, _ = t_inf.build_render_chunk(tiny_ckpt, 40, device="cpu")
+    profiling.reset()
+    frames = _sweep(chunk if static else chunk.render_chunk)
+    assert chunk.graph is None and profiling.counter("view.graph_replays") == 0
+    for a, b in zip(frames, _sweep(chunk.render_chunk)):
+        np.testing.assert_array_equal(a, b)
+
+
+class _ReplayingGraph:
+    """A CUDA graph's stand-in on the CPU: a replay runs the captured body
+    again, its launch counts taken back (a real replay runs no Python)."""
+
+    def __init__(self, body):
+        self.body = body
+
+    def replay(self):
+        before = profiling.counters()
+        self.body()
+        for name, n in profiling.counters().items():
+            profiling.count(name, before.get(name, 0) - n)
+
+
+@pytest.mark.parametrize("fpd, device_frames", [(1, False), (8, False), (8, True)])
+def test_graph_swept_frames_equal_eager_frames(tiny_ckpt, monkeypatch, fpd, device_frames):
+    """The graph sweep's logic on the CPU (a capture that runs the body, a
+    replay that runs it again): 4 poses of 10x9 in chunks of 40 (two full
+    chunks and a tail of 10 a frame) equal the eager loop's frames; the
+    first full chunk runs eagerly, then one capture, then 7 replays; every
+    chunk counts its launches once; a second sweep replays 8 and captures
+    nothing, a sweep of another view size captures again."""
+    monkeypatch.setattr(t_views, "_GRAPH_DEVICES", ("cpu",))
+    monkeypatch.setattr(t_views._ChunkGraph, "_capture",
+                        lambda self, body: (body(), _ReplayingGraph(body))[1])
+    inner, _, _ = t_inf.build_render_chunk(tiny_ckpt, 40, device="cpu")
+
+    def counted(o, d, generator):
+        profiling.count("k.launches", 2)
+        return inner(o, d, generator)
+
+    want = _sweep(counted)
+    chunk = t_views.StaticRenderChunk(counted)
+    profiling.reset()
+    with profiling.tracing():
+        got = _sweep(chunk, fpd, device_frames=device_frames)
+    assert profiling.counters() == {"k.launches": 2 * 3 * 4, "view.graph_replays": 7}
+    assert [s.name for s in profiling.spans()].count("nerf.view.capture") == 1
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+    graph = chunk.graph
+    for a, b in zip(want, _sweep(chunk, fpd, device_frames=device_frames)):
+        np.testing.assert_array_equal(a, b)
+    assert chunk.graph is graph and profiling.counter("view.graph_replays") == 15
+    for a, b in zip(_sweep(counted, height=12), _sweep(chunk, fpd, height=12)):
+        np.testing.assert_array_equal(a, b)
+    assert chunk.graph is not graph and chunk.graph.key[:3] == (40, 12, 9)
 
 
 def test_data_parallel_raises(fixture_scene, tiny_ckpt):

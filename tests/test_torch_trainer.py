@@ -237,6 +237,20 @@ def test_in_memory_scene(fixture_scene, tmp_path):
     _assert_state_equal(*runs)
 
 
+def test_validation_render_chunk_is_never_static(fixture_scene, tmp_path):
+    """The validation's render chunk takes parameters that training updates
+    in place: it is never a ``StaticRenderChunk`` and replays no graph."""
+    from minimal_nerf_torch import views
+    from minimal_nerf_torch.utils import profiling
+
+    tr = _t_trainer(tmp_path, "occupancy", base_dir=fixture_scene, max_steps=3)
+    profiling.reset()
+    tr.fit()
+    assert tr._val_render_chunk is not None
+    assert not isinstance(tr._val_render_chunk, views.StaticRenderChunk)
+    assert profiling.counter("view.graph_replays") == 0
+
+
 def test_ckpt_auto_on_a_fresh_run_does_not_adopt_a_stale_csv(fixture_scene, tmp_path):
     run = tmp_path / "t"
     run.mkdir()
