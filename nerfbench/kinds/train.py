@@ -1,19 +1,19 @@
 """Training traffic: steps of 4096 rays on a random scene, one call after
 another (a closed loop), as the Trainer calls the train step.
 
-The program's step is ``training.loop.make_train_step`` at one step per
-call, else ``make_multi_step`` with the configuration's ``steps_per_call``
-(one captured CUDA graph replayed per step), through
-``loop.kernel_hooks(kernel)``, with the occupancy grid when the
-configuration has one. Set-up builds that one object and runs its first
-``check_calls`` calls from ``start_step``, keeping the state at each call's
-end (``_boundary``: the call's last loss and its coarse part, the
-parameters, the Adam moments and count, the grid). The window's calls
-continue the same object's trajectory.
+The program's step is the configuration's field's (``train_program``; the
+NeRF MLP's is ``training.loop.make_train_step`` at one step per call, else
+``make_multi_step`` with the configuration's ``steps_per_call``), with the
+occupancy grid when the configuration has one. Set-up builds that one
+object and runs its first ``check_calls`` calls from ``start_step``,
+keeping the state at each call's end (the call's last loss and its coarse
+part, the parameters, the Adam moments and count, the grid). The window's
+calls continue the same object's trajectory.
 
-``check()`` holds those call ends against ``reference.nerf.train_steps`` on
-the same weights, scene, grid and seed, in two ways (``compare``; the
-cell's limits pick the numbers compared):
+``check()`` holds those call ends against ``reference.nerf.train_steps`` of
+the field's reference (``Field``) on the same weights, scene, grid and
+seed, in two ways (``compare``; the cell's limits pick the numbers
+compared):
 
 - followed: the reference runs on its own from the start over the first
   ``follow_steps`` steps' calls. ``loss_gap``, each call's last loss, the
@@ -56,13 +56,9 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from nerfbench import counts
-from nerfbench.kinds import program_configs
+from nerfbench import spec as S
 from nerfbench.reference import nerf as R
 from nerfbench.traffic import generate as gen
-
-
-ADAM_B1 = R.ADAM_B1
 
 
 def _clones(ts) -> List[torch.Tensor]:
@@ -98,6 +94,8 @@ class Cell:
     def __init__(self, spec: Dict[str, Any], seed: int, device, log):
         self.spec, self.seed, self.dev, self.log = spec, seed, torch.device(device), log
         self.cfg, self.traffic = spec["config"], spec["traffic"]
+        self.field = S.field(self.cfg)
+        self.ref_field = self.field.reference(self.cfg)
         self.spc = self.cfg["train"]["steps_per_call"]
         self.follow_calls = math.ceil(self.traffic["follow_steps"] / self.spc)
         self.calls_checked = max(self.traffic["check_calls"], self.follow_calls)
@@ -105,15 +103,13 @@ class Cell:
 
     def work(self, units: int) -> Dict[str, int]:
         rays = units * self.spc * self.cfg["train"]["num_rays"]
-        return {"rays": rays, "points": rays * counts.points_per_ray(self.cfg["nerf"]),
+        return {"rays": rays, "points": rays * self.field.points_per_ray(self.cfg),
                 "steps": units * self.spc}
 
     def setup(self) -> None:
-        from minimal_nerf_torch.training import loop
-
         cfg, tr, dev = self.cfg, self.traffic, self.dev
         self.images, self.poses, self.focal = gen.scene(self.seed, tr, dev)
-        params = gen.weights(self.seed, cfg["nerf"], tr["weights"], dev)
+        params = self.field.weights(self.seed, cfg, tr, dev)
         self.params0 = R.map_tree(lambda t: t.detach().clone(), params)
         occ = cfg.get("occupancy")
         self.grid0 = gen.grid(self.seed, occ, tr["grid"], dev) if occ else None
@@ -121,18 +117,8 @@ class Cell:
         if occ:
             self.log(f"grid: {100.0 * float((grid > 0).float().mean()):.4f}% of cells inside "
                      "the seeded object")
-        nerf_cfg, train_cfg = program_configs(cfg)
-        static = loop.SceneStatic(height=tr["height"], width=tr["width"], focal=self.focal,
-                                  num_frames=tr["frames"])
-        mlp_apply, render_fn = loop.kernel_hooks(train_cfg.kernel, dev)
-        occ_cfg = train_cfg.occupancy_config
-        if self.spc == 1:
-            self.fn = loop.make_train_step(nerf_cfg, train_cfg, static, render_fn, dev,
-                                           mlp_apply, occ_cfg)
-        else:
-            self.fn = loop.make_multi_step(nerf_cfg, train_cfg, static, self.spc, render_fn,
-                                           dev, mlp_apply, occ_cfg)
-        self.params, self.opt, self.grid = params, loop.adam_init(params), grid
+        self.fn, self.opt = self.field.train_program(cfg, tr, self.focal, params, dev)
+        self.params, self.grid = params, grid
         self.step = tr["start_step"]
         self.start = dict(R.adam_state(self.params0), params=_clones(R.leaves(self.params0)),
                           grid=self.grid0)
@@ -184,7 +170,7 @@ class Cell:
                                 self.images, self.poses, self.focal, self.seed,
                                 self.traffic["start_step"] + k * self.spc, self.spc, numerics,
                                 start["grid"], self.traffic["reference_block_rays"],
-                                state=start, grids=grids)
+                                state=start, grids=grids, field=self.ref_field)
         return {"loss": out["losses"][-1], "coarse": out["coarse_losses"][-1],
                 "params": out["params"], "mu": out["mu"], "nu": out["nu"],
                 "count": out["count"], "grid": out["grid"], "updates": out["updates"]}
@@ -217,7 +203,7 @@ class Cell:
                  f"{[g['loss'] for g in got[:self.follow_calls]]}, reference "
                  f"{[r['loss'] for r in ref]}")
         forced: Dict[str, List[float]] = {}
-        decay = ADAM_B1 ** self.spc
+        decay = self.ref_field.adam.b1 ** self.spc
         for k, g in enumerate(got):
             start = self.start if k == 0 else got[k - 1]
             ups = self.updates_in(k)
@@ -248,9 +234,10 @@ class Cell:
         return out
 
     def check(self) -> Dict[str, float]:
-        return self.compare(self.observed, R.reference_numerics(self.cfg))
+        return self.compare(self.observed, self.field.reference_numerics(self.cfg))
 
     def control(self) -> Dict[str, float]:
         """The reference in the control's precision in the program's place."""
-        return self.compare(self.trajectory(R.control_numerics(self.cfg), self.calls_checked),
-                            R.reference_numerics(self.cfg))
+        return self.compare(self.trajectory(self.field.control_numerics(self.cfg),
+                                            self.calls_checked),
+                            self.field.reference_numerics(self.cfg))

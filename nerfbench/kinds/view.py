@@ -2,9 +2,10 @@
 orbit, the next request sent when the last frame is on the host (a closed
 loop), as a viewer asks for views one at a time.
 
-Set-up writes a checkpoint of the seeded weights (and grid) with the
-package's ``save_checkpoint`` into a temporary directory, loads it through
-``inference.build_render_chunk`` and renders one warm-up view. A request is
+Set-up has the configuration's field serve the seeded weights (and grid)
+from a temporary directory (``serve_program``; the NeRF MLP's writes a
+checkpoint with the package's ``save_checkpoint`` and loads it through
+``inference.build_render_chunk``) and renders one warm-up view. A request is
 ``views.render_poses_batched`` over that render chunk for one pose, its
 frame taken from the iterator (on the host) and copied out of the sweep's
 pinned buffer, as a client that keeps it would. Every frame of the window
@@ -12,25 +13,24 @@ is kept.
 
 ``check()`` draws from the seed a sample of the window's frames, as many as
 ``check_points`` sample points allow (at least one), renders them with
-``reference.nerf.render_frame`` from the same weights, grid, poses and frame
-seeds, and compares the 8-bit frames (``compare``): ``frame_mean_abs``, the
-mean absolute difference in levels of the worst frame, and
-``chunk_mean_abs_max``, that of the worst chunk of ``chunk`` pixels, which a
-wrong chunk moves even when its frame's mean stays low.
+``reference.nerf.render_frame`` of the field's reference from the same
+weights, grid, poses and frame seeds, and compares the 8-bit frames
+(``compare``): ``frame_mean_abs``, the mean absolute difference in levels
+of the worst frame, and ``chunk_mean_abs_max``, that of the worst chunk of
+``chunk`` pixels, which a wrong chunk moves even when its frame's mean
+stays low.
 """
 
 from __future__ import annotations
 
 import gc
 import tempfile
-from pathlib import Path
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
-from nerfbench import counts
-from nerfbench.kinds import program_configs
+from nerfbench import spec as S
 from nerfbench.reference import nerf as R
 from nerfbench.traffic import generate as gen
 
@@ -43,34 +43,29 @@ class Cell:
     def __init__(self, spec: Dict[str, Any], seed: int, device, log):
         self.spec, self.seed, self.dev, self.log = spec, seed, torch.device(device), log
         self.cfg, self.traffic = spec["config"], spec["traffic"]
+        self.field = S.field(self.cfg)
+        self.ref_field = self.field.reference(self.cfg)
         self.trace_units = self.traffic["trace_frames"]
         tr = self.traffic
         self.pixels = tr["height"] * tr["width"]
-        self.ppr = counts.points_per_ray(self.cfg["nerf"])
+        self.ppr = self.field.points_per_ray(self.cfg)
 
     def work(self, units: int) -> Dict[str, int]:
         return {"rays": units * self.pixels, "points": units * self.pixels * self.ppr,
                 "frames": units}
 
     def setup(self) -> None:
-        from minimal_nerf_torch import inference
-        from minimal_nerf_torch.training.checkpoint import save_checkpoint
-
         cfg, tr, dev = self.cfg, self.traffic, self.dev
-        params = gen.weights(self.seed, cfg["nerf"], tr["weights"], dev)
+        params = self.field.weights(self.seed, cfg, tr, dev)
         self.params0 = R.map_tree(lambda t: t.detach().clone(), params)
         occ = cfg.get("occupancy")
         self.grid0 = gen.grid(self.seed, occ, tr["grid"], dev) if occ else None
         if occ:
             self.log(f"grid: {100.0 * float((self.grid0 > 0).float().mean()):.4f}% of cells "
                      "inside the seeded object")
-        nerf_cfg, train_cfg = program_configs(cfg)
         self.tmp = tempfile.TemporaryDirectory(prefix="nerfbench-")
-        ckpt = save_checkpoint(Path(self.tmp.name) / "model.ckpt", params,
-                               tr["checkpoint_step"], nerf_cfg.to_dict(), train_cfg.to_dict(),
-                               grid=self.grid0)
-        self.render_chunk, _, _ = inference.build_render_chunk(
-            str(ckpt), rays=tr["chunk"], kernel=train_cfg.kernel, device=dev)
+        self.render_chunk = self.field.serve_program(cfg, tr, params, self.grid0, self.tmp.name,
+                                                     dev)
         n = tr["requests"]
         self.poses = gen.orbit_poses(self.seed, n + 1, tr, dev)
         self.frame_seeds = gen.frame_seeds(self.seed, n + 1)
@@ -119,7 +114,7 @@ class Cell:
             return [R.to_uint8(R.render_frame(
                 self.params0, self.cfg, self.poses[i], tr["height"], tr["width"], self.focal,
                 self.frame_seeds[i], tr["chunk"], numerics, self.grid0,
-                tr["reference_chunks_per_block"])) for i in indices]
+                tr["reference_chunks_per_block"], self.ref_field)) for i in indices]
 
     def compare(self, got: List[torch.Tensor], ref: List[torch.Tensor]) -> Dict[str, float]:
         chunk = self.traffic["chunk"]
@@ -139,10 +134,11 @@ class Cell:
         idx = self.sample()
         self.log(f"output check: frames {idx} of {len(self.frames)}")
         got = [torch.from_numpy(np.asarray(self.frames[i])) for i in idx]
-        return self.compare(got, self.reference_frames(R.reference_numerics(self.cfg), idx))
+        return self.compare(got, self.reference_frames(self.field.reference_numerics(self.cfg),
+                                                       idx))
 
     def control(self) -> Dict[str, float]:
         """The reference in the control's precision in the program's place."""
         idx = self.sample()
-        return self.compare(self.reference_frames(R.control_numerics(self.cfg), idx),
-                            self.reference_frames(R.reference_numerics(self.cfg), idx))
+        return self.compare(self.reference_frames(self.field.control_numerics(self.cfg), idx),
+                            self.reference_frames(self.field.reference_numerics(self.cfg), idx))

@@ -1,30 +1,37 @@
-"""Plain PyTorch reference of the hierarchical NeRF the cells run.
+"""Plain PyTorch reference of the hierarchical radiance fields the cells run.
 
-Written from the published model (Mildenhall et al., NeRF, ECCV 2020) and
+Written from the published models (Mildenhall et al., NeRF, ECCV 2020) and
 the configuration files, independent of the package under test: it imports
 neither it nor JAX, and it takes from the benchmark only the inputs (scene,
 weights, grid, poses, seeds), never anything the program derived from them.
 
 What it computes, in float32 with TF32 off (``Numerics``):
 
-- the MLP: 4 trunk layers on the position encoding, a skip that
-  re-concatenates it, two more ReLU layers and a linear one, a ReLU density
-  head, a 128-wide color layer on ``[h, direction encoding]`` and a sigmoid
-  color head; encodings are frequency-major with cos before sin;
-- the render: stratified coarse times (or the occupancy grid's sampler),
-  transmittance weights and colors, inverse-CDF fine times with jitter in
-  the chosen bin, the sorted union, the fine pass;
+- the field (``Field``): density and color at points along rays, the
+  density alone for the grid's update, and the optimizer's settings. The
+  default is the NeRF MLP (``nerf_field``): 4 trunk layers on the position
+  encoding, a skip that re-concatenates it, two more ReLU layers and a
+  linear one, a ReLU density head, a 128-wide color layer on ``[h,
+  direction encoding]`` and a sigmoid color head; encodings are
+  frequency-major with cos before sin. Another field's reference
+  (``reference/<field>.py``) supplies its own ``Field``;
+- the render, whatever the field: stratified coarse times (or the
+  occupancy grid's sampler), transmittance weights and colors, inverse-CDF
+  fine times with jitter in the chosen bin, the sorted union, the fine
+  pass;
 - training: the pixels and frame of each step, the summed coarse and fine
-  MSE, its gradients, Adam with the LR schedule, and the occupancy grid's
-  density EMA every ``update_every`` steps;
+  MSE, its gradients, Adam (``Adam``, the field's settings) with the LR
+  schedule, and the occupancy grid's density EMA every ``update_every``
+  steps;
 - the draws: the seeded generators and the order each step or chunk draws
   from them, as the configuration's draw rule states (``step_generator``,
   ``mix_seed``), so both sides see the same random numbers.
 
-``Numerics`` sets two roundings: of the matmul inputs (``"fp32"``, or the
-control's ``"fp8"``: e4m3 for values and e5m2 for gradients, each scaled
-per tensor) and of the render passes' encoder inputs, the scaled positions
-and the unit directions (``encoder``), which the configuration states.
+The MLP's ``Numerics`` set two roundings: of the matmul inputs (``"fp32"``,
+or the control's ``"fp8"``: e4m3 for values and e5m2 for gradients, each
+scaled per tensor) and of the render passes' encoder inputs, the scaled
+positions and the unit directions (``encoder``), which the configuration
+states. The machinery hands a field's numerics to its functions unread.
 """
 
 from __future__ import annotations
@@ -32,32 +39,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 PERM_STREAM, BATCH_STREAM, RENDER_STREAM, OCC_STREAM = 0x5EED, 1, 2, 0x0CC
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-
-
-@dataclasses.dataclass(frozen=True)
-class Numerics:
-    matmul: str = "fp32"            # "fp32" or "fp8"
-    encoder: Optional[str] = None   # rounding of the encoder inputs: None, "bf16", "fp8"
-
-
-def reference_numerics(cfg: Dict) -> Numerics:
-    """The reference of a configuration: fp32 matmuls, the encoder inputs
-    rounded as the configuration states."""
-    return Numerics("fp32", cfg["nerf"].get("encoder_inputs"))
-
-
-def control_numerics(cfg: Dict) -> Numerics:
-    """The control: every rounding the configuration states at bf16 taken
-    one step lower, to fp8."""
-    enc = cfg["nerf"].get("encoder_inputs")
-    return Numerics("fp8", "fp8" if enc else None)
 
 
 @contextlib.contextmanager
@@ -75,7 +63,61 @@ def exact_float32():
         torch.set_float32_matmul_precision(saved[2])
 
 
-# ---------------------------------------------------------------- roundings
+# ---------------------------------------------------------------- the field
+
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    """A field's optimizer: Adam with bias correction, every leaf updated
+    from its ``.grad`` (which it clears). A field whose optimizer differs
+    (another ``b2`` or ``eps``, rows skipped on a zero gradient, decay on
+    some leaves) gives an object with the same ``apply``."""
+    b1: float = ADAM_B1
+    b2: float = ADAM_B2
+    eps: float = ADAM_EPS
+
+    @torch.no_grad()
+    def apply(self, ps: List[torch.Tensor], mu: List[torch.Tensor], nu: List[torch.Tensor],
+              lr: torch.Tensor, count: int) -> None:
+        """The ``count``-th update (0-based) at the learning rate ``lr``,
+        in place."""
+        dev = lr.device
+        bc1 = 1 - torch.tensor(self.b1) ** (count + 1)
+        bc2 = 1 - torch.tensor(self.b2) ** (count + 1)
+        for p, m, v in zip(ps, mu, nu):
+            g = p.grad
+            m.mul_(self.b1).add_((1 - self.b1) * g)
+            v.mul_(self.b2).add_((1 - self.b2) * g * g)
+            p.sub_(lr * (m / bc1.to(dev)) / (torch.sqrt(v / bc2.to(dev)) + self.eps))
+            p.grad = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Field:
+    """The model a configuration runs, as the render and the train steps
+    see it.
+
+    - ``samples``: the group holding ``coarse_samples``, ``fine_samples``,
+      ``near`` and ``far``;
+    - ``point(params, which, x, d, num)``: density ``[N, S]`` and color
+      ``[N, S, 3]`` at the points ``x [N, S, 3]`` of rays with directions
+      ``d [N, 3]`` (not normalized) in the pass ``which`` (``"coarse"`` or
+      ``"fine"``);
+    - ``density(params, x, num)``: density ``[P]`` at points ``x [P, 3]``,
+      which the grid's EMA update reads;
+    - ``adam``: the optimizer (``Adam``)."""
+    samples: Dict[str, Any]
+    point: Callable
+    density: Callable
+    adam: Adam = Adam()
+
+
+# ---------------------------------------------------------------- the MLP
+
+@dataclasses.dataclass(frozen=True)
+class Numerics:
+    matmul: str = "fp32"            # "fp32" or "fp8"
+    encoder: Optional[str] = None   # rounding of the encoder inputs: None, "bf16", "fp8"
+
 
 def _quantize(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x`` rounded to the fp8 ``dtype`` with one scale per tensor (its
@@ -120,8 +162,6 @@ def matmul(x: torch.Tensor, w: torch.Tensor, how: str) -> torch.Tensor:
     raise ValueError(f"unknown matmul precision {how!r}")
 
 
-# ---------------------------------------------------------------- the MLP
-
 def encode(x: torch.Tensor, octaves: int) -> torch.Tensor:
     """``[..., C] -> [..., 2 * octaves * C]``: for each octave ``i``,
     ``cos(2^i pi x)`` over the C channels, then ``sin``."""
@@ -148,15 +188,48 @@ def mlp(p: Dict[str, Any], pos_enc: torch.Tensor, dir_enc: Optional[torch.Tensor
     return sigma, torch.sigmoid(lin(p["rgb"][1], r))
 
 
-def pass_color(p, nerf: Dict, o, d, ts, num: Numerics):
-    """One render pass over times ``ts [N, S]``: ``(color [N, 3], weights
-    [N, S])``. Positions are scaled by ``1/pi`` into the encoding's range."""
-    x = (o[:, None, :] + ts[..., None] * d[:, None, :]) * (1.0 / math.pi)
-    dn = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-    pe = encode(round_encoder(x, num.encoder), nerf["position_dim"])
-    de = encode(round_encoder(dn, num.encoder), nerf["direction_dim"])
-    de = de[:, None, :].expand(*ts.shape, de.shape[-1])
-    sigma, rgb = mlp(p, pe, de, num.matmul)
+def nerf_field(cfg: Dict) -> Field:
+    """The NeRF MLP of ``cfg["nerf"]``, one per pass (``params["coarse"]``,
+    ``params["fine"]``). In a render pass positions are scaled by ``1/pi``
+    into the encoding's range and the encoder inputs rounded as ``num``
+    states; the grid's update reads the coarse MLP on plain encoder
+    inputs, outside the render passes."""
+    nerf = cfg["nerf"]
+
+    def point(params, which, x, d, num: Numerics):
+        pe = encode(round_encoder(x * (1.0 / math.pi), num.encoder), nerf["position_dim"])
+        dn = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        de = encode(round_encoder(dn, num.encoder), nerf["direction_dim"])
+        de = de[:, None, :].expand(*x.shape[:-1], de.shape[-1])
+        return mlp(params[which], pe, de, num.matmul)
+
+    def density(params, x, num: Numerics):
+        return mlp(params["coarse"], encode(x / math.pi, nerf["position_dim"]), None,
+                   num.matmul)[0]
+
+    return Field(samples=nerf, point=point, density=density)
+
+
+def reference_numerics(cfg: Dict) -> Numerics:
+    """The MLP's reference numerics: fp32 matmuls, the encoder inputs
+    rounded as the configuration states."""
+    return Numerics("fp32", cfg["nerf"].get("encoder_inputs"))
+
+
+def control_numerics(cfg: Dict) -> Numerics:
+    """The MLP's control: every rounding the configuration states at bf16 taken
+    one step lower, to fp8."""
+    enc = cfg["nerf"].get("encoder_inputs")
+    return Numerics("fp8", "fp8" if enc else None)
+
+
+# ---------------------------------------------------------------- rendering
+
+def pass_color(field: Field, params, which: str, o, d, ts, num):
+    """One render pass of ``field`` over times ``ts [N, S]``: ``(color
+    [N, 3], weights [N, S])``."""
+    sigma, rgb = field.point(params, which, o[:, None, :] + ts[..., None] * d[:, None, :], d,
+                             num)
     deltas = torch.cat([ts[:, 1:] - ts[:, :-1], torch.full_like(ts[:, :1], 1e10)], dim=1)
     tau = sigma * deltas
     excl = torch.cat([torch.zeros_like(tau[:, :1]), torch.cumsum(tau[:, :-1], dim=1)], dim=1)
@@ -204,12 +277,12 @@ def occupancy_times(o, d, mask: torch.Tensor, occ: Dict, s: int, near: float, fa
     return torch.sort(near + (idx.float() + frac_u) * width, dim=1).values
 
 
-def fine_union(coarse_ts, weights, nerf: Dict, eps_u, jitter_u) -> torch.Tensor:
+def fine_union(coarse_ts, weights, samples: Dict, eps_u, jitter_u) -> torch.Tensor:
     """The sorted union of the coarse times and ``fine_samples`` times drawn
     from the coarse weights' piecewise-constant CDF, each uniform inside
     its chosen bin between neighbouring coarse times (``near`` and ``far``
     close the ends)."""
-    near, far, sf = nerf["near"], nerf["far"], nerf["fine_samples"]
+    near, far, sf = samples["near"], samples["far"], samples["fine_samples"]
     w = weights.detach()
     cdf = torch.cumsum(w, dim=1)
     cdf = cdf / (cdf[:, -1:] + 1e-10)
@@ -223,20 +296,20 @@ def fine_union(coarse_ts, weights, nerf: Dict, eps_u, jitter_u) -> torch.Tensor:
     return torch.sort(torch.cat([fine, coarse_ts], dim=1), dim=1).values
 
 
-def render(params, cfg: Dict, o, d, draws: Dict, num: Numerics, mask=None):
-    """``(coarse color, fine color)`` of rays ``o, d [N, 3]`` on their
-    draws (``draw_uniforms``); ``mask`` is the occupancy (None: stratified
-    coarse times)."""
-    nerf = cfg["nerf"]
-    sc = nerf["coarse_samples"]
+def render(field: Field, params, cfg: Dict, o, d, draws: Dict, num, mask=None):
+    """``(coarse color, fine color)`` of ``field`` for rays ``o, d [N, 3]``
+    on their draws (``draw_uniforms``); ``mask`` is the occupancy (None:
+    stratified coarse times)."""
+    s = field.samples
+    sc = s["coarse_samples"]
     if mask is None:
-        cts = stratified_times(sc, nerf["near"], nerf["far"], draws["coarse"])
+        cts = stratified_times(sc, s["near"], s["far"], draws["coarse"])
     else:
-        cts = occupancy_times(o, d, mask, cfg["occupancy"], sc, nerf["near"], nerf["far"],
+        cts = occupancy_times(o, d, mask, cfg["occupancy"], sc, s["near"], s["far"],
                               draws["coarse_eps"], draws["coarse_frac"])
-    coarse, weights = pass_color(params["coarse"], nerf, o, d, cts, num)
-    all_ts = fine_union(cts, weights, nerf, draws["eps"], draws["jitter"])
-    fine, _ = pass_color(params["fine"], nerf, o, d, all_ts, num)
+    coarse, weights = pass_color(field, params, "coarse", o, d, cts, num)
+    all_ts = fine_union(cts, weights, s, draws["eps"], draws["jitter"])
+    fine, _ = pass_color(field, params, "fine", o, d, all_ts, num)
     return coarse, fine
 
 
@@ -253,20 +326,20 @@ def mix_seed(*ints: int) -> int:
     return (int(state[0]) << 31) ^ int(state[1])
 
 
-def draw_uniforms(cfg: Dict, n: int, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+def draw_uniforms(cfg: Dict, samples: Dict, n: int,
+                  gen: torch.Generator) -> Dict[str, torch.Tensor]:
     """A render's uniforms in the order it draws them: the coarse times'
     (under occupancy a per-ray offset, then the in-bin places), the fine
-    offset, the fine jitter."""
-    nerf = cfg["nerf"]
+    offset, the fine jitter; ``samples`` is the field's (``Field``)."""
     rand = lambda *shape: torch.rand(shape, generator=gen, device=gen.device)  # noqa: E731
     out = {}
     if cfg.get("occupancy"):
         out["coarse_eps"] = rand(n, 1)
-        out["coarse_frac"] = rand(n, nerf["coarse_samples"])
+        out["coarse_frac"] = rand(n, samples["coarse_samples"])
     else:
-        out["coarse"] = rand(n, nerf["coarse_samples"])
+        out["coarse"] = rand(n, samples["coarse_samples"])
     out["eps"] = rand(n, 1)
-    out["jitter"] = rand(n, nerf["fine_samples"], 1)[..., 0]
+    out["jitter"] = rand(n, samples["fine_samples"], 1)[..., 0]
     return out
 
 
@@ -283,11 +356,13 @@ def pixel_rays(xs, ys, height: int, width: int, focal: float, c2w):
 
 @torch.no_grad()
 def render_frame(params, cfg: Dict, pose, height: int, width: int, focal: float,
-                 frame_seed: int, chunk: int, num: Numerics, grid=None,
-                 chunks_per_block: int = 1) -> torch.Tensor:
+                 frame_seed: int, chunk: int, num, grid=None,
+                 chunks_per_block: int = 1, field: Optional[Field] = None) -> torch.Tensor:
     """One delivered frame ``[H, W, 3]`` float in ``[0, 1]`` (fine colors):
     chunk ``i`` of ``chunk`` pixels in row-major order draws from the
-    generator of ``mix_seed(frame_seed, i)``."""
+    generator of ``mix_seed(frame_seed, i)``; ``field`` defaults to the
+    NeRF MLP."""
+    field = field or nerf_field(cfg)
     dev = pose.device
     mask = None if grid is None else occupied(grid, cfg["occupancy"], False)
     n_pix = height * width
@@ -298,12 +373,12 @@ def render_frame(params, cfg: Dict, pose, height: int, width: int, focal: float,
         flat = torch.arange(block[0], min(block[-1] + chunk, n_pix), device=dev)
         o, d = pixel_rays((flat % width).float(), (flat // width).float(), height, width,
                           focal, pose)
-        parts = [draw_uniforms(cfg, min(lo + chunk, n_pix) - lo,
+        parts = [draw_uniforms(cfg, field.samples, min(lo + chunk, n_pix) - lo,
                                torch.Generator(device=dev).manual_seed(
                                    mix_seed(frame_seed, b + j)))
                  for j, lo in enumerate(block)]
         draws = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
-        out.append(render(params, cfg, o, d, draws, num, mask)[1])
+        out.append(render(field, params, cfg, o, d, draws, num, mask)[1])
     return torch.cat(out).reshape(height, width, 3)
 
 
@@ -323,8 +398,8 @@ def lr_at(train: Dict, count: int, steps_per_epoch: int) -> torch.Tensor:
     return torch.clamp(lr, min=train["lr_floor"])
 
 
-def step_draws(cfg: Dict, step: int, seed: int, num_frames: int, height: int, width: int,
-               device) -> Dict[str, Any]:
+def step_draws(cfg: Dict, samples: Dict, step: int, seed: int, num_frames: int, height: int,
+               width: int, device) -> Dict[str, Any]:
     """A train step's frame (the epoch's permutation), its pixels (the
     center half while ``epoch < cropping_epochs``) and render uniforms."""
     train = cfg["train"]
@@ -338,16 +413,15 @@ def step_draws(cfg: Dict, step: int, seed: int, num_frames: int, height: int, wi
     n = train["num_rays"]
     xs = torch.randint(ew, width - ew, (n,), generator=gen, device=device)
     ys = torch.randint(eh, height - eh, (n,), generator=gen, device=device)
-    uniforms = draw_uniforms(cfg, n, step_generator(seed, step, RENDER_STREAM, device))
+    uniforms = draw_uniforms(cfg, samples, n, step_generator(seed, step, RENDER_STREAM, device))
     return {"frame": frame, "xs": xs, "ys": ys, "uniforms": uniforms}
 
 
 @torch.no_grad()
-def update_grid(grid: torch.Tensor, params, cfg: Dict, step: int, seed: int,
-                num: Numerics) -> torch.Tensor:
-    """``max(decay * grid, sigma)``: the coarse MLP's density at one point
-    per cell, jittered uniformly inside it (plain encoder inputs: the
-    update reads the MLP outside the render passes)."""
+def update_grid(grid: torch.Tensor, params, cfg: Dict, step: int, seed: int, num,
+                field: Field) -> torch.Tensor:
+    """``max(decay * grid, sigma)``: the field's density (``Field.density``)
+    at one point per cell, jittered uniformly inside it."""
     occ = cfg["occupancy"]
     g, bound = occ["resolution"], occ["bound"]
     cell = 2.0 * bound / g
@@ -358,9 +432,7 @@ def update_grid(grid: torch.Tensor, params, cfg: Dict, step: int, seed: int,
     u = torch.rand((g ** 3, 3), generator=step_generator(seed, step, OCC_STREAM, dev),
                    device=dev)
     pts = pts + (u - 0.5) * cell
-    sigma = torch.cat([mlp(params["coarse"], encode(p / math.pi, cfg["nerf"]["position_dim"]),
-                           None, num.matmul)[0]
-                       for p in torch.split(pts, 1 << 16)])
+    sigma = torch.cat([field.density(params, p, num) for p in torch.split(pts, 1 << 16)])
     return torch.maximum(grid * occ["decay"], sigma.reshape(g, g, g))
 
 
@@ -401,8 +473,8 @@ def adam_state(params) -> Dict[str, Any]:
             "nu": [torch.zeros_like(p).float() for p in ps], "count": 0}
 
 
-def step_loss_and_grads(params, cfg: Dict, images: torch.Tensor, poses: torch.Tensor,
-                        focal: float, dr: Dict[str, Any], num: Numerics, mask=None,
+def step_loss_and_grads(field: Field, params, cfg: Dict, images: torch.Tensor,
+                        poses: torch.Tensor, focal: float, dr: Dict[str, Any], num, mask=None,
                         block_rays: int = 1024):
     """One step's loss, its coarse part and the gradients (summed into
     ``params``' ``.grad``) on its draws ``dr`` (``step_draws``): the mean
@@ -417,7 +489,7 @@ def step_loss_and_grads(params, cfg: Dict, images: torch.Tensor, poses: torch.Te
     for lo in range(0, n, block_rays):
         sl = slice(lo, min(lo + block_rays, n))
         draws = {k: v[sl] for k, v in dr["uniforms"].items()}
-        coarse, fine = render(params, cfg, o[sl], d[sl], draws, num, mask)
+        coarse, fine = render(field, params, cfg, o[sl], d[sl], draws, num, mask)
         coarse_loss = torch.sum((coarse - rgb[sl]) ** 2) / (3 * n)
         loss = coarse_loss + torch.sum((fine - rgb[sl]) ** 2) / (3 * n)
         loss.backward()
@@ -427,12 +499,13 @@ def step_loss_and_grads(params, cfg: Dict, images: torch.Tensor, poses: torch.Te
 
 
 def train_steps(params0, cfg: Dict, images: torch.Tensor, poses: torch.Tensor, focal: float,
-                seed: int, start_step: int, num_steps: int, num: Numerics, grid0=None,
+                seed: int, start_step: int, num_steps: int, num, grid0=None,
                 block_rays: int = 1024, state: Optional[Dict[str, Any]] = None,
-                grids: Optional[Dict[int, torch.Tensor]] = None) -> Dict[str, Any]:
-    """``num_steps`` train steps from ``start_step`` on the Adam ``state``
-    (``adam_state``'s layout; default fresh moments), ``params0`` and
-    ``grid0`` left as they are.
+                grids: Optional[Dict[int, torch.Tensor]] = None,
+                field: Optional[Field] = None) -> Dict[str, Any]:
+    """``num_steps`` train steps of ``field`` (default the NeRF MLP) from
+    ``start_step`` on the Adam ``state`` (``adam_state``'s layout; default
+    fresh moments), ``params0`` and ``grid0`` left as they are.
 
     With occupancy, each step whose number ``update_every`` divides updates
     the grid first (``update_grid``), and the step's coarse samples follow
@@ -443,6 +516,7 @@ def train_steps(params0, cfg: Dict, images: torch.Tensor, poses: torch.Tensor, f
     Returns each step's loss and its coarse part, the parameters and the
     state after the last step, the grid the last step followed (``grid``)
     and the reference's own update at each update step (``updates``)."""
+    field = field or nerf_field(cfg)
     train = cfg["train"]
     nf = images.shape[0]
     spe = train.get("steps_per_epoch") or nf
@@ -457,27 +531,19 @@ def train_steps(params0, cfg: Dict, images: torch.Tensor, poses: torch.Tensor, f
     losses, coarse_losses, updates = [], [], {}
     count = state["count"]
     for step in range(start_step, start_step + num_steps):
-        dr = step_draws(cfg, step, seed, nf, images.shape[1], images.shape[2], dev)
+        dr = step_draws(cfg, field.samples, step, seed, nf, images.shape[1], images.shape[2],
+                        dev)
         mask = None
         if occ:
             if step % occ["update_every"] == 0:
-                updates[step] = update_grid(grid, params, cfg, step, seed, num)
+                updates[step] = update_grid(grid, params, cfg, step, seed, num, field)
                 grid = (grids or {}).get(step, updates[step]).clone()
             mask = occupied(grid, occ, step < occ["warmup_steps"])
-        loss, coarse = step_loss_and_grads(params, cfg, images, poses, focal, dr, num, mask,
-                                           block_rays)
+        loss, coarse = step_loss_and_grads(field, params, cfg, images, poses, focal, dr, num,
+                                           mask, block_rays)
         losses.append(loss)
         coarse_losses.append(coarse)
-        lr = lr_at(train, count, spe).to(dev)
-        bc1 = 1 - torch.tensor(ADAM_B1) ** (count + 1)
-        bc2 = 1 - torch.tensor(ADAM_B2) ** (count + 1)
-        with torch.no_grad():
-            for p, m, v in zip(ps, mu, nu):
-                g = p.grad
-                m.mul_(ADAM_B1).add_((1 - ADAM_B1) * g)
-                v.mul_(ADAM_B2).add_((1 - ADAM_B2) * g * g)
-                p.sub_(lr * (m / bc1.to(dev)) / (torch.sqrt(v / bc2.to(dev)) + ADAM_EPS))
-                p.grad = None
+        field.adam.apply(ps, mu, nu, lr_at(train, count, spe).to(dev), count)
         count += 1
     return {"losses": losses, "coarse_losses": coarse_losses,
             "params": [p.detach() for p in ps], "mu": mu, "nu": nu, "count": count,

@@ -2,7 +2,9 @@
 root names the cell's configuration and traffic; their files, the cell's
 limits and each metric's reader sit under this folder.
 
-- ``configs/<config>.json``: the model and train settings and the source;
+- ``configs/<config>.json``: the model and train settings and the source,
+  and the ``field`` the configuration runs, which names its module
+  (``fields/<field>.py``; ``nerf_mlp`` where the file names none);
 - ``traffic/<traffic>.json``: the traffic's parameters and its ``kind``,
   which names the module that drives it (``kinds/<kind>.py``);
 - ``limits/<cell>.json``: each number the output check compares, and its
@@ -57,6 +59,11 @@ def load_cell(name: str, bench: Dict[str, Any] = None) -> Dict[str, Any]:
 def kind(name: str):
     """The module that drives traffic of kind ``name``."""
     return importlib.import_module(f"nerfbench.kinds.{name}")
+
+
+def field(config: Dict[str, Any]):
+    """The module of the field that ``config`` runs."""
+    return importlib.import_module(f"nerfbench.fields.{config.get('field', 'nerf_mlp')}")
 
 
 def metric_reader(name: str):

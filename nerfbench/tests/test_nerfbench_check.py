@@ -12,8 +12,9 @@ from nerfbench import readings, run, spec
 from nerfbench.tests.conftest import tiny
 
 CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
+FAULTS_OF_KIND = {"train": ("unchanged", "halfbatch"), "view": ("answer",)}
 FAULTS = [(c, f) for c in CELLS
-          for f in (("unchanged", "halfbatch") if c.startswith("train") else ("answer",))]
+          for f in FAULTS_OF_KIND[spec.load_cell(c)["traffic"]["kind"]]]
 
 
 def fails(cell, numbers):

@@ -1,7 +1,8 @@
 """One tiny run of each cell on the CPU through the package's plain paths
 prints the contract's last line; without a card the command prints no
 result; no module a run loads is JAX's or the JAX package's, and the
-reference loads nothing of the package under test."""
+reference and the NeRF MLP field's weights load nothing of the package
+under test."""
 
 import ast
 import json
@@ -86,11 +87,12 @@ for name in ("minimal_nerf_torch", "jax", "jaxlib", "minimal_nerf_tpu"):
 sys.path.insert(0, %r)
 import torch
 from nerfbench import counts, spec
+from nerfbench.fields import nerf_mlp
 from nerfbench.reference import nerf as R
 from nerfbench.traffic import generate as gen
 cfg = spec.load_json(spec.HERE / "configs" / "nerf_fast_16_48.json")
 tr = spec.load_json(spec.HERE / "traffic" / "view_requests.json")
-params = gen.weights(1, cfg["nerf"], tr["weights"], "cpu")
+params = nerf_mlp.weights(1, cfg, tr, "cpu")
 grid = gen.grid(1, cfg["occupancy"], tr["grid"], "cpu")
 pose = gen.orbit_poses(1, 1, tr, "cpu")[0]
 frame = R.render_frame(params, cfg, pose, 4, 4, 5.0, 9, 8, R.reference_numerics(cfg), grid)

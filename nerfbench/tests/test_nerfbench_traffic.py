@@ -4,19 +4,20 @@ import pytest
 import torch
 
 from nerfbench import spec
+from nerfbench.fields import nerf_mlp
 from nerfbench.traffic import generate as gen
 
 TRAIN = dict(spec.load_json(spec.HERE / "traffic" / "train_steps.json"), frames=3, height=8,
              width=8)
 VIEW = spec.load_json(spec.HERE / "traffic" / "view_requests.json")
-NERF = spec.load_json(spec.HERE / "configs" / "nerf_full_64_128.json")["nerf"]
+CFG = spec.load_json(spec.HERE / "configs" / "nerf_full_64_128.json")
 OCC = spec.load_json(spec.HERE / "configs" / "nerf_fast_16_48.json")["occupancy"]
 
 
 def inputs(seed):
     images, poses, focal = gen.scene(seed, TRAIN, "cpu")
     return {"images": images, "poses": poses, "focal": focal,
-            "weights": gen.weights(seed, NERF, TRAIN["weights"], "cpu"),
+            "weights": nerf_mlp.weights(seed, CFG, TRAIN, "cpu"),
             "grid": gen.grid(seed, OCC, TRAIN["grid"], "cpu"),
             "orbit": gen.orbit_poses(seed, 5, VIEW, "cpu"), "frame_seeds": gen.frame_seeds(seed, 5)}
 

@@ -1,13 +1,13 @@
 """The inputs of every cell, made from ``--seed`` on the device.
 
 One general generator for the traffic files beside it (``<traffic>.json``):
-the training scene, the weights, the occupancy grid, the served poses and
-their frame seeds. The same seed gives the same inputs; every piece comes
-from a generator of its own (``subseed``), made in a few large calls in the
-type it is served in. Copies, not imports, of what the package had for
-this (``bench_scene``'s random uint8 frames; the render CLI's orbit poses,
-``ops/cameras.py::pose_spherical``; ``init_linear``'s uniform init with a
-gain and ``chip_smoke.py``'s +0.5 density bias).
+the training scene, the occupancy grid, the served poses and their frame
+seeds; a field's weights (``fields/<field>.py``) draw from the tag
+``WEIGHTS``. The same seed gives the same inputs; every piece comes from a
+generator of its own (``subseed``), made in a few large calls in the type
+it is served in. Copies, not imports, of what the package had for this
+(``bench_scene``'s random uint8 frames; the render CLI's orbit poses,
+``ops/cameras.py::pose_spherical``).
 """
 
 from __future__ import annotations
@@ -71,64 +71,6 @@ def scene(seed: int, traffic: Dict[str, Any], device):
                            device=device)
     return images, orbit_poses(seed, f, traffic, device), focal_from_angle(
         w, traffic["camera_angle_x"])
-
-
-def mlp_shapes(nerf: Dict[str, Any]) -> Dict[str, Any]:
-    """The parameter tree of one MLP with each leaf's ``(in, out)`` or
-    ``(out,)`` shape: ``{"w": [in, out], "b": [out]}`` per layer. The
-    trunk's ``trunk_layers`` ReLU layers read the position encoding first;
-    the ``feature_layers`` read it again beside the trunk's output (the
-    skip), the last of them linear."""
-    pe, de = 6 * nerf["position_dim"], 6 * nerf["direction_dim"]
-    h, r = nerf["width"], nerf["rgb_width"]
-    lin = lambda i, o: {"w": (i, o), "b": (o,)}  # noqa: E731
-    return {"trunk": [lin(pe, h)] + [lin(h, h)] * (nerf["trunk_layers"] - 1),
-            "feature": [lin(h + pe, h)] + [lin(h, h)] * (nerf["feature_layers"] - 1),
-            "density": lin(h, 1),
-            "rgb": [lin(h + de, r), lin(r, 3)]}
-
-
-def weights(seed: int, nerf: Dict[str, Any], spec: Dict[str, Any], device) -> Dict[str, Any]:
-    """The coarse and fine MLPs, fp32: every weight ``U(+-gain/sqrt(in))``,
-    every bias ``U(+-1/sqrt(in))``, plus ``density_bias`` on the density
-    head's bias, all from one draw of the generator."""
-    shapes = mlp_shapes(nerf)
-    layers = []
-
-    def collect(tree):
-        if isinstance(tree, dict) and "w" in tree:
-            layers.append(tree)
-        elif isinstance(tree, dict):
-            for k in ("trunk", "feature", "density", "rgb"):
-                collect(tree[k])
-        else:
-            for t in tree:
-                collect(t)
-
-    collect(shapes)
-    total = 2 * sum(math.prod(s["w"]) + math.prod(s["b"]) for s in layers)
-    gen = torch.Generator(device=device).manual_seed(subseed(seed, WEIGHTS))
-    u = torch.rand(total, generator=gen, device=device) * 2.0 - 1.0
-    pos = [0]
-
-    def take(shape, scale):
-        n = math.prod(shape)
-        out = (u[pos[0]:pos[0] + n] * scale).reshape(shape).clone()
-        pos[0] += n
-        return out
-
-    def build(tree):
-        if isinstance(tree, dict) and "w" in tree:
-            bound = 1.0 / math.sqrt(tree["w"][0])
-            return {"w": take(tree["w"], spec["gain"] * bound), "b": take(tree["b"], bound)}
-        if isinstance(tree, dict):
-            return {k: build(v) for k, v in tree.items()}
-        return [build(t) for t in tree]
-
-    params = {name: build(shapes) for name in ("coarse", "fine")}
-    for mlp in params.values():
-        mlp["density"]["b"] += spec["density_bias"]
-    return params
 
 
 def grid(seed: int, occupancy: Dict[str, Any], spec: Dict[str, Any], device) -> torch.Tensor:
