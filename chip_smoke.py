@@ -6,15 +6,23 @@
     python3 chip_smoke.py --path-parity [JSON]
     python3 chip_smoke.py --trajectory
     python3 chip_smoke.py --fault2
+    python3 chip_smoke.py --hash-encode
 
 Builds every kernel of the serving and training paths from the sources in
 the checkout (the fused ray-march forward and backward, the point-level MLP
 forward and backward of the ``--kernel pallas`` path, the occupancy grid's
-probe and the fused occupancy sampler), holds each against its plain
+probe and the fused occupancy sampler, the hash encoding's forward and
+backward), holds each against its plain
 PyTorch version at the main paths' shapes (on weights whose outputs depend
 on the input, with bounds shown to reject faulty versions; the probe's bits
 and the sampler's weights, times and samples must be identical), then:
 
+- ``[hash-encode]`` holds the hash encoding's kernels against their plain
+  versions on the points and feature gradients of one step of the
+  ``train.ngp`` cell's program (its coarse and fine launches, 327,680
+  points at L 16, F 2, T 2^19), times them beside the plain versions and
+  the bytes' bound, and counts their launches in one replayed call of that
+  program (the counters reset just before it) and in a profiler trace;
 - ``[main]`` renders two 800x800 orbit frames from a full-width checkpoint
   written by the port and checks that the forward kernel carried the render;
 - ``[reference]`` holds a small render on the card against the CPU;
@@ -97,7 +105,8 @@ unpacked inside the repo, in turns, it compares the two in one call.
 ``--trajectory`` trains the multiframe arm of
 ``experiments/r5-parity/trajectory_parity.py`` and holds its PSNR against
 the recorded JAX runs; ``--fault2`` decides ROADMAP Queue 3 fault 2 with a
-paired test over 8 seeds at 1,000 steps.
+paired test over 8 seeds at 1,000 steps; ``--hash-encode`` runs the
+``[hash-encode]`` phase alone and prints its kernels' line.
 
 Prints one line per phase, the card's name and power limit, a JSON line of
 kernel timings, and as its last line ``{"ok": true, "device": {...}}``.
@@ -121,6 +130,7 @@ import torch
 
 KERNELS = ["fused_raymarch_fwd", "fused_raymarch_bwd", "raymarch_mlp_fwd", "raymarch_mlp_bwd",
            "occupancy_probe", "occupancy_sampler"]
+HASH_KERNELS = ["hash_encode_fwd", "hash_encode_bwd"]  # the ngp field's (no bench path runs them)
 RAYS = 4096
 SAMPLES = (64, 192)       # coarse pass, then the 64 + 128 sorted union
 HW = 800                  # frame height and width
@@ -1070,6 +1080,167 @@ def phase_kernel_occ_sampler(dev, report):
         raise AssertionError("occupancy sampler kernel disagrees with its plain version")
     if not caught:
         raise AssertionError("a faulty plain sampler matched the kernel")
+
+
+# the hash encoding's kernels against their plain versions (as
+# tests/test_torch_ngp_cuda.py): the forward does the plain version's
+# operations in its order with no FMA, so each feature agrees to fp32
+# rounding of the largest (HASH_FWD_RTOL); the backward's atomics add in an
+# order that changes from run to run, so each table entry's gradient is
+# held within HASH_BWD_RTOL of the sum of its terms' magnitudes
+HASH_FWD_RTOL, HASH_BWD_RTOL = 1e-6, 1e-5
+NGP_CELL, NGP_SEED = "train.ngp", 3_000_000_019
+
+
+def ngp_program(dev):
+    """The ``train.ngp`` cell's program as the benchmark builds it
+    (``nerfbench.fields.ngp``): its configuration, traffic, scene, grid and
+    weights from ``NGP_SEED``, and ``(step, state)`` of its train step."""
+    from nerfbench import spec as S
+    from nerfbench.fields import ngp as F
+    from nerfbench.traffic import generate as gen
+
+    cell = S.load_cell(NGP_CELL)
+    cfg, traffic = cell["config"], cell["traffic"]
+    images, poses, focal = gen.scene(NGP_SEED, traffic, dev)
+    grid = gen.grid(NGP_SEED, cfg["occupancy"], traffic["grid"], dev)
+    params = F.weights(NGP_SEED, cfg, traffic, dev)
+    step, state = F.train_program(cfg, traffic, focal, params, dev)
+    return cfg, traffic, images, poses, grid, params, step, state
+
+
+def hash_fwd_errors(got, want):
+    """(max |k - p| / max |p|, within ``HASH_FWD_RTOL``)."""
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    return err, err <= HASH_FWD_RTOL
+
+
+def hash_bwd_errors(got, want, scale):
+    """(max |k - p| / the entry's sum of magnitudes, within
+    ``HASH_BWD_RTOL`` with the same entries touched)."""
+    err = float(((got - want).abs() / scale.clamp_min(1e-30)).max())
+    return err, err <= HASH_BWD_RTOL and torch.equal(got != 0, want != 0)
+
+
+def phase_hash_encode(dev, report):
+    from minimal_nerf_torch.kernels import hash_encode as he
+    from minimal_nerf_torch.ops import encoding as enc
+    from minimal_nerf_torch.utils import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, traffic, images, poses, grid, params, step, state = ngp_program(dev)
+    start, spc = traffic["start_step"], cfg["train"]["steps_per_call"]
+    every = cfg["occupancy"]["update_every"]
+    # the first (eager) step's launches: its coarse and fine passes'
+    # points, then their features' gradients
+    seen = {"fwd": [], "bwd": []}
+
+    def keep_fwd(forward):
+        def kept(x01, table, levels):
+            if len(seen["fwd"]) < 2:
+                seen["fwd"].append((x01.clone(), levels))
+            return forward(x01, table, levels)
+        return kept
+
+    def keep_bwd(backward):
+        def kept(x01, grad, shape, levels):
+            if len(seen["bwd"]) < 2:
+                seen["bwd"].append((x01.clone(), grad.float().clone(), levels))
+            return backward(x01, grad, shape, levels)
+        return kept
+
+    with wrapped(he, "forward", keep_fwd), wrapped(he, "backward", keep_bwd):
+        params, state, grid, _ = step(params, state, grid, images, poses, start, NGP_SEED)
+    torch.cuda.synchronize()
+    table = params["table"].detach()
+    ok_all = True
+    fwd, bwd = [], []
+    for x, levels in seen["fwd"]:
+        got, want = he.forward(x, table, levels), enc.hash_encode_plain(x, table, levels)
+        err, ok = hash_fwd_errors(got, want)
+        bad = table.clone()
+        bad[levels[-1].offset:] = 0
+        missed = [name for name, p in (
+            ("finest level zeroed", enc.hash_encode_plain(x, bad, levels)),
+            ("features x (1 + 1e-5)", want * (1 + 1e-5))) if hash_fwd_errors(got, p)[1]]
+        ms = cuda_ms(lambda: he.forward(x, table, levels))
+        plain_ms = cuda_ms(lambda: enc.hash_encode_plain(x, table, levels))
+        b_ms = 1e3 * x.shape[0] * (12 + 4 * got.shape[1]) / HBM_BYTES_PER_S
+        ok_all &= ok and not missed
+        print(f"[hash-encode] forward P={x.shape[0]} L={len(levels)} F={table.shape[1]} "
+              f"entries={table.shape[0]}: max |k - p| / max |p| = {err:.3e} (tol "
+              f"{HASH_FWD_RTOL}); faulty plain versions passed: {missed or 'none'}; ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms=null (no single PyTorch call computes it) "
+              f"bound_ms={b_ms:.5f} (bytes: positions read, features written), "
+              f"{100 * b_ms / ms:.2f}% of the bound's rate "
+              f"{'PASS' if ok and not missed else 'FAIL'}", flush=True)
+        fwd.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                        bound_by="bytes"))
+    entries = table.shape[0]
+    for x, grad, levels in seen["bwd"]:
+        got = he.backward(x, grad, (entries, 2), levels)
+        want = enc.hash_encode_backward_plain(x, grad, entries, levels)
+        scale = enc.hash_encode_backward_plain(x, grad.abs(), entries, levels)
+        err, ok = hash_bwd_errors(got, want, scale)
+        again = hash_bwd_errors(he.backward(x, grad, (entries, 2), levels), want, scale)[1]
+        dropped = grad.clone()
+        dropped[:, -2:] = 0
+        missed = [name for name, p in (
+            ("finest level's gradient dropped",
+             enc.hash_encode_backward_plain(x, dropped, entries, levels)),
+            ("gradient x (1 + 1e-4)", want * (1 + 1e-4))) if hash_bwd_errors(got, p, scale)[1]]
+        ms = cuda_ms(lambda: he.backward(x, grad, (entries, 2), levels))
+        plain_ms = cuda_ms(lambda: enc.hash_encode_backward_plain(x, grad, entries, levels))
+        b_ms = 1e3 * x.shape[0] * (12 + 4 * grad.shape[1]) / HBM_BYTES_PER_S
+        ok_all &= ok and again and not missed
+        print(f"[hash-encode] backward P={x.shape[0]}: max |k - p| / sum |terms| = {err:.3e} "
+              f"(tol {HASH_BWD_RTOL}), touched {int((want != 0).sum())} of {want.numel()}, a "
+              f"second launch within it too: {again}; faulty plain versions passed: "
+              f"{missed or 'none'}; ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=null (no "
+              f"single PyTorch call computes it) bound_ms={b_ms:.5f} (bytes: positions and the "
+              f"features' gradient read), {100 * b_ms / ms:.2f}% of the bound's rate "
+              f"{'PASS' if ok and again and not missed else 'FAIL'}", flush=True)
+        bwd.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                        bound_by="bytes"))
+    ok_all &= len(fwd) == 2 and len(bwd) == 2
+    # a whole call of the program: the first call captured its step, so this
+    # one replays it; the counters, set to 0 just before, count each
+    # replay's launches again, and the grid's updates encode once each
+    first = start + spc
+    updates = sum(s % every == 0 for s in range(first, first + spc))
+    profiling.reset()
+    params, state, grid, _ = step(params, state, grid, images, poses, first, NGP_SEED)
+    torch.cuda.synchronize()
+    launches = (profiling.counter(he.LAUNCHES_FWD), profiling.counter(he.LAUNCHES_BWD))
+    replays = profiling.counter("graph.replays")
+    want_l = (2 * spc + updates, 2 * spc)
+    # the kernels a replayed call ran, by name in a profiler trace (one
+    # further call outside it first)
+    third = first + spc
+    starts = iter((third, third + spc))
+    spans = device_spans(lambda: step(params, state, grid, images, poses, next(starts),
+                                      NGP_SEED), 1)
+    traced = tuple(sum(name.startswith(k) for name, _ in spans)
+                   for k in ("hash_encode_fwd", "hash_encode_bwd"))
+    want_t = (2 * spc + sum(s % every == 0 for s in range(third + spc, third + 2 * spc)),
+              2 * spc)
+    in_step = [sum(us for name, us in spans if name.startswith(k)) / 1e3 / spc
+               for k in ("hash_encode_fwd", "hash_encode_bwd")]
+    ok_l = launches == want_l and replays == spc and traced == want_t
+    ok_all &= ok_l
+    print(f"[hash-encode] one replayed call of {NGP_CELL}'s program ({spc} steps from "
+          f"{first}, {updates} grid update(s)): launches fwd={launches[0]} bwd={launches[1]} "
+          f"(want {want_l[0]} = 2 passes x {spc} steps + {updates}, {want_l[1]}), graph "
+          f"replays {replays} (want {spc}); traced call: fwd={traced[0]} bwd={traced[1]} "
+          f"(want {want_t[0]}, {want_t[1]}), device ms per step: hash_encode_fwd "
+          f"{in_step[0]:.4f}, hash_encode_bwd {in_step[1]:.4f} {'PASS' if ok_l else 'FAIL'}",
+          flush=True)
+    report["hash_fwd"], report["hash_bwd"], report["hash_launches"] = fwd, bwd, launches
+    del step, state, params, grid, images, poses, seen
+    torch.cuda.empty_cache()
+    if not ok_all:
+        raise AssertionError("the hash encoding's kernels disagree with their plain versions "
+                             "or did not carry the train.ngp call")
 
 
 def phase_main_path(dev, tmp: Path):
@@ -3736,6 +3907,37 @@ def fault2(dev) -> int:
     return 0
 
 
+def entry(name, replaces, shapes, launches):
+    """A kernel's entry of the kernels line: over the main path's shapes
+    (one 4096-ray chunk or step: S=64 and S=192 in bf16; the hash
+    encoding's coarse and fine launches of one step), its times summed."""
+    return {"name": name, "route": "cuda",
+            "source": f"minimal_nerf_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["err"] for r in shapes),
+            "ms": sum(r["ms"] for r in shapes),
+            "plain_ms": sum(r["plain_ms"] for r in shapes),
+            "bound_ms": sum(r["bound_ms"] for r in shapes),
+            "bound_by": shapes[-1]["bound_by"],
+            "library_ms": (None if any(r["library_ms"] is None for r in shapes)
+                           else sum(r["library_ms"] for r in shapes))}
+
+
+def hash_entries(report):
+    """The hash encoding's kernels' entries: they replace no TPU kernel (the
+    JAX package has no hash grid); their launches are those of one replayed
+    call of ``train.ngp``'s program; ``max_abs_err`` is relative (to the
+    largest feature; to each entry's sum of magnitudes)."""
+    fwd, bwd = report["hash_launches"]
+    return [entry("hash_encode_fwd", None, report["hash_fwd"], fwd),
+            entry("hash_encode_bwd", None, report["hash_bwd"], bwd)]
+
+
+def device_info():
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -3759,10 +3961,18 @@ def main(argv=None) -> int:
     if argv[:1] in (["--trajectory"], ["--fault2"]):
         build.build_all(KERNELS)
         return (trajectory if argv[0] == "--trajectory" else fault2)(dev)
+    if argv[:1] == ["--hash-encode"]:
+        build.build_all(HASH_KERNELS)
+        report = {}
+        phase_hash_encode(dev, report)
+        print(card)
+        print(json.dumps({"kernels": hash_entries(report)}))
+        print(json.dumps({"ok": True, "device": device_info()}))
+        return 0
 
     t0 = time.perf_counter()
-    build.build_all(KERNELS)
-    print(f"[build] {KERNELS} in {time.perf_counter() - t0:.1f} s", flush=True)
+    build.build_all(KERNELS + HASH_KERNELS)
+    print(f"[build] {KERNELS + HASH_KERNELS} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
             if "Compiling entry function" in line:
@@ -3778,6 +3988,7 @@ def main(argv=None) -> int:
     phase_kernel_mlp_bwd(dev, report)
     phase_kernel_occ(dev, report)
     phase_kernel_occ_sampler(dev, report)
+    phase_hash_encode(dev, report)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = phase_main_path(dev, Path(tmp))
         phase_reference(dev, ckpt)
@@ -3810,19 +4021,6 @@ def main(argv=None) -> int:
         multi = None  # the fast call's graph pool goes before the bench's process starts
         phase_bench(dev)
 
-    def entry(name, replaces, shapes, launches):
-        # one 4096-ray chunk or step of the main paths: S=64 and S=192, bf16
-        return {"name": name, "route": "cuda",
-                "source": f"minimal_nerf_torch/kernels/csrc/{name}.cu",
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": max(r["err"] for r in shapes),
-                "ms": sum(r["ms"] for r in shapes),
-                "plain_ms": sum(r["plain_ms"] for r in shapes),
-                "bound_ms": sum(r["bound_ms"] for r in shapes),
-                "bound_by": shapes[-1]["bound_by"],
-                "library_ms": (None if any(r["library_ms"] is None for r in shapes)
-                               else sum(r["library_ms"] for r in shapes))}
-
     # launches: each path's own run, its counts set to 0 just before it
     kernels = [
         entry("fused_raymarch_fwd", "minimal_nerf_tpu/kernels/fused_raymarch.py:175",
@@ -3841,15 +4039,13 @@ def main(argv=None) -> int:
         # launches in the 100 occupancy steps (one per step)
         entry("occupancy_sampler", "minimal_nerf_tpu/kernels/occupancy_probe.py:44",
               [report["occ_sampler"]], occ_train["counts"]["sampler"]),
-    ]
+    ] + hash_entries(report)
     # train single --kernel pallas's own run (its counts set to 0 just before)
     print("[single] launches of train single --kernel pallas: " + json.dumps(
         {"raymarch_mlp_fwd": single["launched"][2], "raymarch_mlp_bwd": single["launched"][3]}))
     print(card)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": device_info()}))
     return 0
 
 

@@ -45,16 +45,23 @@ def build_render_chunk(ckpt: str, rays: int, kernel: str = "auto",
     A ``mode="single"`` checkpoint raises ``ValueError``: its one coarse
     MLP has no fine network to render views with (JAX's render path needs
     ``params["coarse"]``, and its ``--bake-occupancy`` refuses one).
+
+    A checkpoint of one field (``models.ngp``, its header's ``field``)
+    renders both passes through that field: its hash encoding through the
+    CUDA kernels under ``fused`` or ``pallas`` (the plain indexing under
+    ``xla``), and its density bakes a grid.
     """
     import torch
 
     from minimal_nerf_torch import views
     from minimal_nerf_torch.models.mlp import map_params
+    from minimal_nerf_torch.models.ngp import checkpoint_field
     from minimal_nerf_torch.ops import occupancy as occ
     from minimal_nerf_torch.training.checkpoint import read_header
     from minimal_nerf_torch.training.trainer import checkpoint_mode, load_state_for_inference
 
-    mode = checkpoint_mode(read_header(ckpt))
+    header = read_header(ckpt)
+    mode = checkpoint_mode(header)
     if mode != "full":
         raise ValueError(f"{ckpt} is a mode={mode!r} checkpoint (one coarse MLP): render and "
                          "score need a 'full' coarse + fine checkpoint")
@@ -71,23 +78,27 @@ def build_render_chunk(ckpt: str, rays: int, kernel: str = "auto",
             coarse_samples=coarse or nerf_cfg.coarse_samples,
             fine_samples=fine or nerf_cfg.fine_samples,
         )
+    kernel = views.resolve_inference_kernel(kernel, train_cfg, device)
+    field = checkpoint_field(header, kernels=kernel != "xla")
     words = None
     occ_cfg = train_cfg.occupancy_config
     if grid is None and bake_occupancy and not ignore_occupancy:
         occ_cfg = occ_cfg or occ.OccupancyConfig()
+        density_fn = None if field is None else (
+            lambda pts: field.density(params, pts, train_cfg.compute_dtype))
         grid = occ.bake_grid(params, nerf_cfg.position_dim, nerf_cfg.direction_dim, occ_cfg,
                              torch.Generator(device=device).manual_seed(0),
-                             compute_dtype=train_cfg.compute_dtype)
+                             compute_dtype=train_cfg.compute_dtype, density_fn=density_fn)
         ckpt_step = occ_cfg.warmup_steps  # a baked grid is never warmup-forced
     if grid is not None and not ignore_occupancy:
         words = occ.pack_occupancy(grid, occ_cfg, force_all=ckpt_step < occ_cfg.warmup_steps)
 
-    kernel = views.resolve_inference_kernel(kernel, train_cfg, device)
-
     def chunk_on(dev):
         """The render chunk with its own parameters, grid and hooks on ``dev``."""
         render_fn = mlp_apply = None
-        if kernel == "fused":
+        if field is not None:
+            mlp_apply, render_fn = field.hooks()
+        elif kernel == "fused":
             from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
 
             render_fn = make_fused_render_fn()

@@ -304,12 +304,15 @@ def make_occupancy_sampler(occ_words: torch.Tensor, cfg: OccupancyConfig) -> Cal
 @torch.no_grad()
 def update_grid_ema(ema: torch.Tensor, params: Params, position_dim: int, direction_dim: int,
                     cfg: OccupancyConfig, generator: Optional[torch.Generator] = None,
-                    compute_dtype=None, jitter: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    compute_dtype=None, jitter: Optional[torch.Tensor] = None,
+                    density_fn: Optional[Callable] = None) -> torch.Tensor:
     """One EMA update, ``max(decay * ema, sigma)``: the density of the net(s)
     of ``cfg.grid_source`` (max over both for ``"both"``) at one jittered
     point per cell, through the plain ``nerf_mlp_apply`` whatever kernel
-    trains the model. ``jitter [G^3, 3]`` replaces the draws. Returns a new
-    ``[G, G, G]`` tensor; no gradient.
+    trains the model; or, for a model of one field, ``density_fn(pts [G^3,
+    3]) -> [G^3]`` (``models.ngp.NGPField.density``), whatever the grid
+    source. ``jitter [G^3, 3]`` replaces the draws. Returns a new ``[G, G,
+    G]`` tensor; no gradient.
     """
     g = cfg.resolution
     total = g ** 3
@@ -319,7 +322,10 @@ def update_grid_ema(ema: torch.Tensor, params: Params, position_dim: int, direct
     xx, yy, zz = torch.meshgrid(centers, centers, centers, indexing="ij")
     pts = torch.stack([xx, yy, zz], dim=-1).reshape(total, 3)
     u = draw_uniform((total, 3), ema, generator, jitter)
-    pts = (pts + (u - 0.5) * cell)[:, None, :]  # [G^3, 1, 3]: one point per "ray"
+    pts = pts + (u - 0.5) * cell
+    if density_fn is not None:
+        return torch.maximum(ema * cfg.decay, density_fn(pts).float().reshape(g, g, g))
+    pts = pts[:, None, :]  # [G^3, 1, 3]: one point per "ray"
     # density does not depend on the direction (its head reads the trunk
     # before the direction features join); any unit direction serves
     dirs = torch.zeros((total, 3), dtype=torch.float32, device=dev)
@@ -336,14 +342,16 @@ def update_grid_ema(ema: torch.Tensor, params: Params, position_dim: int, direct
 
 def bake_grid(params: Params, position_dim: int, direction_dim: int, cfg: OccupancyConfig,
               generator: Optional[torch.Generator] = None, compute_dtype=None,
-              passes: int = 4, jitters=None) -> torch.Tensor:
+              passes: int = 4, jitters=None, density_fn: Optional[Callable] = None
+              ) -> torch.Tensor:
     """An occupancy grid baked from a trained model with no grid history:
     the max over ``passes`` independently jittered density probes per cell
     (no decay), on the parameters' device. ``jitters``, one ``[G^3, 3]`` per
-    pass, replaces the draws."""
+    pass, replaces the draws; ``density_fn`` is ``update_grid_ema``'s."""
     bake_cfg = dataclasses.replace(cfg, decay=1.0)
     ema = init_grid(cfg, flatten_tree(params)[0].device)
     for i in range(passes):
         ema = update_grid_ema(ema, params, position_dim, direction_dim, bake_cfg, generator,
-                              compute_dtype, jitter=None if jitters is None else jitters[i])
+                              compute_dtype, jitter=None if jitters is None else jitters[i],
+                              density_fn=density_fn)
     return ema

@@ -9,7 +9,11 @@ flags and their meaning. ``full``: ``--fast`` (``--occupancy -c 16 -f 48
 --steps-per-call 20``, an explicitly passed value winning), the progressive
 ``--finish-steps`` / ``--budget-schedule`` phases (each later phase goes on
 from the previous one's final state in memory), ``--finetune-steps``, the
-occupancy flags. ``single``: one MLP on the coarse-only render at ``-c``
+occupancy flags, and ``--field ngp``: Instant-NGP's hash-grid field
+(``models/ngp.py``, L 16, F 2, T 2^19) in both passes in place of the
+coarse and fine MLPs, its encoding through the CUDA kernels unless
+``--kernel xla``, at its own learning rate (1e-2 decaying to 1e-3); one
+device only (``--data-parallel`` above 1 and ``--multihost`` raise). ``single``: one MLP on the coarse-only render at ``-c``
 samples (``Trainer(mode="single")``, no crop warmup); ``--kernel pallas``
 runs its MLP through the point kernels, any other choice through the plain
 MLP, as in JAX. ``simple``: the image MLP overfit to one photo
@@ -126,6 +130,9 @@ def build_parser() -> argparse.ArgumentParser:
                              default="reference",
                              help="in-bin jitter (reference parity) vs linear CDF "
                                   "interpolation")
+    full_parser.add_argument("--field", choices=["nerf", "ngp"], default="nerf",
+                             help="the radiance field: the coarse and fine NeRF MLPs, or "
+                                  "Instant-NGP's hash-grid field for both passes")
     full_parser.add_argument("--fast", action="store_true",
                              help="the fast recipe in one flag: --occupancy -c 16 -f 48 "
                                   "--steps-per-call 20; explicitly passed values win")
@@ -306,6 +313,14 @@ def train_full_nerf(args, mesh=None):
     apply_finetune_steps(args)
     phases = resolve_phases(args)
     kernel = resolve_kernel(args.kernel, dev)
+    field = None
+    if args.field == "ngp":
+        from minimal_nerf_torch.models.ngp import NGPConfig, NGPField
+
+        if mesh is not None and mesh.size > 1:
+            raise ValueError("--field ngp trains on one device: drop --data-parallel N > 1 "
+                             "and --multihost")
+        field = NGPField(NGPConfig(bound=args.occ_bound), kernels=kernel != "xla")
     nerf_cfg = NeRFConfig(
         position_dim=args.position_encoding, direction_dim=args.direction_encoding,
         coarse_samples=args.coarse, fine_samples=args.fine, near=args.near, far=args.far,
@@ -320,16 +335,17 @@ def train_full_nerf(args, mesh=None):
         occ_update_every=args.occ_update_every, occ_warmup_steps=args.occ_warmup_steps,
         occ_num_bins=args.occ_num_bins, occ_floor=args.occ_floor,
         occ_in_bin_jitter=not args.occ_no_jitter, occ_grid_source=args.occ_grid_source,
-        occ_probe_method=args.occ_probe_method, lr_floor=args.lr_floor)
+        occ_probe_method=args.occ_probe_method, lr_floor=args.lr_floor,
+        **({} if field is None else {"start_lr": field.start_lr, "end_lr": field.end_lr}))
     # each phase trains to its end step at its own sample budget; phase 1
     # resumes from -l if given, every later phase goes on from the previous
     # phase's final state in memory; fit() does nothing for a phase that a
     # relaunch finds complete
     trainer = None
     for coarse, fine, end_step in phases:
-        mlp_apply, render_fn = kernel_hooks(kernel, dev)
+        mlp_apply, render_fn = field.hooks() if field is not None else kernel_hooks(kernel, dev)
         common = dict(name=args.name, mlp_apply=mlp_apply, render_fn=render_fn, device=dev,
-                      mesh=mesh)
+                      mesh=mesh, field=field)
         cfgs = (dataclasses.replace(nerf_cfg, coarse_samples=coarse, fine_samples=fine),
                 dataclasses.replace(train_cfg, max_steps=end_step))
         if trainer is None:

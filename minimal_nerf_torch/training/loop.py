@@ -126,12 +126,19 @@ def adam_scalars(lr, count: int, b1: float = 0.9, b2: float = 0.999) -> torch.Te
 
 @torch.no_grad()
 def adam_apply(params: Params, grads: Params, state: Dict[str, Any], scalars: torch.Tensor,
-               b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Dict[str, Any]:
+               b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, l2: Optional[Params] = None,
+               sparse: Optional[Params] = None) -> Dict[str, Any]:
     """One ``optax.adam`` step on the ``adam_scalars`` of this update, a
     tensor on the parameters' device (no host value enters the update):
     moments updated, bias-corrected, ``p -= lr * mu_hat / (sqrt(nu_hat) +
     eps)``. ``params`` and the moments are updated in place; returns the
     state with the count incremented.
+
+    ``l2`` (floats in the parameters' layout) adds ``l2 * p`` to a leaf's
+    gradient first; a leaf marked in ``sparse`` (bools in the layout) leaves
+    every element whose gradient is exactly 0 as it is, value and moments
+    (Instant-NGP's hash table, ``models/ngp.py``; in the span
+    ``nerf.ngp.table_adam``). Without them the update is optax's.
 
     The bias corrections divide on the CPU and multiply by their reciprocals
     on a CUDA device: torch divides a CUDA tensor by a Python float as a
@@ -140,8 +147,21 @@ def adam_apply(params: Params, grads: Params, state: Dict[str, Any], scalars: to
     """
     neg_lr, bc1, bc2, inv1, inv2 = scalars.unbind(0)
     on_card = scalars.device.type == "cuda"
-    for p, g, m, v in zip(flatten_tree(params), flatten_tree(grads),
-                          flatten_tree(state["mu"]), flatten_tree(state["nu"])):
+    leaves = flatten_tree(params)
+    decays = flatten_tree(l2) if l2 is not None else [0.0] * len(leaves)
+    skips = flatten_tree(sparse) if sparse is not None else [False] * len(leaves)
+    for p, g, m, v, decay, skip in zip(leaves, flatten_tree(grads), flatten_tree(state["mu"]),
+                                       flatten_tree(state["nu"]), decays, skips):
+        if decay:
+            g = g + decay * p
+        if skip:
+            with profiling.span("nerf.ngp.table_adam"):
+                touched = g != 0
+                m.copy_(torch.where(touched, (1 - b1) * g + b1 * m, m))
+                v.copy_(torch.where(touched, (1 - b2) * (g * g) + b2 * v, v))
+                m_hat, v_hat = (m * inv1, v * inv2) if on_card else (m / bc1, v / bc2)
+                p.copy_(torch.where(touched, p + neg_lr * (m_hat / (torch.sqrt(v_hat) + eps)), p))
+            continue
         m.copy_((1 - b1) * g + b1 * m)
         v.copy_((1 - b2) * (g * g) + b2 * v)
         m_hat, v_hat = (m * inv1, v * inv2) if on_card else (m / bc1, v / bc2)
@@ -350,19 +370,23 @@ def kernel_hooks(kernel: str, device="cuda",
 
 def update_step_grid(occupancy_cfg, nerf_cfg: NeRFConfig, compute_dtype, params: Params,
                      grid: torch.Tensor, step: int, seed: int,
-                     jitter: Optional[torch.Tensor] = None) -> None:
+                     jitter: Optional[torch.Tensor] = None, field=None) -> None:
     """At ``step % update_every == 0``, the density EMA updated IN PLACE in
     ``grid`` from ``params`` as they stand before this step's Adam update,
     through the plain MLP in the compute dtype with no gradient, whatever
-    kernel the step renders through; its jitter comes from the occupancy
-    stream of ``(seed, step)`` unless ``jitter [G^3, 3]`` is given. Runs
-    eagerly, also between the replays of ``make_multi_step``."""
+    kernel the step renders through (a ``field``'s own density, e.g.
+    ``models.ngp.NGPField.density``, where one is given); its jitter comes
+    from the occupancy stream of ``(seed, step)`` unless ``jitter [G^3, 3]``
+    is given. Runs eagerly, also between the replays of ``make_multi_step``."""
     if step % occupancy_cfg.update_every == 0:
         gen = None if jitter is not None else step_generator(seed, step, _OCC_STREAM,
                                                              grid.device)
+        density_fn = None if field is None else (
+            lambda pts: field.density(params, pts, compute_dtype))
         grid.copy_(occ.update_grid_ema(grid, params, nerf_cfg.position_dim,
                                        nerf_cfg.direction_dim, occupancy_cfg, gen,
-                                       compute_dtype=compute_dtype, jitter=jitter))
+                                       compute_dtype=compute_dtype, jitter=jitter,
+                                       density_fn=density_fn))
 
 
 def pack_step_grid(occupancy_cfg, grid: torch.Tensor, force_all):
@@ -376,15 +400,17 @@ def pack_step_grid(occupancy_cfg, grid: torch.Tensor, force_all):
 
 def draw_step_inputs(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
                      step: int, count: int, seed: int, device,
-                     occupancy_cfg=None, mode: str = "full") -> Dict[str, Any]:
+                     occupancy_cfg=None, mode: str = "full",
+                     betas: Tuple[float, ...] = ()) -> Dict[str, Any]:
     """Every random draw and host decision of train step ``step``, whose
     Adam update is the ``count + 1``-th, from the generators of ``(seed,
     step)`` in the order the render consumes them.
 
     Host values: ``frame`` (the epoch permutation's entry), ``force_all``
     (the occupancy warmup), ``adam`` (``adam_scalars`` at the schedule's LR
-    of ``count``) and ``lr`` (the metric, the schedule at ``step``, an fp32
-    CPU scalar). On ``device``: the pixel coordinates ``xs``, ``ys`` (center
+    of ``count``; ``betas``, a field's ``(b1, b2)``, in place of its
+    defaults) and ``lr`` (the metric, the schedule at ``step``, an fp32 CPU
+    scalar). On ``device``: the pixel coordinates ``xs``, ``ys`` (center
     crop while ``epoch < cropping_epochs``) and ``uniforms``, the render's
     draws: ``"coarse"`` (``[N, Sc]``, or under occupancy the sampler's ``(eps
     [N, 1], frac [N, Sc] or None)``), then the fine ``"eps" [N, 1]`` and, with
@@ -401,7 +427,8 @@ def draw_step_inputs(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: Scene
                                     step_generator(seed, step, _RENDER_STREAM, device), device,
                                     occupancy_cfg, mode)
     warm = occupancy_cfg is not None and step < occupancy_cfg.warmup_steps
-    return {"frame": frame, "force_all": warm, "adam": adam_scalars(lr_sched(count), count + 1),
+    return {"frame": frame, "force_all": warm,
+            "adam": adam_scalars(lr_sched(count), count + 1, *betas),
             "lr": lr_sched(step), "xs": xs, "ys": ys, "uniforms": uniforms}
 
 
@@ -451,7 +478,8 @@ def _all_reduce_mean(metrics: Dict[str, torch.Tensor], grads: Params, mesh):
 
 
 def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
-                render_fn, device, mlp_apply, occupancy_cfg, mode: str = "full", mesh=None):
+                render_fn, device, mlp_apply, occupancy_cfg, mode: str = "full", mesh=None,
+                field=None):
     """The ONE implementation of a train step (JAX ``_build_step_runner``):
     ``(draw, update_grid, body)``, which ``make_train_step`` and
     ``make_multi_step`` both drive, so the eager and the replayed step
@@ -466,7 +494,10 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
     applies Adam in place. ``mode="single"``: the coarse-only loss of one
     MLP, no render hook and no occupancy. With a ``mesh`` the body renders
     this rank's rows of the drawn pixels and uniforms and averages the
-    gradients and metrics over the ranks before Adam.
+    gradients and metrics over the ranks before Adam. A ``field`` (one
+    field for both passes, ``models.ngp.NGPField``) brings its render hooks
+    where none are given, its density to the grid's update and its Adam
+    (``adam_options``); it trains one device, ``mode="full"``.
     """
     from minimal_nerf_torch import resolve_device
     from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
@@ -476,6 +507,13 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "single" and occupancy_cfg is not None:
         raise ValueError("occupancy acceleration requires mode='full'")
+    if field is not None:
+        if mode != "full" or (mesh is not None and mesh.size > 1):
+            raise ValueError(f"the {field.name} field trains in mode 'full' on one device "
+                             "(no data parallel)")
+        if mlp_apply is None and render_fn is None:
+            mlp_apply, render_fn = field.hooks()
+    betas = () if field is None else (field.adam["b1"], field.adam["b2"])
     dev = resolve_device(device)
     render = None
     if mode == "full":
@@ -483,13 +521,13 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
 
     def draw(step: int, count: int, seed: int):
         return draw_step_inputs(nerf_cfg, train_cfg, static, step, count, seed, dev,
-                                occupancy_cfg, mode)
+                                occupancy_cfg, mode, betas)
 
     def update_grid(params, grid, step: int, seed: int):
         if occupancy_cfg is not None and step % occupancy_cfg.update_every == 0:
             with profiling.span("nerf.train.grid_update", step):
                 update_step_grid(occupancy_cfg, nerf_cfg, train_cfg.compute_dtype, params,
-                                 grid, step, seed)
+                                 grid, step, seed, field=field)
 
     def body(params, opt_state, grid, images, poses, inp):
         sampler = occ_fraction = None
@@ -507,7 +545,8 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
                                         coarse_sampler=sampler, mode=mode)
         if mesh is not None:
             metrics, grads = _all_reduce_mean(metrics, grads, mesh)
-        opt_state = adam_apply(params, grads, opt_state, inp["adam"])
+        opt_state = adam_apply(params, grads, opt_state, inp["adam"],
+                               **({} if field is None else field.adam_options(params)))
         metrics = dict(finalize_metrics(metrics, grads, mesh.size if mesh is not None else 1),
                        lr=inp["lr"])
         if occ_fraction is not None:
@@ -519,7 +558,7 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
 
 def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
                     render_fn=None, device="cuda", mlp_apply=None,
-                    occupancy_cfg=None, mode: str = "full", mesh=None) -> Callable:
+                    occupancy_cfg=None, mode: str = "full", mesh=None, field=None) -> Callable:
     """The train step ``step_fn(params, opt_state, images, poses, step, seed)
     -> (params, opt_state, metrics)``: ``draw_step_inputs``, then the body
     of ``_build_step``.
@@ -546,9 +585,12 @@ def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
     ``mesh`` (``parallel.mesh.Mesh``): one rank's data-parallel step, which
     every rank of the mesh runs (module doc); ``train_cfg.num_rays`` is the
     whole step's and must divide by the mesh size.
+
+    ``field`` (``models.ngp.NGPField``): one field trained for both passes
+    (``_build_step``), ``params`` its tree.
     """
     draw, update_grid, body = _build_step(nerf_cfg, train_cfg, static, render_fn, device,
-                                          mlp_apply, occupancy_cfg, mode, mesh)
+                                          mlp_apply, occupancy_cfg, mode, mesh, field)
 
     def run(params, opt_state, grid, images, poses, step: int, seed: int):
         with profiling.span("nerf.train.call", step):
@@ -652,7 +694,7 @@ class _StepGraph:
 
 def make_multi_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
                     num_inner: int, render_fn=None, device="cuda", mlp_apply=None,
-                    occupancy_cfg=None, mode: str = "full", mesh=None) -> Callable:
+                    occupancy_cfg=None, mode: str = "full", mesh=None, field=None) -> Callable:
     """``num_inner`` train steps in one call (JAX ``make_multi_step``), the
     same steps as ``make_train_step`` called ``num_inner`` times, bit for
     bit.
@@ -667,7 +709,7 @@ def make_multi_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
     ``_build_step`` once per step, each occupancy update before its step: on
     a CUDA device as replays of one captured CUDA graph (``_StepGraph``), on
     the CPU eagerly. State is updated in place, as by ``make_train_step``;
-    ``mode`` and ``mesh`` are ``make_train_step``'s. Under a mesh on CUDA
+    ``mode``, ``mesh`` and ``field`` are ``make_train_step``'s. Under a mesh on CUDA
     devices the graph holds the step's NCCL all-reduce (captured after the
     eager first step has run it once); a gloo group of more than one rank
     raises there, since gloo's collectives cannot be captured.
@@ -678,7 +720,7 @@ def make_multi_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
                          f"cannot hold a {distributed.backend()} collective: run one step "
                          "per call (--steps-per-call 1) or use NCCL")
     draw, update_grid, body = _build_step(nerf_cfg, train_cfg, static, render_fn, device,
-                                          mlp_apply, occupancy_cfg, mode, mesh)
+                                          mlp_apply, occupancy_cfg, mode, mesh, field)
     graph = _StepGraph(update_grid, body)
 
     def run(params, opt_state, grid, images, poses, start_step: int, seed: int, inputs):

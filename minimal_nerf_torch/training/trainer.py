@@ -45,6 +45,7 @@ from minimal_nerf_torch import resolve_device
 from minimal_nerf_torch.models.mlp import map_params, nerf_mlp_shapes
 from minimal_nerf_torch.models.mlp import init_nerf_mlp
 from minimal_nerf_torch.models.nerf import NeRFConfig, init_nerf_network, render_single
+from minimal_nerf_torch.models.ngp import checkpoint_field
 from minimal_nerf_torch.parallel import distributed
 from minimal_nerf_torch.training import checkpoint as ckpt_lib
 from minimal_nerf_torch.training import loop
@@ -74,12 +75,15 @@ def checkpoint_mode(header) -> str:
 def restore_to_device(header, leaves, nerf_cfg: NeRFConfig, occ_cfg, dev):
     """``(params, opt_state, grid)`` of a loaded checkpoint as fp32 tensors
     on ``dev`` (``opt_state = {"count", "mu", "nu"}``; ``grid`` None
-    without ``occ_cfg``): the coarse + fine network, or one MLP for a
-    ``mode="single"`` checkpoint. A layout other than the configs and the
-    mode describe raises."""
+    without ``occ_cfg``): the coarse + fine network, one MLP for a
+    ``mode="single"`` checkpoint, or the tree of the field its header names
+    (``models.ngp.checkpoint_field``). A layout other than the configs and
+    the mode describe raises."""
     grid_shape = (occ_cfg.resolution,) * 3 if occ_cfg is not None else None
     mlp = nerf_mlp_shapes(nerf_cfg.position_dim, nerf_cfg.direction_dim)
-    shapes = mlp if checkpoint_mode(header) == "single" else {"coarse": mlp, "fine": mlp}
+    field = checkpoint_field(header)
+    shapes = (field.shapes() if field is not None else
+              mlp if checkpoint_mode(header) == "single" else {"coarse": mlp, "fine": mlp})
     params, opt, grid = ckpt_lib.restore_state(header, leaves, shapes, grid_shape)
     to_dev = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)  # noqa: E731
     opt = {"count": opt["count"], "mu": map_params(to_dev, opt["mu"]),
@@ -103,7 +107,7 @@ class Trainer:
                  name: str = "nerf", resume_ckpt: Optional[str] = None, mlp_apply=None,
                  render_fn=None, logger=None, mode: str = "full",
                  wandb_project: Optional[str] = None, initial_state=None, device="cuda",
-                 mesh=None):
+                 mesh=None, field=None):
         """``base_dir`` is a Blender-style scene tree (``train`` and, if
         present, ``val`` are loaded onto ``device``) or a dict ``{split:
         SyntheticScene}`` already on ``device``. ``resume_ckpt`` is a
@@ -118,7 +122,10 @@ class Trainer:
         MLP on the coarse-only render (``render_fn`` unused); occupancy
         then raises, as in JAX. ``mesh`` (``parallel.mesh.make_mesh``) makes
         this Trainer one rank of a data-parallel run on ``mesh.device``;
-        only rank 0 writes."""
+        only rank 0 writes. ``field`` (``models.ngp.NGPField``) trains one
+        field for both passes in place of the coarse and fine MLPs, on one
+        device; its hooks are the render's unless others are given, and its
+        checkpoints name it."""
         from minimal_nerf_torch.data.synthetic import SyntheticScene
 
         self.mode = _check_mode(mode)
@@ -154,16 +161,19 @@ class Trainer:
         self.static = loop.scene_static(self.train_scene)
         self.steps_per_epoch = train_config.steps_per_epoch or self.static.num_frames
         self._occ_cfg = train_config.occupancy_config
+        self.field = field
         if mlp_apply is None and render_fn is None:
-            mlp_apply, render_fn = loop.kernel_hooks(train_config.kernel, self.device, mode)
+            mlp_apply, render_fn = (field.hooks() if field is not None else
+                                    loop.kernel_hooks(train_config.kernel, self.device, mode))
         self.mlp_apply, self.render_fn = mlp_apply, render_fn
         self.step_fn = loop.make_train_step(nerf_config, train_config, self.static, render_fn,
-                                            self.device, mlp_apply, self._occ_cfg, mode, mesh)
+                                            self.device, mlp_apply, self._occ_cfg, mode, mesh,
+                                            field)
         self.multi_fn = None
         if train_config.steps_per_call > 1:
             self.multi_fn = loop.make_multi_step(
                 nerf_config, train_config, self.static, train_config.steps_per_call, render_fn,
-                self.device, mlp_apply, self._occ_cfg, mode, mesh)
+                self.device, mlp_apply, self._occ_cfg, mode, mesh, field)
         self._grid = None
         self._batched_eval = None
         self._val_render_chunk = None
@@ -187,6 +197,11 @@ class Trainer:
             if checkpoint_mode(header) != self.mode:
                 raise ValueError(f"{self.resume_ckpt} is a mode={checkpoint_mode(header)!r} "
                                  f"checkpoint; this run trains mode={self.mode!r}")
+            saved = checkpoint_field(header)
+            if (saved and saved.header()) != (self.field and self.field.header()):
+                raise ValueError(f"{self.resume_ckpt} holds the field "
+                                 f"{saved.header() if saved else 'nerf'}; this run trains "
+                                 f"{self.field.header() if self.field else 'nerf'}")
             params, opt_state, self._grid = restore_to_device(
                 header, leaves, self.nerf_config, self._occ_cfg, self.device)
             start_step = int(header["step"])
@@ -197,7 +212,8 @@ class Trainer:
 
         gen = torch.Generator(device=self.device).manual_seed(self.train_config.seed)
         cfg = self.nerf_config
-        params = (init_nerf_network(gen, cfg, device=self.device) if self.mode == "full" else
+        params = (self.field.init(gen, self.device) if self.field is not None else
+                  init_nerf_network(gen, cfg, device=self.device) if self.mode == "full" else
                   init_nerf_mlp(gen, cfg.position_dim, cfg.direction_dim, device=self.device))
         self._grid = (occ.init_grid(self._occ_cfg, self.device)
                       if self._occ_cfg is not None else None)
@@ -374,7 +390,9 @@ class Trainer:
             self.name, step // self.steps_per_epoch, step)
         fut = ckpt_lib.save_checkpoint_async(
             path, params, opt_state, step, self.nerf_config.to_dict(),
-            self.train_config.to_dict(), extra={"mode": self.mode}, grid=self._grid)
+            self.train_config.to_dict(),
+            extra=dict({"mode": self.mode}, **(self.field.header() if self.field else {})),
+            grid=self._grid)
         self._pending_save = fut
         if blocking:
             self._pending_save = None
