@@ -21,8 +21,10 @@ and the sampler's weights, times and samples must be identical), then:
   versions on the points and feature gradients of one step of the
   ``train.ngp`` cell's program (its coarse and fine launches, 327,680
   points at L 16, F 2, T 2^19), times them beside the plain versions and
-  the bytes' bound, and counts their launches in one replayed call of that
-  program (the counters reset just before it) and in a profiler trace;
+  the bytes' bound, reads the backward's ``hash_encode_bwd.merged_share``
+  by level from its counted launch, and counts their launches in one
+  replayed call of that program (the counters reset just before it) and in
+  a profiler trace;
 - ``[main]`` renders two 800x800 orbit frames from a full-width checkpoint
   written by the port and checks that the forward kernel carried the render;
 - ``[reference]`` holds a small render on the card against the CPU;
@@ -1189,19 +1191,29 @@ def phase_hash_encode(dev, report):
             ("finest level's gradient dropped",
              enc.hash_encode_backward_plain(x, dropped, entries, levels)),
             ("gradient x (1 + 1e-4)", want * (1 + 1e-4))) if hash_bwd_errors(got, p, scale)[1]]
+        # the counted launch: hash_encode_bwd.merged_share by level, its
+        # gradient held to the same tolerance
+        with uncounted():
+            profiling.reset()
+            counted = hash_bwd_errors(he.backward_counted(x, grad, (entries, 2), levels)[0],
+                                      want, scale)[1]
+            share = he.merged_share(len(levels))
         ms = cuda_ms(lambda: he.backward(x, grad, (entries, 2), levels))
         plain_ms = cuda_ms(lambda: enc.hash_encode_backward_plain(x, grad, entries, levels))
         b_ms = 1e3 * x.shape[0] * (12 + 4 * grad.shape[1]) / HBM_BYTES_PER_S
-        ok_all &= ok and again and not missed
+        ok_b = ok and again and counted and not missed
+        ok_all &= ok_b
         print(f"[hash-encode] backward P={x.shape[0]}: max |k - p| / sum |terms| = {err:.3e} "
               f"(tol {HASH_BWD_RTOL}), touched {int((want != 0).sum())} of {want.numel()}, a "
-              f"second launch within it too: {again}; faulty plain versions passed: "
-              f"{missed or 'none'}; ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=null (no "
-              f"single PyTorch call computes it) bound_ms={b_ms:.5f} (bytes: positions and the "
-              f"features' gradient read), {100 * b_ms / ms:.2f}% of the bound's rate "
-              f"{'PASS' if ok and again and not missed else 'FAIL'}", flush=True)
+              f"second launch within it too: {again}, the counted launch: {counted}; faulty "
+              f"plain versions passed: {missed or 'none'}; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms=null (no single PyTorch call computes it) bound_ms={b_ms:.5f} (bytes: "
+              f"positions and the features' gradient read), {100 * b_ms / ms:.2f}% of the "
+              f"bound's rate; {he.MERGED_SHARE} all {share['all']:.4f}, by level "
+              f"{[round(share[f'l{lv}'], 4) for lv in range(len(levels))]} "
+              f"{'PASS' if ok_b else 'FAIL'}", flush=True)
         bwd.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                        bound_by="bytes"))
+                        bound_by="bytes", merged_share=share))
     ok_all &= len(fwd) == 2 and len(bwd) == 2
     # a whole call of the program: the first call captured its step, so this
     # one replays it; the counters, set to 0 just before, count each

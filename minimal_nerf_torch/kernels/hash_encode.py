@@ -4,9 +4,10 @@
 ``csrc/hash_encode_fwd.cu`` gathers each point's 8 corner rows on every
 level and interpolates them (features ``[P, L * F]``); ``csrc/
 hash_encode_bwd.cu`` adds each corner's ``weight * gradient`` into the
-table's gradient with atomic adds (no gradient to the positions). Neither
-replaces a TPU kernel: the JAX package has no hash grid. The plain versions
-are ``ops.encoding.hash_encode_plain`` and ``hash_encode_backward_plain``.
+table's gradient with float2 atomic adds, one per run of neighbouring points
+in one cell (no gradient to the positions). Neither replaces a TPU kernel:
+the JAX package has no hash grid. The plain versions are
+``ops.encoding.hash_encode_plain`` and ``hash_encode_backward_plain``.
 
 - ``hash_encode(x01, table, levels)`` is the encoding as the ngp field
   calls it (``HashEncode``): on CUDA tensors the two kernels, one launch
@@ -17,6 +18,11 @@ are ``ops.encoding.hash_encode_plain`` and ``hash_encode_backward_plain``.
 - ``forward`` and ``backward`` are the single launches (``LAUNCHES_FWD``,
   ``LAUNCHES_BWD`` of ``utils.profiling`` count them); ``check_inputs``
   holds what every version takes.
+- ``backward_counted`` launches the backward's counted kernel, which also
+  counts the float2 adds it issued per level, and reads them back (a sync:
+  tests and ``chip_smoke.py`` only); ``merged_share`` turns the counters
+  into ``hash_encode_bwd.merged_share``, the share of the (point, level,
+  corner) row updates that merging removed.
 - The fp32 atomics make the table's gradient vary in its last bits from run
   to run; the forward is deterministic.
 """
@@ -25,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,6 +41,10 @@ from minimal_nerf_torch.utils import profiling
 
 LAUNCHES_FWD = "hash_encode_fwd.launches"
 LAUNCHES_BWD = "hash_encode_bwd.launches"
+# the counted backward's counters, per level (suffix ``.l<level>``): float2
+# adds issued and (point, level, corner) row updates
+REDS, ROW_UPDATES = "hash_encode_bwd.reds", "hash_encode_bwd.row_updates"
+MERGED_SHARE = "hash_encode_bwd.merged_share"
 FEATURES = 2  # the only feature width the kernels are built for (the paper's)
 MAX_LEVELS = 32
 
@@ -78,17 +88,20 @@ def check_inputs(x01: torch.Tensor, table: torch.Tensor, levels: Tuple[GridLevel
         raise ValueError(f"inputs on several devices: {x01.device}, {table.device}")
 
 
-def _launch(symbol: str, x01, src, dst, features: int, levels, counter: str) -> None:
+def _launch(symbol: str, x01, src, dst, features: int, levels, counter: str,
+            source: Optional[str] = None, extra: Tuple[int, ...] = ()) -> None:
+    """One launch of the C function ``symbol`` of ``csrc/<source>.cu``
+    (default: ``symbol``); the pointers ``extra`` follow the stream."""
     from minimal_nerf_torch.kernels import build
 
     n, dev = x01.shape[0], x01.device
     if n == 0:
         return
-    fn = build.function(symbol, symbol, _ARGTYPES)
+    fn = build.function(source or symbol, symbol, _ARGTYPES + [ctypes.c_void_p] * len(extra))
     res, dense, mask, offset = _level_arrays(levels)
     with build.on_device(dev):
         rc = fn(x01.data_ptr(), src.data_ptr(), dst.data_ptr(), n, features, len(levels), res,
-                dense, mask, offset, torch.cuda.current_stream(dev).cuda_stream)
+                dense, mask, offset, torch.cuda.current_stream(dev).cuda_stream, *extra)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed with code {rc}")
     profiling.count(counter)
@@ -106,21 +119,62 @@ def forward(x01: torch.Tensor, table: torch.Tensor,
     return out
 
 
-def backward(x01: torch.Tensor, grad: torch.Tensor, table_shape,
-             levels: Tuple[GridLevel, ...]) -> torch.Tensor:
-    """One launch of the backward kernel on CUDA tensors: the table's
-    gradient ``table_shape`` (fp32) for the features' gradient ``grad [P,
-    L * F]``."""
+def _backward_inputs(x01, grad, table_shape, levels, out):
     if x01.device.type != "cuda":
         raise ValueError(f"the hash encoding kernel takes CUDA tensors, got {x01.device}")
-    out = torch.zeros(tuple(table_shape), dtype=torch.float32, device=x01.device)
+    if out is None:
+        out = torch.zeros(tuple(table_shape), dtype=torch.float32, device=x01.device)
     check_inputs(x01, out, levels)
     grad = grad.float().contiguous()
     if tuple(grad.shape) != (x01.shape[0], len(levels) * out.shape[1]):
         raise ValueError(f"grad: expected [{x01.shape[0]}, {len(levels) * out.shape[1]}], "
                          f"got {tuple(grad.shape)}")
+    return grad, out
+
+
+def backward(x01: torch.Tensor, grad: torch.Tensor, table_shape,
+             levels: Tuple[GridLevel, ...], out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the backward kernel on CUDA tensors: the table's
+    gradient ``table_shape`` (fp32) for the features' gradient ``grad [P,
+    L * F]``, added into ``out`` (default: zeros; ``check_inputs`` holds
+    it to the table's shape)."""
+    grad, out = _backward_inputs(x01, grad, table_shape, levels, out)
     _launch("hash_encode_bwd", x01, grad, out, out.shape[1], levels, LAUNCHES_BWD)
     return out
+
+
+def backward_counted(x01: torch.Tensor, grad: torch.Tensor, table_shape,
+                     levels: Tuple[GridLevel, ...]):
+    """``backward`` through the counted kernel: ``(table's gradient, float2
+    adds issued per level)``. Adds those to the counters ``REDS.l<level>``
+    and the launch's ``P * 8`` row updates a level to ``ROW_UPDATES.l<level>``
+    (see ``merged_share``); reads the device's counts back, so it waits for
+    the card and cannot be captured."""
+    grad, out = _backward_inputs(x01, grad, table_shape, levels, None)
+    reds = torch.zeros(len(levels), dtype=torch.int64, device=x01.device)
+    _launch("hash_encode_bwd_counted", x01, grad, out, out.shape[1], levels, LAUNCHES_BWD,
+            "hash_encode_bwd", (reds.data_ptr(),))
+    issued = [int(r) for r in reds.tolist()]
+    for lv, r in enumerate(issued):
+        profiling.count(f"{REDS}.l{lv}", r)
+        profiling.count(f"{ROW_UPDATES}.l{lv}", 8 * x01.shape[0])
+    return out, issued
+
+
+def merged_share(levels: int) -> Dict[str, float]:
+    """``MERGED_SHARE`` from the counters of the counted launches since the
+    last ``profiling.reset()``: ``1 - adds issued / row updates`` on each
+    level (``"l0"``, ``"l1"``, ...) and over all ``levels`` (``"all"``); a
+    level with no updates counted is left out."""
+    share, reds, rows = {}, 0, 0
+    for lv in range(levels):
+        r, u = profiling.counter(f"{REDS}.l{lv}"), profiling.counter(f"{ROW_UPDATES}.l{lv}")
+        if u:
+            share[f"l{lv}"] = 1.0 - r / u
+            reds, rows = reds + r, rows + u
+    if rows:
+        share["all"] = 1.0 - reds / rows
+    return share
 
 
 class HashEncode(torch.autograd.Function):

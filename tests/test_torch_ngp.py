@@ -421,6 +421,30 @@ def test_other_trees_keep_their_render():
     assert dataclasses.asdict(NGPConfig()) == NGPConfig.from_dict(NGPConfig().to_dict()).to_dict()
 
 
+def test_merged_share_reads_the_counters():
+    """``he.merged_share`` turns the counted backward's counters into the
+    share of row updates merged away, per level and overall (levels with no
+    updates left out); the backward wrappers take CUDA tensors only."""
+    from minimal_nerf_torch.utils import profiling
+
+    profiling.reset()
+    try:
+        assert he.merged_share(16) == {}
+        profiling.count(f"{he.REDS}.l0", 8)
+        profiling.count(f"{he.ROW_UPDATES}.l0", 256)
+        profiling.count(f"{he.REDS}.l2", 256)
+        profiling.count(f"{he.ROW_UPDATES}.l2", 256)
+        assert he.merged_share(16) == {"l0": 31 / 32, "l2": 0.0, "all": 1 - 264 / 512}
+    finally:
+        profiling.reset()
+    levels = NGPConfig.from_dict(SMALL).grid
+    entries = NGPConfig.from_dict(SMALL).entries
+    x, grad = torch.zeros(4, 3), torch.zeros(4, 2 * len(levels))
+    for fn in (he.backward, he.backward_counted):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x, grad, (entries, 2), levels)
+
+
 def test_a_step_keeps_the_field_spans():
     """Inside the tracer, an NGP step keeps ``nerf.ngp.encode`` (both passes
     and the grid update), ``nerf.ngp.mlp`` and ``nerf.ngp.table_adam`` spans

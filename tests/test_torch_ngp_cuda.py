@@ -11,9 +11,14 @@ Tolerances: the forward kernel does the plain version's operations in its
 order with no FMA (``csrc/hash_encode_common.cuh``), so the features agree
 to fp32 rounding (1e-6 relative per element, against the largest feature);
 the backward adds its terms with atomics in an order that changes from run
-to run, as does ``index_add_`` on the card, so each table entry's gradient
-is held within 1e-5 of the sum of its terms' magnitudes (fp32 summation
-error of up to 8 L terms a point, a few hundred terms an entry). A
+to run, as does ``index_add_`` on the card, and sums the terms of a run of
+neighbouring points in one cell in registers first, so each table entry's
+gradient is held within 1e-5 of the sum of its terms' magnitudes (fp32
+summation error of up to 8 L terms a point, a few hundred terms an entry;
+with a sum already in the buffer, it counts as one more term). The
+counted backward's float2 adds per level equal 8 times the runs of equal
+cells among each 32 consecutive points, counted here from the plain
+version's cells. A
 replayed step and an eager one differ only by that order, which Adam
 amplifies: ``m / sqrt(v)`` turns a gradient's sign into a whole step of the
 learning rate, so an entry whose gradient the order flips moves the other
@@ -79,6 +84,126 @@ def test_kernels_match_the_plain_encoding(cuda_device):
     again = he.backward(x, grad, (entries, 2), levels)
     assert float(((again - got_t).abs() - 1e-5 * scale).max()) <= 0.0
     assert profiling.counter(he.LAUNCHES_FWD) == 1 and profiling.counter(he.LAUNCHES_BWD) == 2
+
+
+def _ray_points(dev, rays, gen):
+    """Points as the fine pass lays them out: per ray 16 even samples and 48
+    drawn around one depth, sorted along the ray (64 a ray), in the box."""
+    o = torch.rand(rays, 1, 3, generator=gen, device=dev) * 0.6 + 0.2
+    d = torch.nn.functional.normalize(torch.randn(rays, 1, 3, generator=gen, device=dev), dim=-1)
+    even = torch.linspace(0.0, 0.6, 16, device=dev).expand(rays, 16)
+    near = torch.rand(rays, 1, generator=gen, device=dev) * 0.5
+    drawn = near + 0.05 * torch.rand(rays, 48, generator=gen, device=dev)
+    t = torch.sort(torch.cat([even, drawn], dim=1), dim=1).values
+    return (o + t[..., None] * d).clamp(0.0, 1.0).reshape(-1, 3).contiguous()
+
+
+def _one_cell(dev, n, levels, gen):
+    """``n`` points in one cell on every level: a base whose place in its
+    cell lies in [0.01, 0.99] on each axis of each level, jittered by far less
+    than the finest cell."""
+    for k in range(1000):
+        base = torch.tensor([0.31 + 1.23e-3 * k, 0.47 + 0.77e-3 * k, 0.59 + 0.41e-3 * k])
+        if all(bool(((f > 0.01) & (f < 0.99)).all())
+               for f in (enc.grid_cell(base[None], lv)[1] for lv in levels)):
+            break
+    else:
+        raise AssertionError("no base point lies inside a cell on every level")
+    jitter = (torch.rand(n, 3, generator=gen, device=dev) - 0.5) * 2e-6
+    return (base.to(dev) + jitter).contiguous()
+
+
+def _backward_case(case, dev, levels, gen):
+    """``(points, table's gradient on entry or None)`` of a named case."""
+    if case == "rays":
+        return _ray_points(dev, 4096, gen), None
+    if case == "rays_ragged":  # P a multiple of neither the warp, the tile nor the block
+        return _ray_points(dev, 2049, gen)[:-19].contiguous(), None
+    if case == "one_cell":
+        return _one_cell(dev, 65536, levels, gen), None
+    if case == "random":
+        return _points(dev), None
+    if case == "few":
+        return _points(dev, 45), None
+    if case == "sum_on_entry":
+        out = torch.randn(he.entries(levels), 2, generator=gen, device=dev)
+        return _ray_points(dev, 1024, gen), out
+    raise ValueError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rays", "rays_ragged", "one_cell", "random", "few",
+                                  "sum_on_entry"])
+def test_backward_matches_the_plain_version(cuda_device, case):
+    """The backward against ``hash_encode_backward_plain`` at ``ngp_hash_16_48``'s
+    levels (L 16, T 2^19, dense and hashed): points along rays as the fine
+    pass lays them out (all P, and a ragged P), all in one cell (every lane
+    merges), uniform at random (nothing merges), fewer than a warp, and a
+    buffer holding a sum on entry; each entry within 1e-5 of the sum of its
+    terms' magnitudes, the same entries touched."""
+    levels = NGPConfig().grid
+    entries = he.entries(levels)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x, before = _backward_case(case, cuda_device, levels, gen)
+    grad = torch.randn(x.shape[0], 2 * len(levels), generator=gen, device=cuda_device)
+    want = enc.hash_encode_backward_plain(x, grad, entries, levels)
+    scale = enc.hash_encode_backward_plain(x, grad.abs(), entries, levels)
+    out = None
+    if before is not None:
+        out = before.clone()
+        want, scale = want + before, scale + before.abs()
+    got = he.backward(x, grad, (entries, 2), levels, out=out)
+    assert out is None or got is out
+    excess = float(((got - want).abs() - 1e-5 * scale).max())
+    print(f"[ngp-bwd] {case} P={x.shape[0]}: max |k - p| {float((got - want).abs().max()):.3e}, "
+          f"touched {int((want != 0).sum())}")
+    assert excess <= 0.0
+    assert torch.equal(got != 0, want != 0)
+    assert profiling.counter(he.LAUNCHES_BWD) == 1
+
+
+def _runs(x, level):
+    """Runs of equal cells among each 32 consecutive points of ``x`` on one
+    level: the counted kernel's float2 adds on it, over 8."""
+    cell = enc.grid_cell(x, level)[0]
+    same = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    same[1:] = (cell[1:] == cell[:-1]).all(dim=1)
+    same[::32] = False
+    return int((~same).sum())
+
+
+@pytest.mark.cuda
+def test_merged_share_counter(cuda_device):
+    """``hash_encode_bwd.merged_share`` from the counted backward: one point
+    repeated 32 times merges 31/32 of its updates on every level; uniform
+    random points merge about none on the finest level; the fine pass's
+    layout merges most on the coarse levels. On each the adds issued equal
+    8 times the runs of equal cells among each 32 points, and the counted
+    launch's gradient equals the uncounted one's within the tolerance."""
+    levels = NGPConfig().grid
+    entries = he.entries(levels)
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    cases = {"repeated": torch.tensor([[0.3137, 0.5821, 0.7043]],
+                                      device=cuda_device).expand(32, 3).contiguous(),
+             "random": _points(cuda_device, POINTS, seed=3),
+             "rays": _ray_points(cuda_device, 4096, gen)}
+    shares = {}
+    for name, x in cases.items():
+        grad = torch.randn(x.shape[0], 2 * len(levels), generator=gen, device=cuda_device)
+        profiling.reset()
+        got, issued = he.backward_counted(x, grad, (entries, 2), levels)
+        assert issued == [8 * _runs(x, lv) for lv in levels], name
+        assert profiling.counter(f"{he.REDS}.l0") == issued[0]
+        assert profiling.counter(f"{he.ROW_UPDATES}.l0") == 8 * x.shape[0]
+        shares[name] = he.merged_share(len(levels))
+        plain = he.backward(x, grad, (entries, 2), levels)
+        scale = enc.hash_encode_backward_plain(x, grad.abs(), entries, levels)
+        assert float(((got - plain).abs() - 1e-5 * scale).max()) <= 0.0, name
+        assert torch.equal(got != 0, plain != 0), name
+    print(f"[ngp-merged] {shares}")
+    assert all(shares["repeated"][f"l{lv}"] >= 31 / 32 for lv in range(len(levels)))
+    assert shares["random"][f"l{len(levels) - 1}"] <= 1e-3
+    assert shares["rays"]["l0"] > shares["rays"][f"l{len(levels) - 1}"]
 
 
 def _setup(dev, num_rays=4096, frames=8, size=200):
