@@ -130,6 +130,8 @@ from pathlib import Path
 
 import torch
 
+from nerfbench import counts as model_counts
+
 KERNELS = ["fused_raymarch_fwd", "fused_raymarch_bwd", "raymarch_mlp_fwd", "raymarch_mlp_bwd",
            "occupancy_probe", "occupancy_sampler"]
 HASH_KERNELS = ["hash_encode_fwd", "hash_encode_bwd"]  # the ngp field's (no bench path runs them)
@@ -192,6 +194,13 @@ def launched(name: str) -> int:
     from minimal_nerf_torch.utils import profiling
 
     return profiling.counter(name)
+
+
+def point_hook(device):
+    """A fresh MLP hook of the point kernels (``--kernel pallas``)."""
+    from minimal_nerf_torch import fields
+
+    return fields.kernel_hooks("pallas", device)[0]
 
 
 COUNTED = "fused fwd, bwd, point fwd, bwd, probe, sampler"
@@ -364,26 +373,16 @@ def scratch_floor(points: int, elem: int, masks: bool):
     return total, 1e3 * total / HBM_BYTES_PER_S
 
 
-def macs_per_point(pd: int = 10, dd: int = 4, width: int = 256, rgb: int = 128) -> int:
-    pe, de = 6 * pd, 6 * dd
-    return (pe * width + 3 * width * width + (width + pe) * width + 2 * width * width
-            + width + (width + de) * rgb + rgb * 3)
-
-
-def bwd_macs_per_point(pd: int = 10, dd: int = 4, width: int = 256, rgb: int = 128) -> int:
-    """The backward's multiply-adds per point: the forward again, the
-    activation gradients of every layer but those reading the encodings (t0,
-    the skip's f0we, r0wd), and every weight gradient."""
-    fwd = macs_per_point(pd, dd, width, rgb)
-    no_enc_inputs = fwd - 6 * pd * width - 6 * pd * width - 6 * dd * rgb
-    return 2 * fwd + no_enc_inputs
+# the published MLP at the package's depth, as ``nerfbench/counts.py`` counts it
+NERF_MLP = {"position_dim": 10, "direction_dim": 4, "width": 256, "rgb_width": 128,
+            "trunk_layers": 4, "feature_layers": 3}
 
 
 def bound_ms(fm, n: int, s: int, peak: float, macs: int = 0, io_floats: int = 0):
     """(least time in ms, what bounds it) for one pass of n rays x s samples:
     the forward by default, else ``macs`` per point and ``io_floats`` fp32
     values in and out besides the weights."""
-    ops = 2.0 * (macs or macs_per_point()) * n * s
+    ops = 2.0 * (macs or model_counts.fwd_macs(NERF_MLP)) * n * s
     weight_bytes = sum(w.numel() * w.element_size() for w in fm.ws + fm.bs)
     io_bytes = 4 * (io_floats or (n * 3 * 2 + n * s) + (n * 3 + n * s))
     t_ops, t_bytes = ops / peak, (weight_bytes + io_bytes) / HBM_BYTES_PER_S
@@ -660,7 +659,8 @@ def phase_kernel_bwd(dev, report):
             io = RAYS * 3 * 3 + RAYS * s * (2 if dw is not None else 1) + sum(
                 w.numel() for w in fm.ws + fm.bs)
             b_ms, b_by = bound_ms(fm, RAYS, s, PEAK_BF16 if dtype else PEAK_FP32,
-                                  macs=bwd_macs_per_point(), io_floats=io)
+                                  macs=model_counts.kernel_bwd_macs(NERF_MLP),
+                                  io_floats=io)
             sc_bytes, floor_ms = scratch_floor(RAYS * s, 2 if dtype else 4, masks=True)
             ok = within and same and not missed
             ok_all &= ok
@@ -797,7 +797,8 @@ def phase_kernel_mlp_bwd(dev, report):
             # bytes: x, d, dsig, drgb in, the 22 gradients out
             io = RAYS * s * 10 + sum(w.numel() for w in fm.ws + fm.bs)
             b_ms, b_by = bound_ms(fm, RAYS, s, PEAK_BF16 if dtype else PEAK_FP32,
-                                  macs=bwd_macs_per_point(), io_floats=io)
+                                  macs=model_counts.kernel_bwd_macs(NERF_MLP),
+                                  io_floats=io)
             sc_bytes, floor_ms = scratch_floor(RAYS * s, 2 if dtype else 4, masks=False)
             ok = within and same and not missed
             ok_all &= ok
@@ -2037,8 +2038,7 @@ def phase_data_parallel(dev, tmp: Path, bias: float):
 
     # (c) render and score split each chunk over a mesh of local cards (one
     # here, the default), held against the checkpoint's unsharded chunk
-    from minimal_nerf_torch import views
-    from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
+    from minimal_nerf_torch import fields, views
     from minimal_nerf_torch.ops.image_metrics import psnr, ssim
     from minimal_nerf_torch.training.trainer import load_state_for_inference
 
@@ -2048,7 +2048,7 @@ def phase_data_parallel(dev, tmp: Path, bias: float):
         raise AssertionError(f"{ckpt.name} holds an occupancy grid: (c) wants none")
     unsharded = views.make_fine_render_chunk(params, nerf_cfg,
                                              compute_dtype=train_cfg.compute_dtype,
-                                             render_fn=make_fused_render_fn())
+                                             render_fn=fields.kernel_hooks("fused", dev)[1])
     sweeps = {"mesh": render_views(str(ckpt), rays=RAYS, num_poses=2, height=HW, width=HW,
                                    device=dev),
               "unsharded": views.orbit_views(unsharded, height=HW, width=HW, chunk=RAYS,
@@ -2361,7 +2361,7 @@ def phase_train_pallas(dev, tmp: Path, scene, bias: float):
     (``kernel_hooks("pallas")``: the point kernels under the plain render)
     at ``TrainConfig(kernel="pallas")``, otherwise the defaults; a
     checkpoint of the result rendered through ``--kernel auto``."""
-    from minimal_nerf_torch import views
+    from minimal_nerf_torch import fields
     from minimal_nerf_torch.kernels import fused_raymarch as fr
     from minimal_nerf_torch.kernels import raymarch as rm
     from minimal_nerf_torch.models.nerf import NeRFConfig
@@ -2412,7 +2412,7 @@ def phase_train_pallas(dev, tmp: Path, scene, bias: float):
     ckpt = save_checkpoint(tmp / checkpoint_name("pallas", TRAIN_STEPS // TRAIN_FRAMES,
                                                  TRAIN_STEPS),
                            params, TRAIN_STEPS, cfg.to_dict(), tcfg.to_dict())
-    resolved = views.resolve_inference_kernel("auto", tcfg, dev)
+    resolved = fields.resolve_kernel("auto", dev, trained=tcfg.kernel)
     # the frame is timed after a warm-up frame (the checkpoint load and the
     # weights' packing)
     frame, ran, ms_frame = render_counted(ckpt, dev, timed=True, kernel="auto")
@@ -2463,7 +2463,6 @@ def path_gradient_gate(dev, scene, cfg, init, trained, stale):
 def phase_pallas_reference(dev, scene, bias: float):
     """The ``--kernel pallas`` path on the card against the CPU: a 256-ray
     render (shared weights and draws), then one 256-ray train step."""
-    from minimal_nerf_torch.kernels import raymarch as rm
     from minimal_nerf_torch.models.mlp import map_params
     from minimal_nerf_torch.models.nerf import NeRFConfig, render_rays
 
@@ -2476,10 +2475,10 @@ def phase_pallas_reference(dev, scene, bias: float):
     with torch.no_grad(), uncounted():
         before = counts()
         card = render_rays(params, cfg, o, d, compute_dtype=torch.bfloat16,
-                           mlp_apply=rm.make_mlp_kernel_apply(), uniforms=uniforms)
+                           mlp_apply=point_hook(dev), uniforms=uniforms)
         ran = tuple(a - c for a, c in zip(counts(), before))
         ref = render_rays(to_cpu(params), cfg, o.cpu(), d.cpu(), compute_dtype=torch.bfloat16,
-                          mlp_apply=rm.make_mlp_kernel_apply(), uniforms=to_cpu(uniforms))
+                          mlp_apply=point_hook("cpu"), uniforms=to_cpu(uniforms))
     # same weights, draws and rounding points: the kernel and the plain
     # version differ only in the order of fp32 sums (see TOL)
     ok, msg = ran == (0, 0, 2, 0, 0, 0), [f"card launches ({COUNTED}) {ran}"]
@@ -2500,7 +2499,6 @@ def phase_single_reference(dev, scene, bias: float):
     CPU: a 256-ray ``render_single`` at 128 samples (shared weights and
     draws; the bounds of ``[pallas-reference]``), then one 256-ray single
     step (``hold_step``: loss, gradients, Adam)."""
-    from minimal_nerf_torch.kernels import raymarch as rm
     from minimal_nerf_torch.models.mlp import map_params
     from minimal_nerf_torch.models.nerf import NeRFConfig, render_single
     from minimal_nerf_torch.training import loop
@@ -2515,10 +2513,10 @@ def phase_single_reference(dev, scene, bias: float):
     with torch.no_grad(), uncounted():
         before = counts()
         card = render_single(params, cfg, o, d, compute_dtype=torch.bfloat16,
-                             mlp_apply=rm.make_mlp_kernel_apply(), uniforms=uniforms)
+                             mlp_apply=point_hook(dev), uniforms=uniforms)
         ran = tuple(a - c for a, c in zip(counts(), before))
         ref = render_single(to_cpu(params), cfg, o.cpu(), d.cpu(), compute_dtype=torch.bfloat16,
-                            mlp_apply=rm.make_mlp_kernel_apply(), uniforms=to_cpu(uniforms))
+                            mlp_apply=point_hook("cpu"), uniforms=to_cpu(uniforms))
     diff = (card["pred_rgbs"].cpu() - ref["pred_rgbs"]).abs()
     spread = ref["pred_rgbs"].std().item()
     ok = (ran == (0, 0, 1, 0, 0, 0) and bool(torch.isfinite(card["pred_rgbs"]).all())
@@ -2551,7 +2549,6 @@ def phase_single(dev, tmp: Path):
     the step-200 checkpoint to step 220. Prints ms/step from the CSV.
     Returns the launch counts of the pallas run."""
     from minimal_nerf_torch.data.synthetic import SyntheticScene
-    from minimal_nerf_torch.kernels import raymarch as rm
     from minimal_nerf_torch.models.mlp import init_nerf_mlp
     from minimal_nerf_torch.training import loop
     from minimal_nerf_torch.training.checkpoint import read_header
@@ -2584,7 +2581,7 @@ def phase_single(dev, tmp: Path):
         init = init_nerf_mlp(torch.Generator(device=dev).manual_seed(tcfg.seed), device=dev)
         with uncounted():
             init_val = loop.make_batched_eval_step_single(
-                cfg, tcfg, loop.scene_static(val), rm.make_mlp_kernel_apply())(
+                cfg, tcfg, loop.scene_static(val), point_hook(dev))(
                 init, val.images, val.poses, val_step, 0)["val_loss"].item()
         val_loss = float(val_row["val_loss"])
         want = (0, 0, steps + VAL_FRAMES + chunks, steps, 0, 0)
@@ -2758,6 +2755,7 @@ def phase_train_occ(dev, tmp: Path, scene, start_params, uniform_ckpt: Path):
     keeps every cell occupied for hundreds of steps after the field has
     emptied: 100 steps from there would never show the grid guiding a
     sample. The ``[train]`` weights' field is already sparse."""
+    from minimal_nerf_torch.fields import NeRFField
     from minimal_nerf_torch.kernels import fused_raymarch as fr
     from minimal_nerf_torch.kernels import occupancy_probe as op
     from minimal_nerf_torch.kernels import occupancy_sampler as osk
@@ -2786,9 +2784,8 @@ def phase_train_occ(dev, tmp: Path, scene, start_params, uniform_ckpt: Path):
     def live_share():
         """The occupied share of the coarse net's density field as it is now
         (one jittered probe per cell, no EMA)."""
-        sigma = occ.update_grid_ema(occ.init_grid(occ_cfg, dev), params, cfg.position_dim,
-                                    cfg.direction_dim, occ_cfg,
-                                    torch.Generator(device=dev).manual_seed(0),
+        sigma = occ.update_grid_ema(occ.init_grid(occ_cfg, dev), NeRFField(cfg), params,
+                                    occ_cfg, torch.Generator(device=dev).manual_seed(0),
                                     compute_dtype=tcfg.compute_dtype)
         return occ.occupancy_mask(sigma, occ_cfg).float().mean().item()
 
@@ -2875,6 +2872,7 @@ def phase_occ_reference(dev, scene, params, grid, cfg, tcfg):
     and one with decay 1.0 must fail the grid's bounds."""
     import dataclasses
 
+    from minimal_nerf_torch.fields import NeRFField
     from minimal_nerf_torch.models.mlp import map_params
     from minimal_nerf_torch.ops import occupancy as occ
     from minimal_nerf_torch.training import loop
@@ -2887,7 +2885,7 @@ def phase_occ_reference(dev, scene, params, grid, cfg, tcfg):
     batch = {k: batch[k] for k in ("origin", "direc", "rgb")}
     jitter = torch.rand((g ** 3, 3), generator=gen, device=dev)
     cpu_p = map_params(lambda t: t.detach().cpu(), params)
-    want = occ.update_grid_ema(grid.cpu(), cpu_p, cfg.position_dim, cfg.direction_dim, occ_cfg,
+    want = occ.update_grid_ema(grid.cpu(), NeRFField(cfg), cpu_p, occ_cfg,
                                compute_dtype=tcfg.compute_dtype, jitter=jitter.cpu())
     cpu_words = occ.pack_occupancy(want, occ_cfg)
     scale = want.abs().max().item()
@@ -2897,8 +2895,8 @@ def phase_occ_reference(dev, scene, params, grid, cfg, tcfg):
         (max |d|, mean |d|) as shares of the largest density, the share of
         differing words, the cells of other occupancy, and whether all three
         stay within their bounds."""
-        new = occ.update_grid_ema(grid, params, cfg.position_dim, cfg.direction_dim, ucfg,
-                                  compute_dtype=dtype, jitter=jitter).cpu()
+        new = occ.update_grid_ema(grid, NeRFField(cfg), params, ucfg, compute_dtype=dtype,
+                                  jitter=jitter).cpu()
         diff = (new - want).abs()
         words_differ = (occ.pack_occupancy(new, occ_cfg) != cpu_words).float().mean().item()
         cells = int((occ.occupancy_mask(new, occ_cfg) != occ.occupancy_mask(want, occ_cfg)).sum())

@@ -6,21 +6,16 @@ the JAX layout (``{"w": [in, out], "b": [out]}``) so the same weights drive
 both packages. Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.
 
-Ported so far: serving (rendering views from a checkpoint through the fused
-ray-march forward kernel, ``kernels/fused_raymarch.py``) and the train step
-(``training/loop.py``: batch sampling, the hierarchical loss through the
-fused forward and backward kernels, Adam, the LR schedule) on in-memory and
-procedural scenes (``data/``); and the point-level path (``--kernel
-pallas``, ``kernels/raymarch.py``): the same render and train step with the
-plain render around hand-written point-level MLP forward and backward
-kernels (``training.loop.kernel_hooks``); and occupancy-guided coarse
-sampling (``ops/occupancy.py``) for training and serving, its grid probe a
-hand-written kernel (``kernels/occupancy_probe.py``), with the grid and the
-Adam state kept in the checkpoint; the trainer (``train.py``); and scoring
-(``score.py``, PSNR/SSIM in ``ops/image_metrics.py``), the batched pose
-sweep behind ``--frames-per-dispatch`` (``views.render_poses_batched``) and
-checkpoint conversion to and from the reference's format
-(``convert_ckpt.py``).
+Ported: all of the JAX package. Serving (``inference.py``, ``views.py``,
+``render.py``, ``score.py``, ``convert_ckpt.py``): views through the fused
+ray-march forward kernel, a frame's full chunks replayed from one captured
+CUDA graph, PSNR/SSIM. Training (``training/``, ``train.py``): the step
+through the fused forward and backward kernels, several steps a call as
+replays of one captured CUDA graph, the ``full``, ``single`` and ``simple``
+modes, data parallel (``parallel/``). Beside them the point kernels
+(``--kernel pallas``) and occupancy sampling through a sampler kernel. One
+module (``fields.py``) picks the field trained and served, the NeRF MLPs or
+Instant-NGP's hash grid (``models/ngp.py``), and its kernel.
 """
 
 from __future__ import annotations

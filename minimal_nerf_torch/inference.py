@@ -1,10 +1,10 @@
 """Checkpoint -> ``render_chunk`` setup shared by the inference CLIs.
 
 Counterpart of ``minimal_nerf_tpu/inference.py``: load a checkpoint, apply
-the inference-time sample-count overrides, attach the occupancy sampler (the
-checkpoint's grid, or one baked from the trained densities), resolve the
-kernel (by default the one the checkpoint trained under,
-``views.resolve_inference_kernel``) and build the render chunk: one copy of
+the inference-time sample-count overrides, take the field the header names
+under the kernel (by default the one the checkpoint trained under,
+``fields``), attach the occupancy sampler (the checkpoint's grid, or one
+baked from the field's densities) and build the render chunk: one copy of
 it per device, each chunk split over them (``--data-parallel``,
 ``views.make_sharded_render_chunk``; one device by default).
 """
@@ -46,22 +46,20 @@ def build_render_chunk(ckpt: str, rays: int, kernel: str = "auto",
     MLP has no fine network to render views with (JAX's render path needs
     ``params["coarse"]``, and its ``--bake-occupancy`` refuses one).
 
-    A checkpoint of one field (``models.ngp``, its header's ``field``)
-    renders both passes through that field: its hash encoding through the
-    CUDA kernels under ``fused`` or ``pallas`` (the plain indexing under
-    ``xla``), and its density bakes a grid.
+    The chunk renders through the hooks of the field the header names
+    (``fields.checkpoint_field``; Instant-NGP's encodes through the CUDA
+    kernels unless under ``xla``), whose density bakes a grid.
     """
     import torch
 
-    from minimal_nerf_torch import views
+    from minimal_nerf_torch import fields, views
     from minimal_nerf_torch.models.mlp import map_params
-    from minimal_nerf_torch.models.ngp import checkpoint_field
     from minimal_nerf_torch.ops import occupancy as occ
     from minimal_nerf_torch.training.checkpoint import read_header
-    from minimal_nerf_torch.training.trainer import checkpoint_mode, load_state_for_inference
+    from minimal_nerf_torch.training.trainer import load_state_for_inference
 
     header = read_header(ckpt)
-    mode = checkpoint_mode(header)
+    mode = fields.checkpoint_mode(header)
     if mode != "full":
         raise ValueError(f"{ckpt} is a mode={mode!r} checkpoint (one coarse MLP): render and "
                          "score need a 'full' coarse + fine checkpoint")
@@ -78,34 +76,22 @@ def build_render_chunk(ckpt: str, rays: int, kernel: str = "auto",
             coarse_samples=coarse or nerf_cfg.coarse_samples,
             fine_samples=fine or nerf_cfg.fine_samples,
         )
-    kernel = views.resolve_inference_kernel(kernel, train_cfg, device)
-    field = checkpoint_field(header, kernels=kernel != "xla")
+    field = fields.checkpoint_field(
+        header, fields.resolve_kernel(kernel, device, trained=train_cfg.kernel))
     words = None
     occ_cfg = train_cfg.occupancy_config
     if grid is None and bake_occupancy and not ignore_occupancy:
         occ_cfg = occ_cfg or occ.OccupancyConfig()
-        density_fn = None if field is None else (
-            lambda pts: field.density(params, pts, train_cfg.compute_dtype))
-        grid = occ.bake_grid(params, nerf_cfg.position_dim, nerf_cfg.direction_dim, occ_cfg,
+        grid = occ.bake_grid(field, params, occ_cfg,
                              torch.Generator(device=device).manual_seed(0),
-                             compute_dtype=train_cfg.compute_dtype, density_fn=density_fn)
+                             compute_dtype=train_cfg.compute_dtype)
         ckpt_step = occ_cfg.warmup_steps  # a baked grid is never warmup-forced
     if grid is not None and not ignore_occupancy:
         words = occ.pack_occupancy(grid, occ_cfg, force_all=ckpt_step < occ_cfg.warmup_steps)
 
     def chunk_on(dev):
         """The render chunk with its own parameters, grid and hooks on ``dev``."""
-        render_fn = mlp_apply = None
-        if field is not None:
-            mlp_apply, render_fn = field.hooks()
-        elif kernel == "fused":
-            from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
-
-            render_fn = make_fused_render_fn()
-        elif kernel == "pallas":
-            from minimal_nerf_torch.kernels.raymarch import make_mlp_kernel_apply
-
-            mlp_apply = make_mlp_kernel_apply()
+        mlp_apply, render_fn = field.hooks()
         sampler = (None if words is None else
                    occ.make_occupancy_sampler(words.to(dev), occ_cfg))
         return views.make_fine_render_chunk(

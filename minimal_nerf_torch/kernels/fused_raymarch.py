@@ -626,38 +626,47 @@ def capturing(t: torch.Tensor) -> bool:
     return t.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
-def make_fused_render_fn():
-    """A ``render_fn`` hook (signature of ``models.nerf.render_rays``).
+class PackingCache:
+    """``cache(params, compute_dtype, t)``: ``pack(params, compute_dtype)``
+    kept for the newest ``capacity`` trees (by object) under the compute
+    dtype and every leaf's ``_version``, which an in-place update advances.
 
-    The MLPs are flattened and packed once per state of the parameters, not
-    per call: the cache is keyed on the params object and every leaf's
-    ``_version``, which an in-place update (an optimizer step) advances.
-    While the stream captures a CUDA graph of parameters that are trained
-    (a leaf requires gradients: the train step's graph, whose replays update
-    them in place) the hook packs on every call and keeps nothing: the
-    packing is then part of the graph, and each replay packs the weights as
-    they stand (a cached packing would replay stale weights). A graph of
-    frozen parameters (no leaf requires gradients: the view sweep's,
-    ``views._ChunkGraph``) reads the packing cached before the capture, or
-    packs inside the graph without caching where there is none.
-    """
-    cache: Dict[str, Any] = {}
+    While the stream of ``t`` captures a graph of trained parameters (a leaf
+    requires gradients: the train step's, whose replays update them in
+    place) it packs inside the graph and keeps nothing, so each replay packs
+    the weights as they stand; a graph of frozen ones (the view sweep's)
+    reads the packing cached before its capture."""
+
+    def __init__(self, pack, capacity: int = 1):
+        self.pack, self.capacity = pack, capacity
+        self.entries: Dict[int, Tuple[Any, Any, Any]] = {}  # id -> (key, params, packed)
+
+    def __call__(self, params, compute_dtype, t: torch.Tensor):
+        leaves = flatten_tree(params)
+        key = (compute_dtype, tuple((id(leaf), leaf._version) for leaf in leaves))
+        hit = self.entries.get(id(params))
+        if capturing(t) and (hit is None or hit[0] != key
+                             or any(leaf.requires_grad for leaf in leaves)):
+            return self.pack(params, compute_dtype)
+        self.entries.pop(id(params), None)  # re-inserted: the dict keeps the newest last
+        if hit is None or hit[0] != key:
+            hit = (key, params, self.pack(params, compute_dtype))
+        self.entries[id(params)] = hit
+        while len(self.entries) > self.capacity:
+            self.entries.pop(next(iter(self.entries)))
+        return hit[2]
+
+
+def make_fused_render_fn():
+    """A ``render_fn`` hook (``models.nerf.render_rays``' signature) packing
+    its coarse and fine MLPs in a ``PackingCache`` of one tree."""
+    cache = PackingCache(lambda params, dtype: {k: prepare_fused_mlp(params[k], dtype)
+                                                for k in ("coarse", "fine")})
 
     def render_fn(params, config, o_rays, d_rays, generator=None, compute_dtype=None,
                   mlp_apply=None, coarse_sampler=None, uniforms=None, return_stats=False):
-        pack = lambda: {k: prepare_fused_mlp(params[k], compute_dtype)  # noqa: E731
-                        for k in ("coarse", "fine")}
-        leaves = flatten_tree(params)
-        key = (id(params), compute_dtype, tuple((id(t), t._version) for t in leaves))
-        if capturing(o_rays) and (cache.get("key") != key
-                                  or any(t.requires_grad for t in leaves)):
-            prepared = pack()
-        else:
-            if cache.get("key") != key:
-                cache.update(key=key, params=params, prepared=pack())
-            prepared = cache["prepared"]
-        return render_rays_fused(prepared, config, o_rays, d_rays, generator,
-                                 compute_dtype=compute_dtype, coarse_sampler=coarse_sampler,
-                                 uniforms=uniforms)
+        return render_rays_fused(cache(params, compute_dtype, o_rays), config, o_rays, d_rays,
+                                 generator, compute_dtype=compute_dtype,
+                                 coarse_sampler=coarse_sampler, uniforms=uniforms)
 
     return render_fn

@@ -352,35 +352,14 @@ def nerf_mlp_kernel_apply(params, samples: torch.Tensor, direc: torch.Tensor,
 
 
 def make_mlp_kernel_apply():
-    """An ``mlp_apply`` hook for ``models.nerf.render_rays`` (the
-    ``--kernel pallas`` path; ``make_pallas_mlp_apply`` in JAX).
-
-    The hook is called with one MLP at a time (coarse, then fine). Each MLP
-    is flattened and packed once per state of its parameters, not per call:
-    the cache is keyed on the MLP object, the compute dtype and every leaf's
-    ``_version``, which an in-place update (an optimizer step) advances. It
-    keeps the ``_CACHED_MLPS`` MLPs seen last. While the stream captures a
-    CUDA graph of trained parameters it packs on every call and keeps
-    nothing, so that each replay packs the weights as they stand; a graph of
-    frozen ones reads the cached packing where there is one
-    (``fused_raymarch.make_fused_render_fn``).
-    """
-    cache: Dict[int, Tuple[Any, Any, fr.FusedMLP]] = {}
+    """An ``mlp_apply`` hook for ``models.nerf.render_rays`` (``--kernel
+    pallas``; JAX ``make_pallas_mlp_apply``), called with one MLP at a time,
+    packing the ``_CACHED_MLPS`` newest in a ``fused_raymarch.PackingCache``."""
+    cache = fr.PackingCache(fr.prepare_fused_mlp, _CACHED_MLPS)
 
     def apply_fn(params, samples, direc, position_dim=10, direction_dim=4,
                  compute_dtype=None):
-        leaves = flatten_tree(params)
-        key = (compute_dtype, tuple((id(t), t._version) for t in leaves))
-        if fr.capturing(samples) and (cache.get(id(params), (None,))[0] != key
-                                      or any(t.requires_grad for t in leaves)):
-            return nerf_mlp_kernel_apply(fr.prepare_fused_mlp(params, compute_dtype), samples,
-                                         direc, position_dim, direction_dim)
-        hit = cache.pop(id(params), None)
-        if hit is None or hit[0] != key:
-            hit = (key, params, fr.prepare_fused_mlp(params, compute_dtype))
-        cache[id(params)] = hit  # re-inserted: the dict keeps the most recent last
-        while len(cache) > _CACHED_MLPS:
-            cache.pop(next(iter(cache)))
-        return nerf_mlp_kernel_apply(hit[2], samples, direc, position_dim, direction_dim)
+        return nerf_mlp_kernel_apply(cache(params, compute_dtype, samples), samples, direc,
+                                     position_dim, direction_dim)
 
     return apply_fn

@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import torch
 
@@ -130,15 +130,17 @@ def mlp(weights, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
 
 class NGPField:
     """The field as the train step, the grid's update, the checkpoint and
-    the render chunk see it; ``kernels`` picks the CUDA kernels' encoding
-    (the plain one on the CPU) or the plain indexing (``--kernel xla``)."""
+    the render chunk see it (``minimal_nerf_torch.fields``); ``kernels``
+    picks the CUDA kernels' encoding (the plain one on the CPU) or the plain
+    indexing (``--kernel xla``)."""
 
     name = FIELD
     adam = {"b1": 0.9, "b2": 0.99, "eps": 1e-15}
     l2 = 1e-6
     # instant-ngp's configs/nerf/base.json learning rate, decayed by the
     # repo's per-epoch schedule to a tenth over its 1200 epochs
-    start_lr, end_lr = 1e-2, 1e-3
+    lr = {"start_lr": 1e-2, "end_lr": 1e-3}
+    mode, data_parallel = "full", False
 
     def __init__(self, cfg: NGPConfig = NGPConfig(), kernels: bool = True):
         from minimal_nerf_torch.kernels.hash_encode import hash_encode
@@ -163,8 +165,10 @@ class NGPField:
             return self.encode(to_unit_box(pts, self.cfg.bound).contiguous(), params["table"],
                                self.levels)
 
-    def density(self, params: Params, pts: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-        """The density ``[P]`` at points ``pts [P, 3]`` (the grid's update)."""
+    def density(self, params: Params, pts: torch.Tensor, compute_dtype=None,
+                grid_source=None) -> torch.Tensor:
+        """The density ``[P]`` at points ``pts [P, 3]`` (the grid's update;
+        one field serves every ``grid_source``)."""
         feats = self.features(params, pts)
         with profiling.span("nerf.ngp.mlp"):
             return torch.exp(mlp(params["density"], feats, compute_dtype)[:, 0])
@@ -204,14 +208,3 @@ class NGPField:
                     sparse={"table": True, **{k: map_params(lambda _: False, params[k])
                                               for k in ("density", "color")}})
 
-
-def checkpoint_field(header: Dict[str, Any], kernels: bool = True) -> Optional[NGPField]:
-    """The field a checkpoint's header names (``extra["field"]``): an
-    ``NGPField`` of its saved sizes, or None for the NeRF MLP."""
-    extra = header.get("extra") or {}
-    name = extra.get("field")
-    if name is None:
-        return None
-    if name != FIELD:
-        raise ValueError(f"checkpoint of an unknown field {name!r}")
-    return NGPField(NGPConfig.from_dict(extra["ngp"]), kernels)

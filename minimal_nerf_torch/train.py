@@ -304,27 +304,19 @@ def apply_finetune_steps(args) -> None:
 def train_full_nerf(args, mesh=None):
     """Run the phases of a ``full`` run, each a ``Trainer`` (one rank of
     ``mesh`` under data parallel); returns the last."""
-    from minimal_nerf_torch import resolve_device
-    from minimal_nerf_torch.training.loop import kernel_hooks, resolve_kernel
+    from minimal_nerf_torch import fields, resolve_device
     from minimal_nerf_torch.training.trainer import Trainer
 
     dev = resolve_device(args.device)
     apply_fast_preset(args, _FAST_PRESET_DEFAULTS)
     apply_finetune_steps(args)
     phases = resolve_phases(args)
-    kernel = resolve_kernel(args.kernel, dev)
-    field = None
-    if args.field == "ngp":
-        from minimal_nerf_torch.models.ngp import NGPConfig, NGPField
-
-        if mesh is not None and mesh.size > 1:
-            raise ValueError("--field ngp trains on one device: drop --data-parallel N > 1 "
-                             "and --multihost")
-        field = NGPField(NGPConfig(bound=args.occ_bound), kernels=kernel != "xla")
+    kernel = fields.resolve_kernel(args.kernel, dev)
     nerf_cfg = NeRFConfig(
         position_dim=args.position_encoding, direction_dim=args.direction_encoding,
         coarse_samples=args.coarse, fine_samples=args.fine, near=args.near, far=args.far,
         fine_sampling=args.fine_sampling)
+    field = fields.make_field(args.field, nerf_cfg, kernel, dev, ngp={"bound": args.occ_bound})
     train_cfg = TrainConfig(
         num_rays=args.rays, max_steps=args.steps, cropping_epochs=args.cropping_epochs,
         precision=args.precision, seed=args.seed, steps_per_call=args.steps_per_call,
@@ -335,17 +327,13 @@ def train_full_nerf(args, mesh=None):
         occ_update_every=args.occ_update_every, occ_warmup_steps=args.occ_warmup_steps,
         occ_num_bins=args.occ_num_bins, occ_floor=args.occ_floor,
         occ_in_bin_jitter=not args.occ_no_jitter, occ_grid_source=args.occ_grid_source,
-        occ_probe_method=args.occ_probe_method, lr_floor=args.lr_floor,
-        **({} if field is None else {"start_lr": field.start_lr, "end_lr": field.end_lr}))
+        occ_probe_method=args.occ_probe_method, lr_floor=args.lr_floor, **field.lr)
     # each phase trains to its end step at its own sample budget; phase 1
     # resumes from -l if given, every later phase goes on from the previous
     # phase's final state in memory; fit() does nothing for a phase that a
     # relaunch finds complete
-    trainer = None
+    trainer, common = None, dict(name=args.name, device=dev, mesh=mesh, field=field)
     for coarse, fine, end_step in phases:
-        mlp_apply, render_fn = field.hooks() if field is not None else kernel_hooks(kernel, dev)
-        common = dict(name=args.name, mlp_apply=mlp_apply, render_fn=render_fn, device=dev,
-                      mesh=mesh, field=field)
         cfgs = (dataclasses.replace(nerf_cfg, coarse_samples=coarse, fine_samples=fine),
                 dataclasses.replace(train_cfg, max_steps=end_step))
         if trainer is None:
@@ -363,22 +351,19 @@ def train_single_nerf(args, mesh=None):
     """``train single`` (JAX ``train_single_nerf``): one ``Trainer(mode=
     "single")`` at ``-c`` coarse samples, no crop warmup, one step per call
     unless ``--steps-per-call`` says otherwise; returns the Trainer."""
-    from minimal_nerf_torch import resolve_device
-    from minimal_nerf_torch.training.loop import kernel_hooks, resolve_kernel
+    from minimal_nerf_torch import fields, resolve_device
     from minimal_nerf_torch.training.trainer import Trainer
 
     dev = resolve_device(args.device)
-    kernel = resolve_kernel(args.kernel, dev)
+    kernel = fields.resolve_kernel(args.kernel, dev)
     nerf_cfg = NeRFConfig(position_dim=args.position_encoding,
                           direction_dim=args.direction_encoding, coarse_samples=args.samples)
     train_cfg = TrainConfig(
         num_rays=args.rays, max_steps=args.steps, cropping_epochs=0, precision=args.precision,
         seed=args.seed, steps_per_call=args.steps_per_call or 1, log_every=args.log_every,
         val_render_every=args.val_render_every, kernel=kernel)
-    mlp_apply, _ = kernel_hooks(kernel, dev, mode="single")
     trainer = Trainer(nerf_cfg, train_cfg, args.base_dir, args.root_dir, name=args.name,
-                      resume_ckpt=args.ckpt, mlp_apply=mlp_apply, mode="single", device=dev,
-                      mesh=mesh)
+                      resume_ckpt=args.ckpt, mode="single", device=dev, mesh=mesh)
     trainer.fit()
     return trainer
 

@@ -8,9 +8,9 @@ parts (``_build_step``, the counterpart of JAX's ``_build_step_runner``):
   (the frame, the pixel coordinates after the crop/full choice, the render
   uniforms, Adam's LR and bias corrections, the occupancy warmup flag);
 - the body, which reads those inputs only from device tensors: it renders
-  the batch through the fused kernels (or the hooks of another ``--kernel``,
-  ``kernel_hooks``), takes the gradients with autograd and applies Adam with
-  optax's semantics IN PLACE on the parameter tensors.
+  the batch through the field's hooks (``minimal_nerf_torch.fields``) or
+  those given, takes the gradients with autograd and applies the field's
+  Adam, optax's semantics, IN PLACE on the parameter tensors.
 
 ``make_train_step`` is draw + body for one step. ``make_multi_step`` draws N
 steps, then runs the body N times: on a CUDA device by replaying one
@@ -59,7 +59,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from minimal_nerf_torch import fields
 from minimal_nerf_torch.data.synthetic import ray_batch_from_arrays, sample_random_coordinates
+from minimal_nerf_torch.fields import kernel_hooks, resolve_kernel  # noqa: F401
 from minimal_nerf_torch.models.mlp import map_params
 from minimal_nerf_torch.models.nerf import NeRFConfig, draw_render_uniforms, map_uniforms
 from minimal_nerf_torch.ops import occupancy as occ
@@ -216,17 +218,14 @@ def nerf_loss(params: Params, nerf_cfg: NeRFConfig, o_rays, d_rays, rgb,
 
     ``render_fn`` is the hierarchical render (signature of
     ``models.nerf.render_rays``); ``mlp_apply`` is its MLP hook. With
-    neither, the fused kernels' ``render_rays_fused``; with ``mlp_apply``
+    neither, the fused kernels' (``fields.hooks_or``); with ``mlp_apply``
     alone, ``models.nerf.render_rays``. ``coarse_sampler`` overrides the
     coarse sample placement (the occupancy sampler,
     ``ops.occupancy.make_occupancy_sampler``). ``uniforms`` replaces the
     draws. The render's density statistics, where it has them, join the
     metrics.
     """
-    from minimal_nerf_torch.kernels.fused_raymarch import render_rays_fused
-    from minimal_nerf_torch.models.nerf import render_rays
-
-    render = render_fn or (render_rays if mlp_apply is not None else render_rays_fused)
+    _, render = fields.hooks_or("fused", mlp_apply, render_fn)
     out = render(params, nerf_cfg, o_rays, d_rays, generator, compute_dtype=compute_dtype,
                  mlp_apply=mlp_apply, return_stats=True, uniforms=uniforms,
                  coarse_sampler=coarse_sampler)
@@ -330,63 +329,20 @@ def loss_and_grads(params: Params, nerf_cfg: NeRFConfig, batch: Dict[str, Any],
             unflatten_tree(params, list(grads)))
 
 
-def resolve_kernel(kernel: str, device="cuda") -> str:
-    """``"auto"`` is ``"fused"`` on a CUDA device and ``"xla"`` (the plain
-    path) elsewhere; any other choice is kept."""
-    if kernel == "auto":
-        return "fused" if torch.device(device).type == "cuda" else "xla"
-    return kernel
-
-
-def kernel_hooks(kernel: str, device="cuda",
-                 mode: str = "full") -> Tuple[Optional[Callable], Optional[Callable]]:
-    """``(mlp_apply, render_fn)`` of a ``--kernel`` choice for the train step
-    (``train_nerf.py:261-282``: ``resolve_kernel``, ``make_mlp_apply``,
-    ``make_render_fn``).
-
-    ``"fused"``, and ``"auto"`` on a CUDA device, give the fused kernels'
-    render; ``"pallas"`` the point kernels' MLP hook under the plain render;
-    ``"xla"``, and ``"auto"`` elsewhere, the plain render with the plain MLP
-    (PyTorch matmuls, which the JAX package leaves to XLA). With
-    ``mode="single"`` the coarse-only render takes no ``render_fn``:
-    ``"pallas"`` gives the point kernels' MLP hook and every other choice
-    the plain MLP (``make_mlp_apply`` is None there in JAX).
-    """
-    from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
-    from minimal_nerf_torch.kernels.raymarch import make_mlp_kernel_apply
-    from minimal_nerf_torch.models.nerf import render_rays
-
-    kernel = resolve_kernel(kernel, device)
-    if kernel not in ("fused", "pallas", "xla"):
-        raise ValueError(f"unknown kernel {kernel!r}")
-    if mode == "single":
-        return (make_mlp_kernel_apply() if kernel == "pallas" else None), None
-    if kernel == "fused":
-        return None, make_fused_render_fn()
-    if kernel == "pallas":
-        return make_mlp_kernel_apply(), render_rays
-    return None, render_rays
-
-
 def update_step_grid(occupancy_cfg, nerf_cfg: NeRFConfig, compute_dtype, params: Params,
                      grid: torch.Tensor, step: int, seed: int,
                      jitter: Optional[torch.Tensor] = None, field=None) -> None:
     """At ``step % update_every == 0``, the density EMA updated IN PLACE in
     ``grid`` from ``params`` as they stand before this step's Adam update,
-    through the plain MLP in the compute dtype with no gradient, whatever
-    kernel the step renders through (a ``field``'s own density, e.g.
-    ``models.ngp.NGPField.density``, where one is given); its jitter comes
-    from the occupancy stream of ``(seed, step)`` unless ``jitter [G^3, 3]``
-    is given. Runs eagerly, also between the replays of ``make_multi_step``."""
+    through the ``field``'s density (default: the NeRF MLPs of ``nerf_cfg``)
+    in the compute dtype with no gradient; its jitter comes from the
+    occupancy stream of ``(seed, step)`` unless ``jitter [G^3, 3]`` is given.
+    Runs eagerly, also between the replays of ``make_multi_step``."""
     if step % occupancy_cfg.update_every == 0:
         gen = None if jitter is not None else step_generator(seed, step, _OCC_STREAM,
                                                              grid.device)
-        density_fn = None if field is None else (
-            lambda pts: field.density(params, pts, compute_dtype))
-        grid.copy_(occ.update_grid_ema(grid, params, nerf_cfg.position_dim,
-                                       nerf_cfg.direction_dim, occupancy_cfg, gen,
-                                       compute_dtype=compute_dtype, jitter=jitter,
-                                       density_fn=density_fn))
+        grid.copy_(occ.update_grid_ema(grid, fields.default_field(field, nerf_cfg), params,
+                                       occupancy_cfg, gen, compute_dtype, jitter))
 
 
 def pack_step_grid(occupancy_cfg, grid: torch.Tensor, force_all):
@@ -494,30 +450,22 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
     applies Adam in place. ``mode="single"``: the coarse-only loss of one
     MLP, no render hook and no occupancy. With a ``mesh`` the body renders
     this rank's rows of the drawn pixels and uniforms and averages the
-    gradients and metrics over the ranks before Adam. A ``field`` (one
-    field for both passes, ``models.ngp.NGPField``) brings its render hooks
-    where none are given, its density to the grid's update and its Adam
-    (``adam_options``); it trains one device, ``mode="full"``.
+    gradients and metrics over the ranks before Adam. The ``field``
+    (``minimal_nerf_torch.fields``; default the NeRF MLPs under the fused
+    kernels) brings its render hooks where none are given, its density to
+    the grid's update and its Adam (``adam_options``).
     """
     from minimal_nerf_torch import resolve_device
-    from minimal_nerf_torch.kernels.fused_raymarch import make_fused_render_fn
-    from minimal_nerf_torch.models.nerf import render_rays
 
-    if mode not in ("full", "single"):
-        raise ValueError(f"unknown mode {mode!r}")
     if mode == "single" and occupancy_cfg is not None:
         raise ValueError("occupancy acceleration requires mode='full'")
-    if field is not None:
-        if mode != "full" or (mesh is not None and mesh.size > 1):
-            raise ValueError(f"the {field.name} field trains in mode 'full' on one device "
-                             "(no data parallel)")
-        if mlp_apply is None and render_fn is None:
-            mlp_apply, render_fn = field.hooks()
-    betas = () if field is None else (field.adam["b1"], field.adam["b2"])
+    field = fields.default_field(field, nerf_cfg, mode=mode)
+    if field.mode != mode or (mesh is not None and mesh.size > 1 and not field.data_parallel):
+        raise ValueError(f"the {field.name} field trains in mode {field.mode!r}"
+                         + ("" if field.data_parallel else " on one device (no data parallel)"))
+    mlp_apply, render = fields.hooks_or(field, mlp_apply, render_fn)
+    betas = (field.adam["b1"], field.adam["b2"])
     dev = resolve_device(device)
-    render = None
-    if mode == "full":
-        render = render_fn or (render_rays if mlp_apply is not None else make_fused_render_fn())
 
     def draw(step: int, count: int, seed: int):
         return draw_step_inputs(nerf_cfg, train_cfg, static, step, count, seed, dev,
@@ -546,7 +494,7 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
         if mesh is not None:
             metrics, grads = _all_reduce_mean(metrics, grads, mesh)
         opt_state = adam_apply(params, grads, opt_state, inp["adam"],
-                               **({} if field is None else field.adam_options(params)))
+                               **field.adam_options(params))
         metrics = dict(finalize_metrics(metrics, grads, mesh.size if mesh is not None else 1),
                        lr=inp["lr"])
         if occ_fraction is not None:
@@ -564,12 +512,12 @@ def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
     of ``_build_step``.
 
     ``render_fn`` and ``mlp_apply`` are the render hooks (``kernel_hooks``).
-    With neither, the fused kernels' hierarchical render with its packing
-    cache (``make_fused_render_fn``); with ``mlp_apply`` alone, the plain
-    render ``models.nerf.render_rays`` around it. The parameters and Adam
-    moments are updated IN PLACE (the returned ``params`` is the same tree).
-    Metrics are device scalars under the JAX names plus ``lr`` (no host
-    sync).
+    With neither, the ``field``'s (the NeRF MLPs': the fused kernels'
+    hierarchical render with its packing cache); with ``mlp_apply`` alone,
+    the plain render ``models.nerf.render_rays`` around it. The parameters
+    and Adam moments are updated IN PLACE (the returned ``params`` is the
+    same tree). Metrics are device scalars under the JAX names plus ``lr``
+    (no host sync).
 
     With ``occupancy_cfg`` (``ops.occupancy.OccupancyConfig``) the step is
     ``step_fn(params, opt_state, grid, images, poses, step, seed) ->
@@ -586,8 +534,8 @@ def make_train_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneS
     every rank of the mesh runs (module doc); ``train_cfg.num_rays`` is the
     whole step's and must divide by the mesh size.
 
-    ``field`` (``models.ngp.NGPField``): one field trained for both passes
-    (``_build_step``), ``params`` its tree.
+    ``field`` (``minimal_nerf_torch.fields``; None: the NeRF MLPs): the
+    field trained, ``params`` its tree.
     """
     draw, update_grid, body = _build_step(nerf_cfg, train_cfg, static, render_fn, device,
                                           mlp_apply, occupancy_cfg, mode, mesh, field)
@@ -636,25 +584,24 @@ class _StepGraph:
     The capture runs the body's spans once (under ``nerf.train.capture``);
     a replay runs no Python of the body, so each replayed step is one span,
     ``nerf.train.replay`` (its input copies and ``graph.replay()``). The
-    launch counters the capture raised (``utils.profiling``) are added again
-    for each replay, beside ``graph.replays``.
+    launch counters the capture raised (``utils.profiling``) stay counted
+    and are added again for each replay, beside ``graph.replays``
+    (``profiling.CaptureCounts``).
     """
 
     def __init__(self, update_grid, body):
         self.update_grid, self.body = update_grid, body
         self.graph = self.key = self.inputs = self.metrics = None
-        self.launched: Dict[str, int] = {}
+        self.counts = profiling.CaptureCounts("graph.replays")
 
     def _capture(self, key, params, opt_state, grid, images, poses, inp):
         self.graph = self.inputs = self.metrics = self.key = None  # release the old pool
         inputs = _clone_inputs(inp)
         graph = torch.cuda.CUDAGraph()
-        before = profiling.counters()
         # anomaly mode's checks read values on the host, which a capture forbids
-        with torch.autograd.set_detect_anomaly(False), torch.cuda.graph(graph):
+        with (self.counts.capture(keep=True), torch.autograd.set_detect_anomaly(False),
+              torch.cuda.graph(graph)):
             _, _, metrics = self.body(params, opt_state, grid, images, poses, inputs)
-        self.launched = {k: v - before.get(k, 0) for k, v in profiling.counters().items()
-                         if v != before.get(k, 0)}
         self.graph, self.key, self.inputs, self.metrics = graph, key, inputs, metrics
 
     def run(self, params, opt_state, grid, images, poses, steps, inputs, seed):
@@ -677,11 +624,7 @@ class _StepGraph:
                 for dst, src in zip(_input_tensors(self.inputs), _input_tensors(inp)):
                     dst.copy_(src)
                 self.graph.replay()
-        replays = len(steps) - first
-        if replays:
-            profiling.count("graph.replays", replays)
-            for name, n in self.launched.items():
-                profiling.count(name, n * replays)
+        self.counts.replayed(len(steps) - first)
         if first < len(steps):
             metrics = {k: v.clone() for k, v in self.metrics.items()}
             # the replays changed the parameters in place behind autograd's
@@ -776,9 +719,7 @@ def make_eval_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, mlp_apply=None,
     of an occupancy-trained model would be a train/val sampling mismatch.
     ``uniforms`` replaces the render's draws.
     """
-    from minimal_nerf_torch.models.nerf import render_rays
-
-    render = render_fn or render_rays
+    mlp_apply, render = fields.hooks_or("xla", mlp_apply, render_fn)
 
     @torch.no_grad()
     def eval_fn(params, origin, direc, rgb, generator=None, occ_words=None, uniforms=None):

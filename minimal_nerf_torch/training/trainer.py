@@ -41,11 +41,9 @@ from typing import Optional
 
 import torch
 
-from minimal_nerf_torch import resolve_device
-from minimal_nerf_torch.models.mlp import map_params, nerf_mlp_shapes
-from minimal_nerf_torch.models.mlp import init_nerf_mlp
-from minimal_nerf_torch.models.nerf import NeRFConfig, init_nerf_network, render_single
-from minimal_nerf_torch.models.ngp import checkpoint_field
+from minimal_nerf_torch import fields, resolve_device
+from minimal_nerf_torch.models.mlp import map_params
+from minimal_nerf_torch.models.nerf import NeRFConfig, render_single
 from minimal_nerf_torch.parallel import distributed
 from minimal_nerf_torch.training import checkpoint as ckpt_lib
 from minimal_nerf_torch.training import loop
@@ -57,34 +55,14 @@ from minimal_nerf_torch.utils import profiling
 _VIEW_STREAM, _VIEW_RENDER_STREAM = 0x71E, 0x71F
 
 
-MODES = ("full", "single")
-
-
-def _check_mode(mode: str) -> str:
-    if mode not in MODES:
-        raise ValueError(f"mode {mode!r}: the Trainer trains {' or '.join(MODES)}")
-    return mode
-
-
-def checkpoint_mode(header) -> str:
-    """The training mode a checkpoint's header names (``"full"`` when it
-    names none, as in JAX)."""
-    return _check_mode((header.get("extra") or {}).get("mode", "full"))
-
-
-def restore_to_device(header, leaves, nerf_cfg: NeRFConfig, occ_cfg, dev):
+def restore_to_device(header, leaves, field, occ_cfg, dev):
     """``(params, opt_state, grid)`` of a loaded checkpoint as fp32 tensors
     on ``dev`` (``opt_state = {"count", "mu", "nu"}``; ``grid`` None
-    without ``occ_cfg``): the coarse + fine network, one MLP for a
-    ``mode="single"`` checkpoint, or the tree of the field its header names
-    (``models.ngp.checkpoint_field``). A layout other than the configs and
-    the mode describe raises."""
+    without ``occ_cfg``) in the layout of ``field``'s tree (the coarse +
+    fine network, one MLP for a ``mode="single"`` checkpoint, or
+    Instant-NGP's); another layout raises."""
     grid_shape = (occ_cfg.resolution,) * 3 if occ_cfg is not None else None
-    mlp = nerf_mlp_shapes(nerf_cfg.position_dim, nerf_cfg.direction_dim)
-    field = checkpoint_field(header)
-    shapes = (field.shapes() if field is not None else
-              mlp if checkpoint_mode(header) == "single" else {"coarse": mlp, "fine": mlp})
-    params, opt, grid = ckpt_lib.restore_state(header, leaves, shapes, grid_shape)
+    params, opt, grid = ckpt_lib.restore_state(header, leaves, field.shapes(), grid_shape)
     to_dev = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)  # noqa: E731
     opt = {"count": opt["count"], "mu": map_params(to_dev, opt["mu"]),
            "nu": map_params(to_dev, opt["nu"])}
@@ -116,19 +94,16 @@ class Trainer:
         ``metrics.csv`` only when a run resumes). ``initial_state = (params,
         opt_state, grid, step)`` continues in memory from a previous
         Trainer's ``final_state`` and takes precedence over
-        ``resume_ckpt``. ``mlp_apply`` and ``render_fn`` are the render
-        hooks (``loop.kernel_hooks``); with neither, those of
-        ``train_config.kernel`` on ``device``. ``mode="single"`` trains one
-        MLP on the coarse-only render (``render_fn`` unused); occupancy
-        then raises, as in JAX. ``mesh`` (``parallel.mesh.make_mesh``) makes
-        this Trainer one rank of a data-parallel run on ``mesh.device``;
-        only rank 0 writes. ``field`` (``models.ngp.NGPField``) trains one
-        field for both passes in place of the coarse and fine MLPs, on one
-        device; its hooks are the render's unless others are given, and its
-        checkpoints name it."""
+        ``resume_ckpt``. ``field`` (``minimal_nerf_torch.fields``; default
+        the NeRF MLPs under ``train_config.kernel``) is trained and named in
+        the checkpoints; ``mlp_apply`` and ``render_fn``, the render hooks,
+        replace its hooks. ``mode="single"`` trains one MLP on the
+        coarse-only render; occupancy then raises, as in JAX. ``mesh``
+        (``parallel.mesh.make_mesh``) makes this Trainer one rank of a
+        data-parallel run on ``mesh.device``; only rank 0 writes."""
         from minimal_nerf_torch.data.synthetic import SyntheticScene
 
-        self.mode = _check_mode(mode)
+        self.mode = mode
         self.device = resolve_device(device if mesh is None else mesh.device)
         self.mesh = mesh
         self.is_primary = distributed.is_primary()
@@ -161,19 +136,18 @@ class Trainer:
         self.static = loop.scene_static(self.train_scene)
         self.steps_per_epoch = train_config.steps_per_epoch or self.static.num_frames
         self._occ_cfg = train_config.occupancy_config
-        self.field = field
-        if mlp_apply is None and render_fn is None:
-            mlp_apply, render_fn = (field.hooks() if field is not None else
-                                    loop.kernel_hooks(train_config.kernel, self.device, mode))
-        self.mlp_apply, self.render_fn = mlp_apply, render_fn
-        self.step_fn = loop.make_train_step(nerf_config, train_config, self.static, render_fn,
-                                            self.device, mlp_apply, self._occ_cfg, mode, mesh,
-                                            field)
+        self.field = fields.default_field(field, nerf_config, train_config.kernel, self.device,
+                                          mode)
+        self.mlp_apply, self.render_fn = fields.hooks_or(self.field, mlp_apply, render_fn)
+        self.step_fn = loop.make_train_step(nerf_config, train_config, self.static,
+                                            self.render_fn, self.device, self.mlp_apply,
+                                            self._occ_cfg, mode, mesh, self.field)
         self.multi_fn = None
         if train_config.steps_per_call > 1:
             self.multi_fn = loop.make_multi_step(
-                nerf_config, train_config, self.static, train_config.steps_per_call, render_fn,
-                self.device, mlp_apply, self._occ_cfg, mode, mesh, field)
+                nerf_config, train_config, self.static, train_config.steps_per_call,
+                self.render_fn, self.device, self.mlp_apply, self._occ_cfg, mode, mesh,
+                self.field)
         self._grid = None
         self._batched_eval = None
         self._val_render_chunk = None
@@ -184,9 +158,9 @@ class Trainer:
     def init_state(self):
         """``(params, opt_state, start_step)``: handed over in memory, resumed
         from ``resume_ckpt`` (the occupancy grid too; its mode must be the
-        Trainer's), or fresh (``init_nerf_network``, or ``init_nerf_mlp`` in
-        single mode, from a generator seeded with the config's seed, zero
-        Adam state, a zero grid). Sets ``self._grid``."""
+        Trainer's), or fresh (the field's ``init`` from a generator seeded
+        with the config's seed, zero Adam state, a zero grid). Sets
+        ``self._grid``."""
         if self._initial_state is not None:
             params, opt_state, grid, start_step = self._initial_state
             self._grid = grid
@@ -194,16 +168,13 @@ class Trainer:
             return params, opt_state, start_step
         if self.resume_ckpt:
             header, leaves = ckpt_lib.load_checkpoint(self.resume_ckpt)
-            if checkpoint_mode(header) != self.mode:
-                raise ValueError(f"{self.resume_ckpt} is a mode={checkpoint_mode(header)!r} "
-                                 f"checkpoint; this run trains mode={self.mode!r}")
-            saved = checkpoint_field(header)
-            if (saved and saved.header()) != (self.field and self.field.header()):
-                raise ValueError(f"{self.resume_ckpt} holds the field "
-                                 f"{saved.header() if saved else 'nerf'}; this run trains "
-                                 f"{self.field.header() if self.field else 'nerf'}")
-            params, opt_state, self._grid = restore_to_device(
-                header, leaves, self.nerf_config, self._occ_cfg, self.device)
+            saved, field = fields.checkpoint_field(header), self.field
+            if (saved.mode, saved.header()) != (field.mode, field.header()):
+                raise ValueError(f"{self.resume_ckpt} holds the mode={saved.mode!r} field "
+                                 f"{saved.header() or saved.name}; this run trains the "
+                                 f"mode={field.mode!r} field {field.header() or field.name}")
+            params, opt_state, self._grid = restore_to_device(header, leaves, field,
+                                                              self._occ_cfg, self.device)
             start_step = int(header["step"])
             print(f"[trainer] resumed from {self.resume_ckpt} at step {start_step}",
                   file=sys.stderr)
@@ -211,10 +182,7 @@ class Trainer:
         from minimal_nerf_torch.ops import occupancy as occ
 
         gen = torch.Generator(device=self.device).manual_seed(self.train_config.seed)
-        cfg = self.nerf_config
-        params = (self.field.init(gen, self.device) if self.field is not None else
-                  init_nerf_network(gen, cfg, device=self.device) if self.mode == "full" else
-                  init_nerf_mlp(gen, cfg.position_dim, cfg.direction_dim, device=self.device))
+        params = self.field.init(gen, self.device)
         self._grid = (occ.init_grid(self._occ_cfg, self.device)
                       if self._occ_cfg is not None else None)
         return params, loop.adam_init(params), 0
@@ -391,7 +359,7 @@ class Trainer:
         fut = ckpt_lib.save_checkpoint_async(
             path, params, opt_state, step, self.nerf_config.to_dict(),
             self.train_config.to_dict(),
-            extra=dict({"mode": self.mode}, **(self.field.header() if self.field else {})),
+            extra=dict({"mode": self.mode}, **self.field.header()),
             grid=self._grid)
         self._pending_save = fut
         if blocking:
@@ -414,8 +382,8 @@ def load_state_for_inference(ckpt_path, device="cuda"):
     header, leaves = ckpt_lib.load_checkpoint(ckpt_path)
     nerf_cfg = NeRFConfig.from_dict(header["nerf_config"])
     train_cfg = TrainConfig.from_dict(header["train_config"])
-    params, _, grid = restore_to_device(header, leaves, nerf_cfg, train_cfg.occupancy_config,
-                                        dev)
+    params, _, grid = restore_to_device(header, leaves, fields.checkpoint_field(header),
+                                        train_cfg.occupancy_config, dev)
     return params, nerf_cfg, train_cfg, grid, int(header["step"])
 
 

@@ -22,7 +22,7 @@ one tracer:
   wrappers' launches (``<kernel>.launches``), ``graph.replays``, a
   replayed train step adding the launches its capture counted, and
   ``view.graph_replays``, a replayed view chunk adding them too (the view
-  sweep takes its capture's counts back);
+  sweep takes its capture's counts back), both through ``CaptureCounts``;
   ``reset()`` clears the spans and the counters;
 - ``trace(logdir)``: a ``torch.profiler`` trace of the enclosed block (host
   and, on a card, device activity) with the tracer on, written as one
@@ -152,6 +152,33 @@ def counter(name: str) -> int:
 
 def counters() -> Dict[str, int]:
     return dict(_counters)
+
+
+class CaptureCounts:
+    """The counters a CUDA graph's capture raised (``capture(keep)``, a
+    context around it: kept counted with ``keep``, else taken back), added
+    again by ``replayed(n)`` for ``n`` replays beside the counter
+    ``replays``: a capture runs the body's Python once, a replay none."""
+
+    def __init__(self, replays: str):
+        self.replays = replays
+        self.launched: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def capture(self, keep: bool) -> Iterator[None]:
+        before = counters()
+        yield
+        self.launched = {k: v - before.get(k, 0) for k, v in _counters.items()
+                         if v != before.get(k, 0)}
+        if not keep:
+            for name, n in self.launched.items():
+                count(name, -n)
+
+    def replayed(self, n: int = 1) -> None:
+        if n:
+            count(self.replays, n)
+            for name, launches in self.launched.items():
+                count(name, launches * n)
 
 
 def reset() -> None:

@@ -1,14 +1,10 @@
 """View reconstruction and 360-degree view synthesis.
 
-Counterpart of ``minimal_nerf_tpu/views.py``. A view is swept in ray chunks
-by a plain Python loop (PyTorch runs eagerly, so there is nothing to trace);
+Counterpart of ``minimal_nerf_tpu/views.py``. A view is swept in ray chunks;
 chunk ``i`` of a frame draws its samples from a ``torch.Generator`` seeded
-from ``(frame seed, i)``, so a frame renders the same whatever else runs.
-A ``render_chunk`` is ``(o [C, 3], d [C, 3], generator) -> rgb [C, 3]``.
-
-``photo_nerf_to_image`` sweeps a 2-D image model over every pixel of a
-photo (``train simple``). ``make_sharded_render_chunk`` splits each chunk
-over several devices of this process (render and score ``--data-parallel``).
+from ``(frame seed, i)``, so a frame renders the same however it is swept.
+A ``render_chunk`` is ``(o [C, 3], d [C, 3], generator) -> rgb [C, 3]``,
+built on a field's or a kernel's hooks (``minimal_nerf_torch.fields``).
 
 Many poses (the render CLI's orbit, the score CLI's test split) go through
 ``render_poses_batched``: ``frames_per_dispatch`` frames per batch, the next
@@ -16,19 +12,24 @@ batch queued on the device before this one is waited for, each batch
 fetched in one asynchronous copy (or kept on the device for scoring). A
 ``StaticRenderChunk`` (the serving set-up's, whose state never changes) has
 its full chunks swept on a CUDA device as replays of one captured CUDA graph
-of the whole per-chunk chain (``_ChunkGraph``), the same frames bit for bit.
+of the whole per-chunk chain (``_ChunkGraph``), the same frames bit for bit;
+other sweeps (the CPU, several devices, the trainer's) loop in Python.
+
+``photo_nerf_to_image`` sweeps a 2-D image model over every pixel of a
+photo (``train simple``). ``make_sharded_render_chunk`` splits each chunk
+over several devices of this process (render and score ``--data-parallel``).
 """
 
 from __future__ import annotations
 
-import sys
 from pathlib import Path
 from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from minimal_nerf_torch.models.nerf import NeRFConfig, render_rays
+from minimal_nerf_torch import fields
+from minimal_nerf_torch.models.nerf import NeRFConfig
 from minimal_nerf_torch.ops import cameras
 from minimal_nerf_torch.utils import profiling
 
@@ -49,35 +50,6 @@ def chunk_generator(frame_seed: int, chunk_index: int, device) -> torch.Generato
     g = torch.Generator(device=device)
     g.manual_seed(mix_seed(frame_seed, chunk_index))
     return g
-
-
-def resolve_inference_kernel(kernel: str, train_cfg=None, device="cuda") -> str:
-    """Resolve an inference ``--kernel`` choice to ``"fused"``, ``"pallas"``
-    or ``"xla"``.
-
-    ``"xla"`` names the plain path (``models.nerf.render_rays``) and
-    ``"pallas"`` the plain render around the point-level MLP kernels, as in
-    the JAX package. ``"auto"`` prefers the kernel the checkpoint trained
-    under: on a CUDA device a fused- or auto-trained checkpoint renders
-    through ``"fused"`` and a pallas-trained one through ``"pallas"``; on the
-    CPU ``"auto"`` takes the plain path and says so when the checkpoint
-    trained under a kernel. An explicit choice is kept (on the CPU a kernel
-    runs its plain version).
-    """
-    trained = getattr(train_cfg, "kernel", "auto") if train_cfg is not None else "auto"
-    choice = kernel if kernel != "auto" else None
-    if choice is None:
-        if torch.device(device).type == "cuda":
-            choice = "fused" if trained in ("auto", "fused") else trained
-        else:
-            if trained in ("pallas", "fused"):
-                print(f"[views] checkpoint trained under the {trained!r} kernel is "
-                      "rendered through the plain path on the CPU; expect a "
-                      "train/inference numerics mismatch", file=sys.stderr)
-            choice = "xla"
-    if choice not in ("xla", "fused", "pallas"):
-        raise ValueError(f"unknown kernel {kernel!r}")
-    return choice
 
 
 def _to_uint8(rgb: torch.Tensor) -> torch.Tensor:
@@ -153,13 +125,9 @@ class _ChunkGraph:
             self.frame.index_copy_(0, flat, render_chunk(o, d, self.generator))
             self.offset.add_(n)
 
-        before = profiling.counters()
-        with profiling.span("nerf.view.capture"):
+        self.counts = profiling.CaptureCounts("view.graph_replays")
+        with profiling.span("nerf.view.capture"), self.counts.capture(keep=False):
             self.graph = self._capture(body)
-        self.launched = {k: v - before.get(k, 0) for k, v in profiling.counters().items()
-                         if v != before.get(k, 0)}
-        for name, v in self.launched.items():
-            profiling.count(name, -v)
 
     def _capture(self, body: Callable) -> torch.cuda.CUDAGraph:
         graph = torch.cuda.CUDAGraph()
@@ -176,9 +144,7 @@ class _ChunkGraph:
         self.generator.manual_seed(seed)
         self.graph.replay()
         self.next_lo = lo + self.index.shape[0]
-        profiling.count("view.graph_replays")
-        for name, v in self.launched.items():
-            profiling.count(name, v)
+        self.counts.replayed()
 
 
 def view_reconstruction(render_chunk: Callable, all_o_rays: torch.Tensor,
@@ -298,7 +264,7 @@ def make_param_render_chunk(config: NeRFConfig, compute_dtype=None, mlp_apply=No
     in place; the fused render's packing cache follows the update).
     ``uniforms`` replaces the generator's draws
     (``models.nerf.draw_render_uniforms``)."""
-    render = render_fn or render_rays
+    mlp_apply, render = fields.hooks_or("xla", mlp_apply, render_fn)
 
     def render_chunk_p(params, o, d, generator, uniforms=None):
         out = render(params, config, o, d, generator, compute_dtype=compute_dtype,
@@ -316,7 +282,7 @@ def make_occ_param_render_chunk(config: NeRFConfig, occ_cfg, compute_dtype=None,
     passed beside the parameters, for a grid that changes between views."""
     from minimal_nerf_torch.ops import occupancy as occ
 
-    render = render_fn or render_rays
+    mlp_apply, render = fields.hooks_or("xla", mlp_apply, render_fn)
 
     def render_chunk_p(state, o, d, generator):
         params, occ_words = state
@@ -341,9 +307,8 @@ def make_fine_render_chunk(params, config: NeRFConfig, compute_dtype=None,
                            mlp_apply=None, render_fn=None,
                            coarse_sampler=None) -> Callable:
     """The standard ``render_chunk``: ``make_param_render_chunk`` with
-    ``params`` bound. ``render_fn`` overrides the render (e.g.
-    ``make_fused_render_fn()``); the default is the plain
-    ``models.nerf.render_rays``.
+    ``params`` bound (its hooks, ``fields.kernel_hooks``; default the plain
+    render).
     """
     render_chunk_p = make_param_render_chunk(config, compute_dtype, mlp_apply, render_fn,
                                              coarse_sampler)

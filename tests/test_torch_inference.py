@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from minimal_nerf_torch import fields as t_fields
 from minimal_nerf_torch import inference as t_inf
 from minimal_nerf_torch import render as t_render
 from minimal_nerf_torch import views as t_views
@@ -272,7 +273,7 @@ def test_bake_occupancy_on_a_uniform_checkpoint(tmp_path):
                                               bake_occupancy=True, device="cpu")
     params, ncfg, *_ = t_trainer.load_state_for_inference(path, device="cpu")
     occ_cfg = t_occ.OccupancyConfig()
-    grid = t_occ.bake_grid(params, ncfg.position_dim, ncfg.direction_dim, occ_cfg,
+    grid = t_occ.bake_grid(t_fields.NeRFField(ncfg), params, occ_cfg,
                            torch.Generator().manual_seed(0), compute_dtype=tcfg.compute_dtype)
     by_hand = t_views.make_fine_render_chunk(
         params, ncfg, compute_dtype=tcfg.compute_dtype,
@@ -324,18 +325,19 @@ def test_inference_options_not_ported_raise(tmp_path):
 
 
 def test_resolve_inference_kernel():
-    fused, xla = TTrainConfig(kernel="fused"), TTrainConfig(kernel="xla")
-    assert t_views.resolve_inference_kernel("auto", fused, "cuda") == "fused"
-    assert t_views.resolve_inference_kernel("auto", TTrainConfig(), "cuda") == "fused"
-    assert t_views.resolve_inference_kernel("auto", xla, "cuda") == "xla"
-    assert t_views.resolve_inference_kernel("auto", fused, "cpu") == "xla"
-    assert t_views.resolve_inference_kernel("fused", xla, "cpu") == "fused"
+    """Serving's kernel choice through the one resolver, given the kernel
+    the checkpoint trained under."""
+    resolve = t_fields.resolve_kernel
+    assert resolve("auto", "cuda", trained="fused") == "fused"
+    assert resolve("auto", "cuda", trained=TTrainConfig().kernel) == "fused"
+    assert resolve("auto", "cuda", trained="xla") == "xla"
+    assert resolve("auto", "cpu", trained="fused") == "xla"
+    assert resolve("fused", "cpu", trained="xla") == "fused"
     # the point-level kernel path: chosen by a pallas-trained checkpoint on
     # a card, kept when asked for explicitly (on the CPU: its plain version)
-    pallas = TTrainConfig(kernel="pallas")
-    assert t_views.resolve_inference_kernel("auto", pallas, "cuda") == "pallas"
-    assert t_views.resolve_inference_kernel("auto", pallas, "cpu") == "xla"
-    assert t_views.resolve_inference_kernel("pallas", fused, "cpu") == "pallas"
+    assert resolve("auto", "cuda", trained="pallas") == "pallas"
+    assert resolve("auto", "cpu", trained="pallas") == "xla"
+    assert resolve("pallas", "cpu", trained="fused") == "pallas"
 
 
 def test_default_device_is_cuda_and_raises_without_card(tmp_path):

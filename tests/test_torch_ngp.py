@@ -26,9 +26,10 @@ import numpy as np
 import pytest
 import torch
 
+from minimal_nerf_torch.fields import checkpoint_field
 from minimal_nerf_torch.kernels import hash_encode as he
 from minimal_nerf_torch.models.nerf import NeRFConfig
-from minimal_nerf_torch.models.ngp import NGPConfig, NGPField, checkpoint_field
+from minimal_nerf_torch.models.ngp import NGPConfig, NGPField
 from minimal_nerf_torch.ops import encoding as enc
 from minimal_nerf_torch.training import loop
 from minimal_nerf_torch.training.checkpoint import flatten_tree, save_checkpoint
@@ -328,7 +329,7 @@ def test_checkpoint_round_trip(tmp_path):
     loaded, nerf_cfg, train_cfg, loaded_grid, step = load_state_for_inference(path, "cpu")
     assert step == 300 and torch.equal(loaded_grid, grid)
     assert all(torch.equal(a, b) for a, b in zip(flatten_tree(loaded), flatten_tree(params)))
-    assert checkpoint_field({"extra": {"mode": "full"}}) is None
+    assert checkpoint_field({"extra": {"mode": "full"}}).name == "nerf"
 
 
 @pytest.mark.parametrize("kernel", ["fused", "xla"])

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from minimal_nerf_torch import fields as t_fields
 from minimal_nerf_torch.kernels import occupancy_probe as t_probe
 from minimal_nerf_torch.models import mlp as t_mlp
 from minimal_nerf_torch.ops import occupancy as t_occ
@@ -205,6 +206,7 @@ def test_update_grid_ema_and_bake_grid_match_jax(precision):
     ema = np.random.default_rng(2).uniform(0, 2.0, (g, g, g)).astype(np.float32)
     key = jax.random.PRNGKey(4)
     jitter = T(jax.random.uniform(key, (g ** 3, 3), jnp.float32))
+    field = t_fields.NeRFField(t_fields.NeRFConfig(position_dim=4, direction_dim=2))
 
     def close(got, want):
         diff = np.abs(got.numpy() - np.asarray(want))
@@ -216,7 +218,7 @@ def test_update_grid_ema_and_bake_grid_match_jax(precision):
         jcfg, tcfg = _cfgs(resolution=g, grid_source=source)
         want = j_occ.update_grid_ema(jnp.asarray(ema), jp, 4, 2, jcfg, key,
                                      compute_dtype=dtype[0])
-        got = t_occ.update_grid_ema(T(ema), tp, 4, 2, tcfg, compute_dtype=dtype[1],
+        got = t_occ.update_grid_ema(T(ema), field, tp, tcfg, compute_dtype=dtype[1],
                                     jitter=jitter)
         close(got, want)
         assert (np.asarray(want) > ema * 0.9 + 1e-6).any()  # some cells took the density
@@ -224,7 +226,7 @@ def test_update_grid_ema_and_bake_grid_match_jax(precision):
     want = j_occ.bake_grid(jp, 4, 2, jcfg, key, compute_dtype=dtype[0], passes=2)
     jitters = [T(jax.random.uniform(jax.random.fold_in(key, i), (g ** 3, 3), jnp.float32))
                for i in range(2)]
-    got = t_occ.bake_grid(tp, 4, 2, tcfg, compute_dtype=dtype[1], passes=2, jitters=jitters)
+    got = t_occ.bake_grid(field, tp, tcfg, compute_dtype=dtype[1], passes=2, jitters=jitters)
     close(got, want)
     assert got.shape == (g, g, g) and (got.numpy() > 0).mean() > 0.2
 
