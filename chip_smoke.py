@@ -662,6 +662,14 @@ def phase_kernel_bwd(dev, report):
                                   macs=model_counts.kernel_bwd_macs(NERF_MLP),
                                   io_floats=io)
             sc_bytes, floor_ms = scratch_floor(RAYS * s, 2 if dtype else 4, masks=True)
+            # kernel A alone: the forward recomputed and the activation
+            # gradients (the weight products, kernel B's, equal the forward's
+            # multiply-adds) against its stores, the scratch and mask words
+            a_ms, a_by = bound_ms(fm, RAYS, s, PEAK_BF16 if dtype else PEAK_FP32,
+                                  macs=model_counts.kernel_bwd_macs(NERF_MLP)
+                                  - model_counts.fwd_macs(NERF_MLP),
+                                  io_floats=(sc_bytes // 2) // 4)
+            a_entry = "fused_bwd_kernel_sm90" if dtype else "fused_bwd_kernelIf"
             ok = within and same and not missed
             ok_all &= ok
             print(f"[kernel-bwd] {prec} N={RAYS} S={s} "
@@ -675,7 +683,11 @@ def phase_kernel_bwd(dev, report):
                   f"(device A={parts['A']:.4f} B={parts['B']:.4f} R={parts['R']:.4f}) "
                   f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} "
                   f"({b_by}); scratch and masks {sc_bytes / 1e9:.3f} GB written and read, "
-                  f"byte floor {floor_ms:.4f} ms {'PASS' if ok else 'FAIL'}", flush=True)
+                  f"byte floor {floor_ms:.4f} ms; A's bound {a_ms:.4f} ms ({a_by}), A at "
+                  f"{100 * a_ms / parts['A']:.1f}% of its rate; "
+                  f"{ptxas_report('fused_raymarch_bwd', a_entry)}; "
+                  f"{ptxas_report('fused_raymarch_bwd', 'wgrad_mma_kernel')} "
+                  f"{'PASS' if ok else 'FAIL'}", flush=True)
             report[("bwd", prec, s)] = dict(err=max(e[2] for e in errs), ms=ms,
                                             plain_ms=plain_ms, library_ms=lib_ms,
                                             bound_ms=b_ms, bound_by=b_by)
@@ -2962,6 +2974,7 @@ def phase_multi_step(dev, scene, bias: float, trained_params):
     second call beside the eager steps of the same span, each as one block
     ended by a sync. Returns each case's counts and the fast case's call for
     ``[profile]``."""
+    from minimal_nerf_torch.kernels import fused_raymarch as fr
     from minimal_nerf_torch.models.mlp import map_params
     from minimal_nerf_torch.models.nerf import NeRFConfig
     from minimal_nerf_torch.ops import occupancy as occ
@@ -3011,6 +3024,7 @@ def phase_multi_step(dev, scene, bias: float, trained_params):
         eager_metrics, eager_ms = block(step_fn, eager, range(start + MULTI_STEPS,
                                                                start + 2 * MULTI_STEPS))
         eager_launches = counts()
+        eager_sm90 = launched(fr.BWD_SM90_LAUNCHES)
         eager_peak = torch.cuda.max_memory_allocated()
         eager_kept = kept_memory()
         per_step = tuple(x // (2 * MULTI_STEPS) for x in eager_launches)
@@ -3033,6 +3047,7 @@ def phase_multi_step(dev, scene, bias: float, trained_params):
                 torch.cuda.set_sync_debug_mode("default")
             replay_peak = torch.cuda.max_memory_allocated()
             multi_launches = counts()
+            multi_sm90 = launched(fr.BWD_SM90_LAUNCHES)
             replays = launched("graph.replays")
             calls = dict(seen)
         same = (eager[1]["count"] == multi[1]["count"] == 2 * MULTI_STEPS
@@ -3051,7 +3066,9 @@ def phase_multi_step(dev, scene, bias: float, trained_params):
               and any(per_step) and multi_launches == want_multi
               and calls["captures"] == 1 and calls["replays"] == 2 * MULTI_STEPS - 1
               and replays == calls["replays"] and third["captures"] == 0
-              and traced == want_traced)
+              and traced == want_traced
+              # every bf16 fused backward ran kernel A on wgmma, replayed or not
+              and (eager_sm90, multi_sm90) == (eager_launches[1], multi_launches[1]))
         loss = float(multi_metrics["train_loss"])
         print(f"[multi-step] {label} ({cfg.coarse_samples}+{cfg.fine_samples}, {tcfg.num_rays} "
               f"rays, {tcfg.precision}, --kernel {tcfg.kernel}"
@@ -3063,7 +3080,9 @@ def phase_multi_step(dev, scene, bias: float, trained_params):
               f"loss {loss:.6f}); the second call under sync debug mode 'error' raised nothing; "
               f"wrapper launches ({COUNTED}) over the 2 calls {multi_launches} (want "
               f"{want_multi}: the eager first step, its capture and {replays} replays counted "
-              f"as graph.replays), over the eager steps {eager_launches}; a third call's "
+              f"as graph.replays), over the eager steps {eager_launches}; of the fused "
+              f"backward's, on wgmma (fused_raymarch_bwd_sm90.launches) {multi_sm90} over the "
+              f"2 calls, {eager_sm90} over the eager steps; a third call's "
               f"{MULTI_STEPS} replays ran "
               f"{traced} (profiler trace; want {want_traced} = {MULTI_STEPS} x an eager "
               f"step's) {'PASS' if ok else 'FAIL'}", flush=True)

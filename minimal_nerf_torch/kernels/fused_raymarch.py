@@ -10,9 +10,10 @@ weight and bias gradients summed over all rays.
 - ``fused_forward`` / ``fused_backward`` are the wrappers: for CUDA tensors
   they launch the hand-written kernels in ``csrc/fused_raymarch_fwd.cu``
   (whose bf16 MLP is ``csrc/mlp_fwd_sm90.cuh``) and
-  ``csrc/fused_raymarch_bwd.cu`` (adding one to the counters
-  ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` and ``WGRAD_LAUNCHES`` of
-  ``utils.profiling``); for CPU tensors they run ``fused_forward_plain`` /
+  ``csrc/fused_raymarch_bwd.cu`` (whose bf16 kernel A is
+  ``csrc/mlp_bwd_sm90.cuh``), adding one to the counters ``FWD_LAUNCHES`` /
+  ``BWD_LAUNCHES`` and ``WGRAD_LAUNCHES`` of ``utils.profiling``, and a bf16
+  backward to ``BWD_SM90_LAUNCHES``; for CPU tensors they run ``fused_forward_plain`` /
   ``fused_backward_plain``, the same functions in plain PyTorch with the same
   rounding points. Any other device raises; there is no fallback.
 - ``_FusedPass`` is the ``torch.autograd.Function`` joining the two: it takes
@@ -43,10 +44,13 @@ Params = Dict[str, Any]
 
 # the launch counters (``profiling.count``; each wrapper adds one per
 # launch): the forward kernel, the backward's per-ray kernel, and the
-# backward's weight-gradient kernel (followed by its fixed-order reduction)
+# backward's weight-gradient kernel (followed by its fixed-order reduction);
+# of the backward's launches, those of the bf16 kernel A on wgmma
+# (``fused_bwd_kernel_sm90``), which fp32 never takes
 FWD_LAUNCHES = "fused_raymarch_fwd.launches"
 BWD_LAUNCHES = "fused_raymarch_bwd.launches"
 WGRAD_LAUNCHES = "fused_raymarch_wgrad.launches"
+BWD_SM90_LAUNCHES = "fused_raymarch_bwd_sm90.launches"
 
 KERNEL = "fused_raymarch_fwd"
 BWD_KERNEL = "fused_raymarch_bwd"
@@ -91,6 +95,12 @@ class FusedMLP(NamedTuple):
     # memory), encoded once here; else None
     kernel_fwd_ws: Optional[List[torch.Tensor]] = None
     kernel_maps: Optional[Any] = None
+    # bf16 on CUDA, for a packing a backward will use: the reverse sweep's
+    # matrices ``W [K, N]`` (``BWD_MATRICES``) and their tensor maps
+    # (``BWD_MAPS_BYTES``), encoded once here; else None (the backward then
+    # encodes them at its launch)
+    kernel_bwd_ws: Optional[List[torch.Tensor]] = None
+    kernel_bwd_maps: Optional[Any] = None
 
 
 def _pack_mma(w: torch.Tensor, k_pad: int) -> torch.Tensor:
@@ -145,6 +155,37 @@ def _forward_maps(fwd_ws: List[torch.Tensor]):
     return maps
 
 
+# the layers the reverse sweep multiplies by (``flatten_mlp_params`` slots
+# T1, T2, T3, F0H, F1, F2, R0H): their ``W^T`` in ``_layout`` for the fp32
+# and point backwards; for the bf16 fused backward each ``W [K, N]`` as it
+# is, which is K-major for the product ``G_out @ W^T`` over N, 64 columns of
+# N per box and its 256 rows of K in two (``csrc/mlp_bwd_sm90.cuh``); no
+# padding: N is 256 or 128
+BWD_MATRICES = (1, 2, 3, 4, 6, 7, 9)
+BWD_MAPS_BYTES = 7 * 128  # one CUtensorMap per matrix
+
+
+def _reverse_operands(ws: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The bf16 backward's reverse matrices ``W [K, N]`` in ``BWD_MATRICES``
+    order."""
+    return [ws[i].contiguous() for i in BWD_MATRICES]
+
+
+def _reverse_maps(bwd_ws: List[torch.Tensor]):
+    """The tensor maps of the reverse's matrices, encoded on the host by the
+    backward's library (``fused_raymarch_bwd_maps``); raises if the encode
+    fails."""
+    from minimal_nerf_torch.kernels import build
+
+    fn = build.function(BWD_KERNEL, "fused_raymarch_bwd_maps", [ctypes.c_void_p, ctypes.c_void_p])
+    maps = ctypes.create_string_buffer(BWD_MAPS_BYTES)
+    ptrs, _keep = _ptrs(bwd_ws)
+    rc = fn(ptrs, ctypes.cast(maps, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"encoding the backward's tensor maps failed with code {rc}")
+    return maps
+
+
 def _pad_rows(w: torch.Tensor, k_pad: int) -> torch.Tensor:
     out = torch.zeros((k_pad, w.shape[1]), dtype=w.dtype, device=w.device)
     out[: w.shape[0]] = w
@@ -157,10 +198,6 @@ def _layout(w: torch.Tensor, k_pad: int, dtype) -> torch.Tensor:
     if dtype == torch.bfloat16:
         return _pack_mma(w, k_pad)
     return _pad_rows(w, k_pad).contiguous()
-
-
-# the layers whose transposes the reverse sweep multiplies by
-_TRANSPOSED = (1, 2, 3, 4, 6, 7, 9)
 
 
 def _kernel_operands(ws, bs, dtype):
@@ -184,7 +221,7 @@ def _kernel_operands(ws, bs, dtype):
             out.append(w.t().contiguous())
         else:
             out.append(_layout(w, k_pad.get(i, w.shape[0]), dtype))
-    wts = [_layout(ws[i].t(), ws[i].shape[1], dtype) for i in _TRANSPOSED]
+    wts = [_layout(ws[i].t(), ws[i].shape[1], dtype) for i in BWD_MATRICES]
     return out, [b.reshape(-1).contiguous() for b in bs], wts
 
 
@@ -200,9 +237,13 @@ def prepare_fused_mlp(params: Params, compute_dtype=None) -> FusedMLP:
     from minimal_nerf_torch.kernels.raymarch import flatten_mlp_params
 
     dtype = None if compute_dtype == torch.float32 else compute_dtype
+    leaves = tuple(flatten_tree(params))
+    # a packing that a backward will use: the pass is differentiated
+    # (``fused_render_pass``'s test); serving packs none of it
+    backward = torch.is_grad_enabled() and any(t.requires_grad for t in leaves)
     with torch.no_grad():
         ws, bs = flatten_mlp_params(params, dtype)
-        return _prepared(ws, bs, dtype, tuple(flatten_tree(params)))
+        return _prepared(ws, bs, dtype, leaves, backward)
 
 
 def _forward_operands(ws: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -210,16 +251,24 @@ def _forward_operands(ws: List[torch.Tensor]) -> List[torch.Tensor]:
     return [_pack_kmajor(ws[i], FWD_K_PAD.get(i, WIDTH)) for i in FWD_MATRICES]
 
 
-def _prepared(ws, bs, dtype, leaves=()) -> FusedMLP:
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _prepared(ws, bs, dtype, leaves=(), backward: bool = False) -> FusedMLP:
     """The flat weights and biases with the kernels' operands for their
-    device (CUDA only), the bf16 forwards' tensor maps encoded once here."""
-    kws = kbs = kwts = fwd_ws = maps = None
-    if ws[0].device.type == "cuda":
+    device (CUDA only), the bf16 forwards' tensor maps encoded once here,
+    and with ``backward`` the bf16 backward's reverse matrices and maps."""
+    kws = kbs = kwts = fwd_ws = maps = bwd_ws = bwd_maps = None
+    if _on_card(ws[0]):
         kws, kbs, kwts = _kernel_operands(ws, bs, dtype)
         if dtype == torch.bfloat16:
             fwd_ws = _forward_operands(ws)
             maps = _forward_maps(fwd_ws)
-    return FusedMLP(ws, bs, dtype, kws, kbs, kwts, leaves, fwd_ws, maps)
+            if backward:
+                bwd_ws = _reverse_operands(ws)
+                bwd_maps = _reverse_maps(bwd_ws)
+    return FusedMLP(ws, bs, dtype, kws, kbs, kwts, leaves, fwd_ws, maps, bwd_ws, bwd_maps)
 
 
 def _encode(x: torch.Tensor, dim: int, dtype) -> torch.Tensor:
@@ -472,22 +521,34 @@ def _launch_bwd(fm: FusedMLP, o, d, ts, dcolor, dweights, position_dim, directio
     partial = torch.empty((slices, total), dtype=torch.float32, device=dev)
     bias_partial = torch.empty((bias_rows, BIAS_CHANNELS), dtype=torch.float32, device=dev)
 
+    bf16 = fm.dtype == torch.bfloat16
+    maps = _maps_arg(fm, dev)
+    bwd_ws, bwd_maps = fm.kernel_bwd_ws, fm.kernel_bwd_maps
+    if bf16 and bwd_maps is None:  # a packing made for no backward
+        bwd_ws = _reverse_operands(fm.ws)
+        bwd_maps = _reverse_maps(bwd_ws)
+    if bf16 and any(w.device != dev for w in bwd_ws):
+        raise ValueError(f"the backward's tensor maps are not prepared on {dev}")
+
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = build.function(BWD_KERNEL, "fused_raymarch_bwd",
-                        [p, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p, p, p, p])
+                        [p, p, p, p, p, i, i, i, i, i, p, p, p, p, p, p, p, p, p, p, p])
     (w_ptrs, _kw), (b_ptrs, _kb), (wt_ptrs, _kt) = (
         _ptrs(fm.kernel_ws), _ptrs(fm.kernel_bs), _ptrs(fm.kernel_wts))
     with build.on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(o.data_ptr(), d.data_ptr(), ts.data_ptr(), dcolor.data_ptr(),
                 dweights.data_ptr() if dweights is not None else None, n, s, position_dim,
-                direction_dim, int(fm.dtype == torch.bfloat16), w_ptrs, b_ptrs, wt_ptrs,
+                direction_dim, int(bf16), w_ptrs, b_ptrs, wt_ptrs, maps,
+                ctypes.cast(bwd_maps, ctypes.c_void_p) if bf16 else None,
                 scratch.data_ptr(), masks.data_ptr(), partial.data_ptr(),
                 bias_partial.data_ptr(), grads.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{BWD_KERNEL} launch failed with code {rc}")
     profiling.count(BWD_LAUNCHES)
     profiling.count(WGRAD_LAUNCHES)
+    if bf16:
+        profiling.count(BWD_SM90_LAUNCHES)
     return _split_grads(grads, fm)
 
 

@@ -37,23 +37,51 @@ from minimal_nerf_torch.kernels import fused_raymarch as fr
 from minimal_nerf_torch.kernels import raymarch as rm
 from minimal_nerf_torch.models.mlp import init_nerf_mlp
 
-# text substitutions in csrc/, each against the sources as they are
+# text substitutions in csrc/, each against the sources as they are, per
+# kernel: the point backward's kernel A (fused_raymarch_common.cuh's
+# KeepRows and reverse_sweep), the fused backward's bf16 kernel A
+# (mlp_bwd_sm90.cuh), kernel B of both
+_B_KERNELS = ("fused_raymarch_bwd", "raymarch_mlp_bwd")
 BWD_VARIANTS = {
     # kernel A without its scratch stores
-    "no scratch stores": [("      if (r < rows)\n        __stcs(",
-                           "      if (r < 0)\n        __stcs(")],
+    "no scratch stores": {"raymarch_mlp_bwd": [("      if (r < rows)\n        __stcs(",
+                                                "      if (r < 0)\n        __stcs(")]},
     # every layer's stores at its first k-step, as one burst
-    "stores in one burst": [(
+    "stores in one burst": {"raymarch_mlp_bwd": [(
         "const int i0 = kk * PER_THREAD / ksteps, i1 = (kk + 1) * PER_THREAD / ksteps;",
-        "const int i0 = kk == 0 ? 0 : PER_THREAD, i1 = PER_THREAD;")],
+        "const int i0 = kk == 0 ? 0 : PER_THREAD, i1 = PER_THREAD;")]},
     # kernel A without its bias sums
-    "no bias sums": [("reverse_sweep<T, true>", "reverse_sweep<T, false>")],
+    "no bias sums": {"raymarch_mlp_bwd": [("reverse_sweep<T, true>", "reverse_sweep<T, false>")]},
+    # the wgmma kernel A without its scratch stores (its mask words kept;
+    # wrong gradients)
+    "sm90 scratch stores off": {"fused_raymarch_bwd": [(
+        "    if (r < k.rows)\n      __stcs(reinterpret_cast<uint4*>(p.dst",
+        "    if (r < 0)\n      __stcs(reinterpret_cast<uint4*>(p.dst")]},
+    # ... with its scratch stores as plain stores, without the streaming hint
+    "sm90 plain stores": {"fused_raymarch_bwd": [(
+        "      __stcs(reinterpret_cast<uint4*>(p.dst + (long long)r * p.ch + c * KC + j * 8), v);",
+        "      *reinterpret_cast<uint4*>(p.dst + (long long)r * p.ch + c * KC + j * 8) = v;")]},
+    # ... without forming and storing the forward's mask words (wrong gradients)
+    "sm90 mask words off": {"fused_raymarch_bwd": [
+        ("    if (p.w0 >= 0) {\n      uint32_t bits", "    if (p.w0 >= 1 << 20) {\n      uint32_t bits"),
+        ("  if (p.w0 >= 0 && c == p.ch / KC - 1) {", "  if (p.w0 >= 1 << 20 && c == p.ch / KC - 1) {")]},
+    # ... without copying its staged layers out at all (wrong gradients)
+    "sm90 drains off": {"fused_raymarch_bwd": [
+        ("if (j < p.ch / KC) drain_chunk(k, p, j);", "if (j < 0) drain_chunk(k, p, j);"),
+        ("for (int c = 0; c < p.ch / KC; ++c) drain_chunk", "for (int c = 0; c < 0; ++c) drain_chunk")]},
+    # what the weights' traffic costs: the producer releases each stage
+    # without loading it (wrong gradients)
+    "sm90 weight loads off": {"fused_raymarch_bwd": [(
+        "    mbar_expect_tx(bars + 8 * stage, n * KC * 2);\n    for (int h = 0; h < HALVES; ++h)",
+        "    mbar_arrive(bars + 8 * stage);\n    for (int h = 0; h < 0; ++h)")]},
     # kernel B with five stages of 32 points in its ring
-    "kernel B 32-point stages": [("WB_P = 64, WB_STAGES = 3", "WB_P = 32, WB_STAGES = 5")],
+    "kernel B 32-point stages": {k: [("WB_P = 64, WB_STAGES = 3", "WB_P = 32, WB_STAGES = 5")]
+                                 for k in _B_KERNELS},
     # twice as many point slices (a shorter tail of kernel B's last wave)
-    "kernel B 128 slices": [("long long slices = (p + 4095) / 4096;",
-                             "long long slices = (p + 2047) / 2048;"),
-                            ("(slices > 64 ? 64 : slices)", "(slices > 128 ? 128 : slices)")],
+    "kernel B 128 slices": {k: [("long long slices = (p + 4095) / 4096;",
+                                 "long long slices = (p + 2047) / 2048;"),
+                                ("(slices > 64 ? 64 : slices)", "(slices > 128 ? 128 : slices)")]
+                            for k in _B_KERNELS},
 }
 # the bf16 forwards' design (csrc/mlp_fwd_sm90.cuh), per kernel
 FWD_VARIANTS = {
@@ -96,7 +124,8 @@ def build_variants(kernels, parent: Path | None):
     for kernel in kernels:
         plans = {"as built": (build.CSRC, [])}
         if kernel.endswith("bwd"):
-            plans.update({v: (build.CSRC, subs) for v, subs in BWD_VARIANTS.items()})
+            plans.update({v: (build.CSRC, subs[kernel]) for v, subs in BWD_VARIANTS.items()
+                          if kernel in subs})
         else:
             if parent is not None:
                 plans["parent"] = (parent, [])

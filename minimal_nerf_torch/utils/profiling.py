@@ -19,7 +19,9 @@ one tracer:
   Chrome trace's ``ts`` plus its ``baseTimeNanoseconds``. Finished spans
   go to one bounded buffer in memory (``spans()``, ``dropped()``);
 - ``count(name, n)``: always-on counters (``counters()``): the kernel
-  wrappers' launches (``<kernel>.launches``), ``graph.replays``, a
+  wrappers' launches (``<kernel>.launches``; of the fused backward's, the
+  bf16 ones on wgmma also ``fused_raymarch_bwd_sm90.launches``),
+  ``graph.replays``, a
   replayed train step adding the launches its capture counted, and
   ``view.graph_replays``, a replayed view chunk adding them too (the view
   sweep takes its capture's counts back), both through ``CaptureCounts``;

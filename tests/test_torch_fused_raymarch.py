@@ -219,6 +219,53 @@ def test_kmajor_packing_layout():
         assert torch.equal(kws[i], t_fused._pack_mma(ws[i], {5: 64, 10: 32}.get(i, 256)))
 
 
+def test_reverse_packing_layout(monkeypatch):
+    """The bf16 backward's reverse matrices: each is ``W [K, N]`` itself,
+    contiguous bf16, K = 256 rows (two boxes of 128) and N a whole number of
+    64-column boxes, so nothing is padded; walking it as the kernel does,
+    slab by slab of N and box by box of K, gives ``G @ W^T``, the plain
+    backward's product. A packing that a backward will use (grad mode on, a
+    leaf requiring gradients) builds them and their tensor maps once; one
+    for serving builds none: no_grad, leaves without gradients, or fp32."""
+    from minimal_nerf_torch.kernels.raymarch import flatten_mlp_params
+    from minimal_nerf_torch.training.checkpoint import flatten_tree
+
+    _, tp = _mlp(width=256, rgb_width=128)
+    ws, _ = flatten_mlp_params(tp, torch.bfloat16)
+    rev = t_fused._reverse_operands(ws)
+    # T1, T2, T3, F0H, F1, F2, R0H
+    assert [tuple(m.shape) for m in rev] == [(256, 256)] * 6 + [(256, 128)]
+    gen = torch.Generator().manual_seed(0)
+    for m, i in zip(rev, t_fused.BWD_MATRICES):
+        assert m.dtype == torch.bfloat16 and m.is_contiguous() and torch.equal(m, ws[i])
+        k, n = m.shape
+        assert n % 64 == 0 and k == 2 * 128
+        g = torch.randn((9, n), generator=gen).to(torch.bfloat16).float()
+        walked = torch.zeros((9, k))
+        for j in range(n // 64):
+            for h in range(2):
+                box = m[128 * h:128 * (h + 1), 64 * j:64 * (j + 1)].float()  # [n rows, k columns]
+                walked[:, 128 * h:128 * (h + 1)] += g[:, 64 * j:64 * (j + 1)] @ box.t()
+        torch.testing.assert_close(walked, g @ ws[i].float().t(), rtol=1e-5, atol=1e-5)
+
+    made = []
+    monkeypatch.setattr(t_fused, "_on_card", lambda t: True)
+    monkeypatch.setattr(t_fused, "_forward_maps", lambda fwd_ws: "forward maps")
+    monkeypatch.setattr(t_fused, "_reverse_maps", lambda bwd_ws: made.append(bwd_ws) or "maps")
+    served = t_fused.prepare_fused_mlp(tp, torch.bfloat16)
+    assert served.kernel_maps == "forward maps"
+    assert served.kernel_bwd_ws is None and served.kernel_bwd_maps is None and not made
+    for leaf in flatten_tree(tp):
+        leaf.requires_grad_(True)
+    with torch.no_grad():
+        served = t_fused.prepare_fused_mlp(tp, torch.bfloat16)
+    assert served.kernel_bwd_ws is None and served.kernel_bwd_maps is None and not made
+    assert t_fused.prepare_fused_mlp(tp, None).kernel_bwd_maps is None and not made
+    trained = t_fused.prepare_fused_mlp(tp, torch.bfloat16)
+    assert trained.kernel_bwd_maps == "maps" and len(made) == 1
+    assert all(torch.equal(a, b) for a, b in zip(trained.kernel_bwd_ws, rev))
+
+
 def test_unsupported_device_raises():
     _, tp = _mlp()
     fm = t_fused.prepare_fused_mlp(tp)

@@ -164,6 +164,37 @@ def test_bf16_forward_reads_every_matrix(cuda_device, kind, layer):
     assert failed
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("slot", range(7))  # T1, T2, T3, F0H, F1, F2, R0H (BWD_MATRICES)
+def test_bf16_backward_reads_every_reverse_matrix(cuda_device, slot):
+    """With one of the reverse sweep's matrices zeroed (its tensor map
+    encoded anew), the bf16 backward fails the bounds against the plain
+    version of the intact MLP, which the intact kernel meets: each map
+    reaches its product."""
+    fm, o, d, ts, dc, dw = _bwd_case(cuda_device, torch.bfloat16, 64, 192)
+    bwd_ws = fr._reverse_operands(fm.ws)
+    bwd_ws[slot] = torch.zeros_like(bwd_ws[slot])
+    bad = fm._replace(kernel_bwd_ws=bwd_ws, kernel_bwd_maps=fr._reverse_maps(bwd_ws))
+    good = fr.fused_backward(fm, o, d, ts, dc, dw)
+    broken = fr.fused_backward(bad, o, d, ts, dc, dw)
+    pw, pb = fr.fused_backward_plain(fm, o, d, ts, dc, dw)
+    torch.cuda.synchronize()
+    assert _bwd_ok(_bwd_errors(good[0] + good[1], pw + pb), BWD_TOL[torch.bfloat16])
+    assert not _bwd_ok(_bwd_errors(broken[0] + broken[1], pw + pb), BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_backward_counts_sm90_launches(cuda_device):
+    """A bf16 backward runs kernel A on wgmma and counts it in
+    ``BWD_SM90_LAUNCHES``; an fp32 one runs the FMA kernel and does not."""
+    for dtype, want in ((None, 0), (torch.bfloat16, 1)):
+        fm, o, d, ts, dc, dw = _bwd_case(cuda_device, dtype, 37, 64)
+        profiling.reset()
+        fr.fused_backward(fm, o, d, ts, dc, dw)
+        torch.cuda.synchronize()
+        assert _counts(fr.BWD_LAUNCHES, fr.WGRAD_LAUNCHES, fr.BWD_SM90_LAUNCHES) == (1, 1, want)
+
+
 # ---------------------------------------------------------------- backward
 
 # the backward kernel against fused_backward_plain, per gradient leaf:
@@ -211,16 +242,31 @@ def _bwd_case(dev, dtype, n, s, seed=0):
     return fm, o, d, ts, dc, dw
 
 
+# (n, s, with_dw) in fp32 and bf16, then in bf16 alone (the wgmma kernel A's
+# shapes; the fp32 bounds hold at 4097 x 64, LARGE_FP32_TOL)
+BWD_CASES = [(37, 64, True), (63, 192, False), (64, 192, True), (5, 250, True), (3, 1, False),
+             (1, 1, True), (4097, 64, False), (131, 250, True)]
+BWD_BF16_CASES = [(4096, 16, False), (4096, 80, True), (1100, 16, True), (300, 100, False)]
+
+
+def _bwd_param(dtype, n, s, with_dw):
+    return pytest.param(dtype, n, s, with_dw,
+                        id=f"{n}-{s}-{with_dw}-{'None' if dtype is None else 'dtype1'}")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
-@pytest.mark.parametrize("n,s,with_dw", [(37, 64, True), (63, 192, False), (64, 192, True),
-                                         (5, 250, True), (3, 1, False), (1, 1, True),
-                                         (4097, 64, False), (131, 250, True)])
+@pytest.mark.parametrize("dtype,n,s,with_dw",
+                         [_bwd_param(dt, *case) for case in BWD_CASES
+                          for dt in (None, torch.bfloat16)]
+                         + [_bwd_param(torch.bfloat16, *case) for case in BWD_BF16_CASES])
 def test_backward_kernel_matches_plain(cuda_device, dtype, n, s, with_dw):
     """Ragged last CTA of rays (37, 63, 4097, 131 rays), fewer points than
     one slice of kernel B (S=1), several slices with a ragged last one and a
     ragged last 64-point stage (4097 x 64), S=250 (4 rays, 1,000 rows per
-    CTA)."""
+    CTA); the fast recipe's passes (4096 x 16 and x 80: 512 groups of rays,
+    more than the card's SMs, each of a persistent bf16 CTA's several),
+    138 groups with a ragged last one (1100 x 16), and 800 rows per group,
+    a multiple of neither 64 nor 128 (300 x 100, 8 rays a group)."""
     fm, o, d, ts, dc, dw = _bwd_case(cuda_device, dtype, n, s)
     dw = dw if with_dw else None
     kw, kb = fr.fused_backward(fm, o, d, ts, dc, dw)
