@@ -7,12 +7,13 @@
     python3 chip_smoke.py --trajectory
     python3 chip_smoke.py --fault2
     python3 chip_smoke.py --hash-encode
+    python3 chip_smoke.py --vm-sample
 
 Builds every kernel of the serving and training paths from the sources in
 the checkout (the fused ray-march forward and backward, the point-level MLP
 forward and backward of the ``--kernel pallas`` path, the occupancy grid's
 probe and the fused occupancy sampler, the hash encoding's forward and
-backward), holds each against its plain
+backward, TensoRF's VM sampling forward and backward), holds each against its plain
 PyTorch version at the main paths' shapes (on weights whose outputs depend
 on the input, with bounds shown to reject faulty versions; the probe's bits
 and the sampler's weights, times and samples must be identical), then:
@@ -25,6 +26,15 @@ and the sampler's weights, times and samples must be identical), then:
   by level from its counted launch, and counts their launches in one
   replayed call of that program (the counters reset just before it) and in
   a profiler trace;
+- ``[vm-sample]`` holds TensoRF's VM sampling kernels against their plain
+  versions on the points and output gradients of one step of the
+  ``train.tensorf`` cell's program (its coarse and fine launches, 327,680
+  points at N 300, 16 + 48 components a mode; the forward and its
+  density-only launch on the first grid update's points bit for bit, the
+  backward within the atomics' tolerance, planted wrong planes rejected),
+  times them beside the plain versions and the bytes' bound, and counts
+  their launches in one replayed call of that program and in a profiler
+  trace;
 - ``[main]`` renders two 800x800 orbit frames from a full-width checkpoint
   written by the port and checks that the forward kernel carried the render;
 - ``[reference]`` holds a small render on the card against the CPU;
@@ -107,8 +117,9 @@ unpacked inside the repo, in turns, it compares the two in one call.
 ``--trajectory`` trains the multiframe arm of
 ``experiments/r5-parity/trajectory_parity.py`` and holds its PSNR against
 the recorded JAX runs; ``--fault2`` decides ROADMAP Queue 3 fault 2 with a
-paired test over 8 seeds at 1,000 steps; ``--hash-encode`` runs the
-``[hash-encode]`` phase alone and prints its kernels' line.
+paired test over 8 seeds at 1,000 steps; ``--hash-encode`` and
+``--vm-sample`` run the ``[hash-encode]`` or ``[vm-sample]`` phase alone and
+print its kernels' line.
 
 Prints one line per phase, the card's name and power limit, a JSON line of
 kernel timings, and as its last line ``{"ok": true, "device": {...}}``.
@@ -134,7 +145,8 @@ from nerfbench import counts as model_counts
 
 KERNELS = ["fused_raymarch_fwd", "fused_raymarch_bwd", "raymarch_mlp_fwd", "raymarch_mlp_bwd",
            "occupancy_probe", "occupancy_sampler"]
-HASH_KERNELS = ["hash_encode_fwd", "hash_encode_bwd"]  # the ngp field's (no bench path runs them)
+HASH_KERNELS = ["hash_encode_fwd", "hash_encode_bwd"]  # the ngp field's
+VM_KERNELS = ["vm_sample_fwd", "vm_sample_bwd"]        # the tensorf field's
 RAYS = 4096
 SAMPLES = (64, 192)       # coarse pass, then the 64 + 128 sorted union
 HW = 800                  # frame height and width
@@ -1107,19 +1119,20 @@ HASH_FWD_RTOL, HASH_BWD_RTOL = 1e-6, 1e-5
 NGP_CELL, NGP_SEED = "train.ngp", 3_000_000_019
 
 
-def ngp_program(dev):
-    """The ``train.ngp`` cell's program as the benchmark builds it
-    (``nerfbench.fields.ngp``): its configuration, traffic, scene, grid and
-    weights from ``NGP_SEED``, and ``(step, state)`` of its train step."""
+def cell_program(dev, name: str, seed: int):
+    """A train cell's program as the benchmark builds it (the field module
+    its configuration names, ``nerfbench.fields.<field>``): its
+    configuration, traffic, scene, grid and weights from ``seed``, and
+    ``(step, state)`` of its train step."""
     from nerfbench import spec as S
-    from nerfbench.fields import ngp as F
     from nerfbench.traffic import generate as gen
 
-    cell = S.load_cell(NGP_CELL)
+    cell = S.load_cell(name)
     cfg, traffic = cell["config"], cell["traffic"]
-    images, poses, focal = gen.scene(NGP_SEED, traffic, dev)
-    grid = gen.grid(NGP_SEED, cfg["occupancy"], traffic["grid"], dev)
-    params = F.weights(NGP_SEED, cfg, traffic, dev)
+    F = S.field(cfg)
+    images, poses, focal = gen.scene(seed, traffic, dev)
+    grid = gen.grid(seed, cfg["occupancy"], traffic["grid"], dev)
+    params = F.weights(seed, cfg, traffic, dev)
     step, state = F.train_program(cfg, traffic, focal, params, dev)
     return cfg, traffic, images, poses, grid, params, step, state
 
@@ -1143,7 +1156,8 @@ def phase_hash_encode(dev, report):
     from minimal_nerf_torch.utils import profiling
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, traffic, images, poses, grid, params, step, state = ngp_program(dev)
+    cfg, traffic, images, poses, grid, params, step, state = cell_program(dev, NGP_CELL,
+                                                                         NGP_SEED)
     start, spc = traffic["start_step"], cfg["train"]["steps_per_call"]
     every = cfg["occupancy"]["update_every"]
     # the first (eager) step's launches: its coarse and fine passes'
@@ -1266,6 +1280,172 @@ def phase_hash_encode(dev, report):
     if not ok_all:
         raise AssertionError("the hash encoding's kernels disagree with their plain versions "
                              "or did not carry the train.ngp call")
+
+
+# TensoRF's VM sampling kernels against their plain versions (as
+# tests/test_torch_tensorf_cuda.py): the forward does the plain version's
+# operations in its order with no FMA, so its outputs equal the plain
+# version's bit for bit; the backward's float4 atomics add in an order that
+# changes from run to run, so each factor entry's gradient is held within
+# VM_BWD_RTOL of the sum of its terms' magnitudes, and an entry no term
+# reaches stays 0
+VM_BWD_RTOL = 1e-5
+TENSORF_CELL, TENSORF_SEED = "train.tensorf", 3_260_002_101
+
+
+def vm_bwd_errors(got, want, scale):
+    """(max |k - p| / the entry's sum of magnitudes over the four factors,
+    within ``VM_BWD_RTOL`` with no entry touched that no term reaches)."""
+    err = max(float(((a - b).abs() / s.clamp_min(1e-30)).max())
+              for a, b, s in zip(got, want, scale))
+    untouched = all(not bool(a[s == 0].any()) for a, s in zip(got, scale))
+    return err, err <= VM_BWD_RTOL and untouched
+
+
+def vm_equal(got, want):
+    """Both outputs (``f_sigma``, the products or None) equal bit for bit."""
+    return torch.equal(got[0], want[0]) and (
+        got[1] is None and want[1] is None or torch.equal(got[1], want[1]))
+
+
+def phase_vm_sample(dev, report):
+    from minimal_nerf_torch.kernels import vm_sample as vm
+    from minimal_nerf_torch.utils import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, traffic, images, poses, grid, params, step, state = cell_program(dev, TENSORF_CELL,
+                                                                         TENSORF_SEED)
+    start, spc = traffic["start_step"], cfg["train"]["steps_per_call"]
+    every, bound = cfg["occupancy"]["update_every"], cfg["tensorf"]["bound"]
+    per_point = 12 + 4 * (1 + 3 * vm.KERNEL_COMPONENTS[1])  # fields/tensorf.py's 592 B
+    # the first (eager) step's launches: its coarse and fine passes' points,
+    # then the outputs' gradients; the first grid update's points (the
+    # density-only launch)
+    seen = {"fwd": [], "alone": [], "bwd": []}
+
+    def keep_fwd(forward):
+        def kept(x, factors, bound, with_app=True):
+            kind = "fwd" if with_app else "alone"
+            if len(seen[kind]) < (2 if with_app else 1):
+                seen[kind].append(x.clone())
+            return forward(x, factors, bound, with_app)
+        return kept
+
+    def keep_bwd(backward):
+        def kept(x, factors, bound, g_sigma, g_prods):
+            if len(seen["bwd"]) < 2:
+                seen["bwd"].append((x.clone(), g_sigma.float().clone(),
+                                    g_prods.float().clone()))
+            return backward(x, factors, bound, g_sigma, g_prods)
+        return kept
+
+    with wrapped(vm, "forward", keep_fwd), wrapped(vm, "backward", keep_bwd):
+        params, state, grid, _ = step(params, state, grid, images, poses, start, TENSORF_SEED)
+    torch.cuda.synchronize()
+    factors = {k: params[k].detach() for k in vm.KEYS}
+    # the planted faults: one appearance plane, one density plane zeroed
+    bad_app = dict(factors, app_planes=factors["app_planes"].clone())
+    bad_app["app_planes"][0] = 0
+    bad_density = dict(factors, density_planes=factors["density_planes"].clone())
+    bad_density["density_planes"][0] = 0
+    ok_all = True
+    fwd, bwd = [], []
+    for x in seen["fwd"]:
+        got, want = vm.forward(x, factors, bound), vm.sample_plain(x, factors, bound)
+        alone = vm.forward(x, factors, bound, with_app=False)
+        equal = vm_equal(got, want) and vm_equal(alone, (want[0], None))
+        outside = int((~torch.isfinite(want[0])).sum())
+        missed = [name for name, f in (("an appearance plane zeroed", bad_app),
+                                       ("a density plane zeroed", bad_density))
+                  if vm_equal(got, vm.sample_plain(x, f, bound))]
+        ms = cuda_ms(lambda: vm.forward(x, factors, bound))
+        plain_ms = cuda_ms(lambda: vm.sample_plain(x, factors, bound))
+        b_ms = 1e3 * x.shape[0] * per_point / HBM_BYTES_PER_S
+        ok_all &= equal and not missed
+        print(f"[vm-sample] forward P={x.shape[0]} N={factors['app_planes'].shape[1]}: f_sigma "
+              f"and the {got[1].shape[1]} products equal to sample_plain bit for bit: {equal} "
+              f"(the density-only launch too), outside the box {outside}; "
+              f"faulty plain versions passed: {missed or 'none'}; ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms=null (no single PyTorch call computes it) "
+              f"bound_ms={b_ms:.5f} (bytes: {per_point} a point, positions read, f_sigma and "
+              f"products written), {100 * b_ms / ms:.2f}% of the bound's rate "
+              f"{'PASS' if equal and not missed else 'FAIL'}", flush=True)
+        fwd.append(dict(err=0.0 if equal else float("inf"), ms=ms, plain_ms=plain_ms,
+                        library_ms=None, bound_ms=b_ms, bound_by="bytes"))
+    for x in seen["alone"]:
+        got = vm.forward(x, factors, bound, with_app=False)
+        equal = vm_equal(got, vm.sample_plain(x, factors, bound, with_app=False))
+        missed = vm_equal(got, vm.sample_plain(x, bad_density, bound, with_app=False))
+        ms = cuda_ms(lambda: vm.forward(x, factors, bound, with_app=False))
+        b_ms = 1e3 * x.shape[0] * 16 / HBM_BYTES_PER_S
+        ok_all &= equal and not missed
+        print(f"[vm-sample] density-only forward (the grid update's P={x.shape[0]} points): "
+              f"equal to sample_plain bit for bit: {equal}; a density plane zeroed passed: "
+              f"{missed}; ms={ms:.4f} bound_ms={b_ms:.5f} (16 B a point) "
+              f"{'PASS' if equal and not missed else 'FAIL'}", flush=True)
+    for x, g_s, g_p in seen["bwd"]:
+        got = vm.backward(x, factors, bound, g_s, g_p)
+        want = vm.backward_plain(x, factors, bound, g_s, g_p)
+        scale = vm.backward_plain(x, {k: t.abs() for k, t in factors.items()}, bound,
+                                  g_s.abs(), g_p.abs())
+        err, ok = vm_bwd_errors(got, want, scale)
+        again = vm_bwd_errors(vm.backward(x, factors, bound, g_s, g_p), want, scale)[1]
+        missed = [name for name, p in (
+            ("an appearance plane wrong (zeroed)", vm.backward_plain(x, bad_app, bound, g_s, g_p)),
+            ("gradients x (1 + 1e-4)", tuple(t * (1 + 1e-4) for t in want)))
+            if vm_bwd_errors(got, p, scale)[1]]
+        ms = cuda_ms(lambda: vm.backward(x, factors, bound, g_s, g_p))
+        plain_ms = cuda_ms(lambda: vm.backward_plain(x, factors, bound, g_s, g_p))
+        b_ms = 1e3 * x.shape[0] * per_point / HBM_BYTES_PER_S
+        ok_b = ok and again and not missed
+        ok_all &= ok_b
+        print(f"[vm-sample] backward P={x.shape[0]}: max |k - p| / sum |terms| = {err:.3e} (tol "
+              f"{VM_BWD_RTOL}), touched {sum(int((w != 0).sum()) for w in want)} of "
+              f"{sum(w.numel() for w in want)}, a second launch within it too: {again}; faulty "
+              f"plain versions passed: {missed or 'none'}; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms=null (no single PyTorch call computes it) bound_ms={b_ms:.5f} (bytes: "
+              f"{per_point} a point, positions and the outputs' gradients read), "
+              f"{100 * b_ms / ms:.2f}% of the bound's rate {'PASS' if ok_b else 'FAIL'}",
+              flush=True)
+        bwd.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                        bound_by="bytes"))
+    ok_all &= len(fwd) == 2 and len(seen["alone"]) == 1 and len(bwd) == 2
+    # a whole call of the program: the first call captured its step, so this
+    # one replays it; the counters, set to 0 just before, count each
+    # replay's launches again, and each grid update's density-only launch once
+    first = start + spc
+    updates = sum(s % every == 0 for s in range(first, first + spc))
+    profiling.reset()
+    params, state, grid, _ = step(params, state, grid, images, poses, first, TENSORF_SEED)
+    torch.cuda.synchronize()
+    launches = (profiling.counter(vm.LAUNCHES_FWD), profiling.counter(vm.LAUNCHES_BWD))
+    replays = profiling.counter("graph.replays")
+    want_l = (2 * spc + updates, 2 * spc)
+    # the kernels a replayed call ran, by name in a profiler trace (one
+    # further call outside it first)
+    third = first + spc
+    starts = iter((third, third + spc))
+    spans = device_spans(lambda: step(params, state, grid, images, poses, next(starts),
+                                      TENSORF_SEED), 1)
+    traced = tuple(sum(k in name for name, _ in spans) for k in VM_KERNELS)
+    want_t = (2 * spc + sum(s % every == 0 for s in range(third + spc, third + 2 * spc)),
+              2 * spc)
+    in_step = [sum(us for name, us in spans if k in name) / 1e3 / spc for k in VM_KERNELS]
+    ok_l = launches == want_l and replays == spc and traced == want_t
+    ok_all &= ok_l
+    print(f"[vm-sample] one replayed call of {TENSORF_CELL}'s program ({spc} steps from "
+          f"{first}, {updates} grid update(s)): launches fwd={launches[0]} bwd={launches[1]} "
+          f"(want {want_l[0]} = 2 passes x {spc} steps + {updates}, {want_l[1]}), graph "
+          f"replays {replays} (want {spc}); traced call: fwd={traced[0]} bwd={traced[1]} "
+          f"(want {want_t[0]}, {want_t[1]}), device ms per step: vm_sample_fwd "
+          f"{in_step[0]:.4f}, vm_sample_bwd {in_step[1]:.4f} {'PASS' if ok_l else 'FAIL'}",
+          flush=True)
+    report["vm_fwd"], report["vm_bwd"], report["vm_launches"] = fwd, bwd, launches
+    del step, state, params, grid, images, poses, seen, factors, bad_app, bad_density
+    torch.cuda.empty_cache()
+    if not ok_all:
+        raise AssertionError("the VM sampling kernels disagree with their plain versions or "
+                             "did not carry the train.tensorf call")
 
 
 def phase_main_path(dev, tmp: Path):
@@ -3962,6 +4142,17 @@ def hash_entries(report):
             entry("hash_encode_bwd", None, report["hash_bwd"], bwd)]
 
 
+def vm_entries(report):
+    """The VM sampling kernels' entries: they replace no TPU kernel (the JAX
+    package has no TensoRF); their launches are those of one replayed call
+    of ``train.tensorf``'s program; ``max_abs_err`` is 0 for outputs equal
+    bit for bit (the forward) and relative to each entry's sum of
+    magnitudes (the backward)."""
+    fwd, bwd = report["vm_launches"]
+    return [entry("vm_sample_fwd", None, report["vm_fwd"], fwd),
+            entry("vm_sample_bwd", None, report["vm_bwd"], bwd)]
+
+
 def device_info():
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
@@ -3998,10 +4189,19 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": hash_entries(report)}))
         print(json.dumps({"ok": True, "device": device_info()}))
         return 0
+    if argv[:1] == ["--vm-sample"]:
+        build.build_all(VM_KERNELS)
+        report = {}
+        phase_vm_sample(dev, report)
+        print(card)
+        print(json.dumps({"kernels": vm_entries(report)}))
+        print(json.dumps({"ok": True, "device": device_info()}))
+        return 0
 
     t0 = time.perf_counter()
-    build.build_all(KERNELS + HASH_KERNELS)
-    print(f"[build] {KERNELS + HASH_KERNELS} in {time.perf_counter() - t0:.1f} s", flush=True)
+    build.build_all(KERNELS + HASH_KERNELS + VM_KERNELS)
+    print(f"[build] {KERNELS + HASH_KERNELS + VM_KERNELS} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
             if "Compiling entry function" in line:
@@ -4018,6 +4218,7 @@ def main(argv=None) -> int:
     phase_kernel_occ(dev, report)
     phase_kernel_occ_sampler(dev, report)
     phase_hash_encode(dev, report)
+    phase_vm_sample(dev, report)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = phase_main_path(dev, Path(tmp))
         phase_reference(dev, ckpt)
@@ -4068,7 +4269,7 @@ def main(argv=None) -> int:
         # launches in the 100 occupancy steps (one per step)
         entry("occupancy_sampler", "minimal_nerf_tpu/kernels/occupancy_probe.py:44",
               [report["occ_sampler"]], occ_train["counts"]["sampler"]),
-    ] + hash_entries(report)
+    ] + hash_entries(report) + vm_entries(report)
     # train single --kernel pallas's own run (its counts set to 0 just before)
     print("[single] launches of train single --kernel pallas: " + json.dumps(
         {"raymarch_mlp_fwd": single["launched"][2], "raymarch_mlp_bwd": single["launched"][3]}))

@@ -8,8 +8,10 @@ checkpoint's layout), ``header()`` (its entry in a checkpoint's ``extra``),
 ``hooks()`` (the render hooks ``(mlp_apply, render_fn)``), ``adam`` and
 ``adam_options(params)`` (``training.loop.adam_apply``'s keywords), ``lr``
 (learning rates replacing the ``TrainConfig``'s), ``mode`` (the training
-mode of its tree) and ``data_parallel``. The fields: the NeRF MLPs
-(``NeRFField``) and Instant-NGP's (``models.ngp.NGPField``).
+mode of its tree) and ``data_parallel``; a field with an L1 term also has
+``l1_weight(count)``, its weight at an Adam update. The fields: the NeRF
+MLPs (``NeRFField``), Instant-NGP's (``models.ngp.NGPField``) and
+TensoRF's (``models.tensorf.TensoRFField``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from minimal_nerf_torch.models.mlp import init_nerf_mlp, nerf_mlp_apply, nerf_mlp_shapes
 from minimal_nerf_torch.models.nerf import NeRFConfig, init_nerf_network, render_rays
 from minimal_nerf_torch.models.ngp import FIELD as NGP, NGPConfig, NGPField
+from minimal_nerf_torch.models.tensorf import FIELD as TENSORF, TensoRFConfig, TensoRFField
 
 Params = Dict[str, Any]
 
@@ -139,15 +142,19 @@ class NeRFField:
 
 
 def make_field(name: str, nerf_cfg: NeRFConfig, kernel: str = "fused", device="cuda",
-               mode: str = "full", ngp: Optional[Dict[str, Any]] = None):
+               mode: str = "full", ngp: Optional[Dict[str, Any]] = None,
+               tensorf: Optional[Dict[str, Any]] = None):
     """The field ``name`` (``--field``, a checkpoint's) under ``kernel``:
-    the NeRF MLPs of ``nerf_cfg``, or Instant-NGP's of the ``NGPConfig``
-    fields in ``ngp``, encoding through the CUDA kernels unless ``"xla"``."""
+    the NeRF MLPs of ``nerf_cfg``, Instant-NGP's of the ``NGPConfig``
+    fields in ``ngp`` or TensoRF's of the ``TensoRFConfig`` fields in
+    ``tensorf``, the last two through their CUDA kernels unless ``"xla"``."""
     kernel = resolve_kernel(kernel, device)
     if name == NeRFField.name:
         return NeRFField(nerf_cfg, kernel, mode)
     if name == NGP:
         return NGPField(NGPConfig.from_dict(ngp or {}), kernels=kernel != "xla")
+    if name == TENSORF:
+        return TensoRFField(TensoRFConfig.from_dict(tensorf or {}), kernels=kernel != "xla")
     raise ValueError(f"unknown field {name!r}")
 
 
@@ -157,7 +164,8 @@ def checkpoint_field(header: Dict[str, Any], kernel: str = "fused"):
     extra = header.get("extra") or {}
     return make_field(extra.get("field", NeRFField.name),
                       NeRFConfig.from_dict(header.get("nerf_config", {})), kernel,
-                      mode=checkpoint_mode(header), ngp=extra.get(NGP))
+                      mode=checkpoint_mode(header), ngp=extra.get(NGP),
+                      tensorf=extra.get(TENSORF))
 
 
 def default_field(field, nerf_cfg: NeRFConfig, kernel: str = "fused", device="cuda",

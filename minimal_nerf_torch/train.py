@@ -12,8 +12,13 @@ from the previous one's final state in memory), ``--finetune-steps``, the
 occupancy flags, and ``--field ngp``: Instant-NGP's hash-grid field
 (``models/ngp.py``, L 16, F 2, T 2^19) in both passes in place of the
 coarse and fine MLPs, its encoding through the CUDA kernels unless
-``--kernel xla``, at its own learning rate (1e-2 decaying to 1e-3); one
-device only (``--data-parallel`` above 1 and ``--multihost`` raise). ``single``: one MLP on the coarse-only render at ``-c``
+``--kernel xla``, at its own learning rate (1e-2 decaying to 1e-3); or
+``--field tensorf``: TensoRF's VM field (``models/tensorf.py``, 300^3,
+16 + 48 components a mode, the box [-1.5, 1.5]^3) likewise, through its
+sampling kernels, at TensoRF's learning rates (0.02 on the factors, 1e-3
+on the basis and the MLP, decaying to a tenth over 300 epochs) and L1 term;
+either on one device only (``--data-parallel`` above 1 and ``--multihost``
+raise). ``single``: one MLP on the coarse-only render at ``-c``
 samples (``Trainer(mode="single")``, no crop warmup); ``--kernel pallas``
 runs its MLP through the point kernels, any other choice through the plain
 MLP, as in JAX. ``simple``: the image MLP overfit to one photo
@@ -130,9 +135,10 @@ def build_parser() -> argparse.ArgumentParser:
                              default="reference",
                              help="in-bin jitter (reference parity) vs linear CDF "
                                   "interpolation")
-    full_parser.add_argument("--field", choices=["nerf", "ngp"], default="nerf",
+    full_parser.add_argument("--field", choices=["nerf", "ngp", "tensorf"], default="nerf",
                              help="the radiance field: the coarse and fine NeRF MLPs, or "
-                                  "Instant-NGP's hash-grid field for both passes")
+                                  "Instant-NGP's hash-grid field or TensoRF's VM field for "
+                                  "both passes")
     full_parser.add_argument("--fast", action="store_true",
                              help="the fast recipe in one flag: --occupancy -c 16 -f 48 "
                                   "--steps-per-call 20; explicitly passed values win")

@@ -115,21 +115,25 @@ def adam_init(params: Params) -> Dict[str, Any]:
     return {"count": 0, "mu": map_params(zeros, params), "nu": map_params(zeros, params)}
 
 
-def adam_scalars(lr, count: int, b1: float = 0.9, b2: float = 0.999) -> torch.Tensor:
+def adam_scalars(lr, count: int, b1: float = 0.9, b2: float = 0.999,
+                 l1: Optional[float] = None) -> torch.Tensor:
     """The step-dependent scalars of one Adam update, an fp32 CPU tensor
     ``[-lr, bc1, bc2, 1/bc1, 1/bc2]``: the bias corrections ``1 - b^count``
     at the incremented ``count`` as optax computes them in fp32, and their
-    fp32 reciprocals."""
+    fp32 reciprocals; with ``l1`` (a field's L1 weight at this update) a
+    sixth entry, ``l1``."""
     f32 = lambda v: torch.as_tensor(v, dtype=torch.float32)  # noqa: E731
     bc1, bc2 = 1 - f32(b1) ** count, 1 - f32(b2) ** count
     one = f32(1.0)
-    return torch.stack([-f32(lr), bc1, bc2, one / bc1, one / bc2])
+    return torch.stack([-f32(lr), bc1, bc2, one / bc1, one / bc2]
+                       + ([] if l1 is None else [f32(l1)]))
 
 
 @torch.no_grad()
 def adam_apply(params: Params, grads: Params, state: Dict[str, Any], scalars: torch.Tensor,
                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, l2: Optional[Params] = None,
-               sparse: Optional[Params] = None) -> Dict[str, Any]:
+               sparse: Optional[Params] = None, lr_scale: Optional[Params] = None,
+               l1: Optional[Params] = None) -> Dict[str, Any]:
     """One ``optax.adam`` step on the ``adam_scalars`` of this update, a
     tensor on the parameters' device (no host value enters the update):
     moments updated, bias-corrected, ``p -= lr * mu_hat / (sqrt(nu_hat) +
@@ -140,34 +144,46 @@ def adam_apply(params: Params, grads: Params, state: Dict[str, Any], scalars: to
     gradient first; a leaf marked in ``sparse`` (bools in the layout) leaves
     every element whose gradient is exactly 0 as it is, value and moments
     (Instant-NGP's hash table, ``models/ngp.py``; in the span
-    ``nerf.ngp.table_adam``). Without them the update is optax's.
+    ``nerf.ngp.table_adam``). ``lr_scale`` (floats in the layout) scales a
+    leaf's learning rate; ``l1`` (floats in the layout) adds ``w * l1 *
+    sign(p)`` to a leaf's gradient, ``w`` the sixth of the ``scalars``
+    (TensoRF's L1 term, ``models/tensorf.py``). Without them the update is
+    optax's, and a leaf at scale 1 with no L1 term is updated as without
+    them, bit for bit.
 
     The bias corrections divide on the CPU and multiply by their reciprocals
     on a CUDA device: torch divides a CUDA tensor by a Python float as a
     product with the float's fp32 reciprocal, and the update stays the one
     the corrections gave as Python floats, bit for bit, on either device.
     """
-    neg_lr, bc1, bc2, inv1, inv2 = scalars.unbind(0)
+    neg_lr, bc1, bc2, inv1, inv2, *l1_weight = scalars.unbind(0)
     on_card = scalars.device.type == "cuda"
     leaves = flatten_tree(params)
     decays = flatten_tree(l2) if l2 is not None else [0.0] * len(leaves)
     skips = flatten_tree(sparse) if sparse is not None else [False] * len(leaves)
-    for p, g, m, v, decay, skip in zip(leaves, flatten_tree(grads), flatten_tree(state["mu"]),
-                                       flatten_tree(state["nu"]), decays, skips):
+    scales = flatten_tree(lr_scale) if lr_scale is not None else [1.0] * len(leaves)
+    l1s = flatten_tree(l1) if l1 is not None else [0.0] * len(leaves)
+    for p, g, m, v, decay, skip, scale, l1c in zip(
+            leaves, flatten_tree(grads), flatten_tree(state["mu"]), flatten_tree(state["nu"]),
+            decays, skips, scales, l1s):
         if decay:
             g = g + decay * p
+        if l1c:
+            g = g + (l1_weight[0] * l1c) * torch.sign(p)
+        step_lr = neg_lr if scale == 1.0 else neg_lr * scale
         if skip:
             with profiling.span("nerf.ngp.table_adam"):
                 touched = g != 0
                 m.copy_(torch.where(touched, (1 - b1) * g + b1 * m, m))
                 v.copy_(torch.where(touched, (1 - b2) * (g * g) + b2 * v, v))
                 m_hat, v_hat = (m * inv1, v * inv2) if on_card else (m / bc1, v / bc2)
-                p.copy_(torch.where(touched, p + neg_lr * (m_hat / (torch.sqrt(v_hat) + eps)), p))
+                p.copy_(torch.where(touched, p + step_lr * (m_hat / (torch.sqrt(v_hat) + eps)),
+                                    p))
             continue
         m.copy_((1 - b1) * g + b1 * m)
         v.copy_((1 - b2) * (g * g) + b2 * v)
         m_hat, v_hat = (m * inv1, v * inv2) if on_card else (m / bc1, v / bc2)
-        p.add_(neg_lr * (m_hat / (torch.sqrt(v_hat) + eps)))
+        p.add_(step_lr * (m_hat / (torch.sqrt(v_hat) + eps)))
     return dict(state, count=state["count"] + 1)
 
 
@@ -357,7 +373,8 @@ def pack_step_grid(occupancy_cfg, grid: torch.Tensor, force_all):
 def draw_step_inputs(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStatic,
                      step: int, count: int, seed: int, device,
                      occupancy_cfg=None, mode: str = "full",
-                     betas: Tuple[float, ...] = ()) -> Dict[str, Any]:
+                     betas: Tuple[float, ...] = (),
+                     l1_weight: Optional[Callable[[int], float]] = None) -> Dict[str, Any]:
     """Every random draw and host decision of train step ``step``, whose
     Adam update is the ``count + 1``-th, from the generators of ``(seed,
     step)`` in the order the render consumes them.
@@ -365,7 +382,8 @@ def draw_step_inputs(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: Scene
     Host values: ``frame`` (the epoch permutation's entry), ``force_all``
     (the occupancy warmup), ``adam`` (``adam_scalars`` at the schedule's LR
     of ``count``; ``betas``, a field's ``(b1, b2)``, in place of its
-    defaults) and ``lr`` (the metric, the schedule at ``step``, an fp32 CPU
+    defaults; with ``l1_weight``, a field's, its weight at ``count`` too)
+    and ``lr`` (the metric, the schedule at ``step``, an fp32 CPU
     scalar). On ``device``: the pixel coordinates ``xs``, ``ys`` (center
     crop while ``epoch < cropping_epochs``) and ``uniforms``, the render's
     draws: ``"coarse"`` (``[N, Sc]``, or under occupancy the sampler's ``(eps
@@ -384,7 +402,8 @@ def draw_step_inputs(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: Scene
                                     occupancy_cfg, mode)
     warm = occupancy_cfg is not None and step < occupancy_cfg.warmup_steps
     return {"frame": frame, "force_all": warm,
-            "adam": adam_scalars(lr_sched(count), count + 1, *betas),
+            "adam": adam_scalars(lr_sched(count), count + 1, *betas,
+                                 l1=None if l1_weight is None else l1_weight(count)),
             "lr": lr_sched(step), "xs": xs, "ys": ys, "uniforms": uniforms}
 
 
@@ -392,8 +411,8 @@ def inputs_on_device(draws: List[Dict[str, Any]], device) -> List[Dict[str, Any]
     """``draw_step_inputs`` of one or more steps with their host values on
     ``device``, each kind in one host-to-device copy (from pinned memory,
     not waited for, on a CUDA device): per step ``frame [1]`` int64,
-    ``force_all`` bool and ``adam [5]`` fp32, beside the draws' device
-    tensors and the ``lr`` metric."""
+    ``force_all`` bool and ``adam [5]`` fp32 (``[6]`` with a field's L1
+    weight), beside the draws' device tensors and the ``lr`` metric."""
     dev = torch.device(device)
     host = (torch.tensor([d["frame"] for d in draws], dtype=torch.int64),
             torch.tensor([bool(d["force_all"]) for d in draws]),
@@ -453,7 +472,8 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
     gradients and metrics over the ranks before Adam. The ``field``
     (``minimal_nerf_torch.fields``; default the NeRF MLPs under the fused
     kernels) brings its render hooks where none are given, its density to
-    the grid's update and its Adam (``adam_options``).
+    the grid's update and its Adam (``adam_options``; an ``l1_weight`` of
+    the update's count, where it has one, to the drawn Adam scalars).
     """
     from minimal_nerf_torch import resolve_device
 
@@ -465,11 +485,12 @@ def _build_step(nerf_cfg: NeRFConfig, train_cfg: TrainConfig, static: SceneStati
                          + ("" if field.data_parallel else " on one device (no data parallel)"))
     mlp_apply, render = fields.hooks_or(field, mlp_apply, render_fn)
     betas = (field.adam["b1"], field.adam["b2"])
+    l1_weight = getattr(field, "l1_weight", None)
     dev = resolve_device(device)
 
     def draw(step: int, count: int, seed: int):
         return draw_step_inputs(nerf_cfg, train_cfg, static, step, count, seed, dev,
-                                occupancy_cfg, mode, betas)
+                                occupancy_cfg, mode, betas, l1_weight)
 
     def update_grid(params, grid, step: int, seed: int):
         if occupancy_cfg is not None and step % occupancy_cfg.update_every == 0:
