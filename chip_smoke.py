@@ -8,12 +8,14 @@
     python3 chip_smoke.py --fault2
     python3 chip_smoke.py --hash-encode
     python3 chip_smoke.py --vm-sample
+    python3 chip_smoke.py --tensorf-mlp
 
 Builds every kernel of the serving and training paths from the sources in
 the checkout (the fused ray-march forward and backward, the point-level MLP
 forward and backward of the ``--kernel pallas`` path, the occupancy grid's
 probe and the fused occupancy sampler, the hash encoding's forward and
-backward, TensoRF's VM sampling forward and backward), holds each against its plain
+backward, TensoRF's VM sampling forward and backward and its shading chain's
+forward and backward), holds each against its plain
 PyTorch version at the main paths' shapes (on weights whose outputs depend
 on the input, with bounds shown to reject faulty versions; the probe's bits
 and the sampler's weights, times and samples must be identical), then:
@@ -35,6 +37,16 @@ and the sampler's weights, times and samples must be identical), then:
   times them beside the plain versions and the bytes' bound, and counts
   their launches in one replayed call of that program and in a profiler
   trace;
+- ``[tensorf-mlp]`` holds TensoRF's shading kernels (the basis, the
+  encodings and the 150-128-128-3 MLP, forward and backward) against the
+  plain chain at bf16 (autograd of ``mlp_plain``) on the products,
+  directions and color gradients of the same step's coarse and fine
+  launches, with a planted fault (an input column dropped) that must fail;
+  checks that two backward calls give the same bits; times them beside the
+  byte floor, the chain as ``torch`` calls (``library_ms``) and in fp32
+  (``plain_ms``); counts their launches in one replayed call (40 and 40) and
+  their kernels in a profiler trace of another, with no GEMM or bf16 kernel
+  left in the step;
 - ``[main]`` renders two 800x800 orbit frames from a full-width checkpoint
   written by the port and checks that the forward kernel carried the render;
 - ``[reference]`` holds a small render on the card against the CPU;
@@ -118,8 +130,8 @@ unpacked inside the repo, in turns, it compares the two in one call.
 ``experiments/r5-parity/trajectory_parity.py`` and holds its PSNR against
 the recorded JAX runs; ``--fault2`` decides ROADMAP Queue 3 fault 2 with a
 paired test over 8 seeds at 1,000 steps; ``--hash-encode`` and
-``--vm-sample`` run the ``[hash-encode]`` or ``[vm-sample]`` phase alone and
-print its kernels' line.
+``--vm-sample`` and ``--tensorf-mlp`` run the ``[hash-encode]``,
+``[vm-sample]`` or ``[tensorf-mlp]`` phase alone and print its kernels' line.
 
 Prints one line per phase, the card's name and power limit, a JSON line of
 kernel timings, and as its last line ``{"ok": true, "device": {...}}``.
@@ -147,6 +159,7 @@ KERNELS = ["fused_raymarch_fwd", "fused_raymarch_bwd", "raymarch_mlp_fwd", "raym
            "occupancy_probe", "occupancy_sampler"]
 HASH_KERNELS = ["hash_encode_fwd", "hash_encode_bwd"]  # the ngp field's
 VM_KERNELS = ["vm_sample_fwd", "vm_sample_bwd"]        # the tensorf field's
+MLP_KERNELS = ["tensorf_mlp_fwd", "tensorf_mlp_bwd"]    # its shading chain
 RAYS = 4096
 SAMPLES = (64, 192)       # coarse pass, then the 64 + 128 sorted union
 HW = 800                  # frame height and width
@@ -1446,6 +1459,157 @@ def phase_vm_sample(dev, report):
     if not ok_all:
         raise AssertionError("the VM sampling kernels disagree with their plain versions or "
                              "did not carry the train.tensorf call")
+
+
+# TensoRF's shading kernels against the chain they replace (as
+# tests/test_torch_tensorf_cuda.py): autograd of mlp_plain at bf16 on the
+# same inputs. Both round every product's inputs to bf16 and sum in fp32, at
+# other points in the backward (module doc of kernels/tensorf_mlp.py), so
+# each output is held in relative L2 norm to MLP_RTOL; an input column of
+# the first layer dropped from the plain chain (the first sine of the
+# features) must fail it.
+MLP_RTOL = {"rgb": 1e-3, "dprods": 2e-2, "dbasis": 2e-2, "dw1": 2e-2, "db1": 2e-2, "dw2": 2e-2,
+            "db2": 2e-2, "dw3": 2e-2, "db3": 2e-2}
+MLP_DROPPED = 30  # the plain input's column of sin(a_0)
+
+
+def mlp_outputs(fn, prods, direc, basis, mlp, g_rgb):
+    """``fn``'s rgb and autograd's gradients of the products, the basis and
+    each layer's w and b for the color's gradient ``g_rgb``."""
+    leaves = [prods.clone().requires_grad_(True), basis.clone().requires_grad_(True)] + [
+        t.clone().requires_grad_(True) for layer in mlp for t in (layer["w"], layer["b"])]
+    layers = [{"w": leaves[2 + 2 * i], "b": leaves[3 + 2 * i]} for i in range(3)]
+    rgb = fn(leaves[0], direc, leaves[1], layers)
+    return [rgb.detach()] + list(torch.autograd.grad(rgb, leaves, g_rgb))
+
+
+def mlp_dropped(prods, direc, basis, mlp):
+    """The plain chain at bf16 with one input column of the first layer
+    zeroed (a planted fault)."""
+    from minimal_nerf_torch.kernels import tensorf_mlp as tm
+    from minimal_nerf_torch.models.mlp import linear, round_to
+
+    bf = torch.bfloat16
+    s = prods.shape[0] // direc.shape[0]
+    a = round_to(prods, bf) @ round_to(basis, bf)
+    d = direc / torch.linalg.norm(direc, dim=-1, keepdim=True)
+    d = torch.cat([d, tm.frequency_encoding(d, 2)], dim=-1).repeat_interleave(s, dim=0)
+    h = torch.cat([a, d[:, :3], tm.frequency_encoding(a, 2), d[:, 3:]], dim=-1)
+    h = h * (torch.arange(h.shape[1], device=h.device) != MLP_DROPPED)
+    for layer in mlp[:-1]:
+        h = torch.relu(linear(layer, h, bf))
+    return torch.sigmoid(linear(mlp[-1], h, bf))
+
+
+def mlp_gaps(got, want):
+    """Each output's ``|k - p| / |p|`` in L2 (``MLP_RTOL``'s order) and
+    whether all are within ``MLP_RTOL``."""
+    gaps = {name: float(torch.linalg.norm((a - b).double()) / torch.linalg.norm(b.double()))
+            for name, a, b in zip(MLP_RTOL, got, want)}
+    return gaps, all(gaps[k] <= MLP_RTOL[k] for k in gaps)
+
+
+def phase_tensorf_mlp(dev, report):
+    from minimal_nerf_torch.kernels import tensorf_mlp as tm
+    from minimal_nerf_torch.utils import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, traffic, images, poses, grid, params, step, state = cell_program(dev, TENSORF_CELL,
+                                                                         TENSORF_SEED)
+    start, spc = traffic["start_step"], cfg["train"]["steps_per_call"]
+    basis = params["basis"].detach().clone()
+    mlp = [{k: t.detach().clone() for k, t in layer.items()} for layer in params["mlp"]]
+    # the first (eager) step's coarse and fine launches: their products and
+    # directions, then the color's gradients
+    seen, grads = [], {}
+
+    def keep_fwd(forward):
+        def kept(prods, direc, *rest):
+            if len(seen) < 2:
+                seen.append((prods.detach().clone(), direc.clone()))
+            return forward(prods, direc, *rest)
+        return kept
+
+    def keep_bwd(backward):
+        def kept(prods, direc, basis, mlp, image, g_rgb):
+            grads.setdefault(prods.shape[0], g_rgb.float().clone())
+            return backward(prods, direc, basis, mlp, image, g_rgb)
+        return kept
+
+    with wrapped(tm, "forward", keep_fwd), wrapped(tm, "backward", keep_bwd):
+        params, state, grid, _ = step(params, state, grid, images, poses, start, TENSORF_SEED)
+    torch.cuda.synchronize()
+    ok_all = len(seen) == 2 and len(grads) == 2
+    fwd, bwd = [], []
+    plain = lambda p, d, b, m: tm.mlp_plain(p, d, b, m, 2, 2, torch.bfloat16)  # noqa: E731
+    fp32 = lambda p, d, b, m: tm.mlp_plain(p, d, b, m, 2, 2, None)  # noqa: E731
+    for prods, direc in seen:
+        p = prods.shape[0]
+        g = grads[p]
+        got = mlp_outputs(tm.tensorf_mlp, prods, direc, basis, mlp, g)
+        want = mlp_outputs(plain, prods, direc, basis, mlp, g)
+        gaps, ok = mlp_gaps(got, want)
+        missed = mlp_gaps(got, mlp_outputs(mlp_dropped, prods, direc, basis, mlp, g))[1]
+        rgb, image = tm.forward(prods, direc, basis, mlp)
+        again = tm.backward(prods, direc, basis, mlp, image, g)
+        first = tm.backward(prods, direc, basis, mlp, image, g)
+        same = torch.equal(first[0], again[0]) and torch.equal(first[1], again[1]) and all(
+            torch.equal(x[k], y[k]) for x, y in zip(first[2], again[2]) for k in ("w", "b"))
+        ms_f = cuda_ms(lambda: tm.forward(prods, direc, basis, mlp))
+        ms_b = cuda_ms(lambda: tm.backward(prods, direc, basis, mlp, image, g))
+        plain_f = cuda_ms(lambda: fp32(prods, direc, basis, mlp))
+        lib_f = cuda_ms(lambda: plain(prods, direc, basis, mlp))
+        plain_fb = cuda_ms(lambda: mlp_outputs(fp32, prods, direc, basis, mlp, g))
+        lib_fb = cuda_ms(lambda: mlp_outputs(plain, prods, direc, basis, mlp, g))
+        b_f = 1e3 * p * (4 * tm.PRODS + 12) / HBM_BYTES_PER_S
+        b_b = 1e3 * p * (8 * tm.PRODS + 12 + 12) / HBM_BYTES_PER_S
+        ok_k = ok and not missed and same
+        ok_all &= ok_k
+        print(f"[tensorf-mlp] P={p} ({direc.shape[0]} rays x {p // direc.shape[0]}): kernels "
+              f"against the plain chain at bf16, |k - p| / |p|: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+              + f" (tol {MLP_RTOL['rgb']} rgb, {MLP_RTOL['dprods']} gradients); an input column "
+              f"dropped passed: {missed}; two backward calls bit-identical: {same}; forward "
+              f"ms={ms_f:.4f} bound_ms={b_f:.5f} ({100 * b_f / ms_f:.2f}%) library_ms={lib_f:.4f} "
+              f"plain_ms={plain_f:.4f}; backward ms={ms_b:.4f} bound_ms={b_b:.5f} "
+              f"({100 * b_b / ms_b:.2f}%); forward + backward library_ms={lib_fb:.4f} "
+              f"plain_ms={plain_fb:.4f} {'PASS' if ok_k else 'FAIL'}", flush=True)
+        fwd.append(dict(err=max(gaps["rgb"], 0.0), ms=ms_f, plain_ms=plain_f, library_ms=lib_f,
+                        bound_ms=b_f, bound_by="bytes"))
+        bwd.append(dict(err=max(v for k, v in gaps.items() if k != "rgb"), ms=ms_b,
+                        plain_ms=plain_fb - plain_f, library_ms=lib_fb - lib_f, bound_ms=b_b,
+                        bound_by="bytes"))
+    # a whole call of the program, replayed (the counters set to 0 just before)
+    first = start + spc
+    profiling.reset()
+    params, state, grid, _ = step(params, state, grid, images, poses, first, TENSORF_SEED)
+    torch.cuda.synchronize()
+    launches = (profiling.counter(tm.LAUNCHES_FWD), profiling.counter(tm.LAUNCHES_BWD))
+    # the kernels of a further replayed call by name in a profiler trace; no
+    # fp32 GEMM and no bf16 cast left in the step
+    third = first + spc
+    starts = iter((third, third + spc))
+    spans = device_spans(lambda: step(params, state, grid, images, poses, next(starts),
+                                      TENSORF_SEED), 1)
+    names = ("tensorf_mlp_fwd_kernel", "tensorf_mlp_bwd_kernel")
+    traced = tuple(sum(k in name for name, _ in spans) for k in names)
+    in_step = sum(us for name, us in spans if "tensorf_mlp" in name) / 1e3 / spc
+    gemms = sorted({name[:60] for name, _ in spans if "gemm" in name.lower()})
+    casts = sum("bfloat16" in name.lower() for name, _ in spans)
+    ok_l = launches == (2 * spc, 2 * spc) and traced == (2 * spc, 2 * spc) and not gemms \
+        and not casts
+    ok_all &= ok_l
+    print(f"[tensorf-mlp] one replayed call of {TENSORF_CELL}'s program ({spc} steps from "
+          f"{first}): launches fwd={launches[0]} bwd={launches[1]} (want {2 * spc} each); traced "
+          f"call: fwd kernels {traced[0]}, bwd kernels {traced[1]}, the chain's kernels "
+          f"{in_step:.4f} device ms a step; GEMM kernels in the step: {gemms or 'none'}; bf16 "
+          f"kernels: {casts} {'PASS' if ok_l else 'FAIL'}", flush=True)
+    report["mlp_fwd"], report["mlp_bwd"], report["mlp_launches"] = fwd, bwd, launches
+    del step, state, params, grid, images, poses, seen, grads
+    torch.cuda.empty_cache()
+    if not ok_all:
+        raise AssertionError("the shading kernels disagree with the plain chain or did not "
+                             "carry the train.tensorf call")
 
 
 def phase_main_path(dev, tmp: Path):
@@ -4153,6 +4317,16 @@ def vm_entries(report):
             entry("vm_sample_bwd", None, report["vm_bwd"], bwd)]
 
 
+def mlp_entries(report):
+    """The shading kernels' entries: they replace no TPU kernel (the JAX
+    package has no TensoRF); their launches are those of one replayed call
+    of ``train.tensorf``'s program; ``max_abs_err`` is the largest relative
+    L2 gap to the plain chain (rgb; the gradients)."""
+    fwd, bwd = report["mlp_launches"]
+    return [entry("tensorf_mlp_fwd", None, report["mlp_fwd"], fwd),
+            entry("tensorf_mlp_bwd", None, report["mlp_bwd"], bwd)]
+
+
 def device_info():
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
@@ -4189,6 +4363,14 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": hash_entries(report)}))
         print(json.dumps({"ok": True, "device": device_info()}))
         return 0
+    if argv[:1] == ["--tensorf-mlp"]:
+        build.build_all(MLP_KERNELS)
+        report = {}
+        phase_tensorf_mlp(dev, report)
+        print(card)
+        print(json.dumps({"kernels": mlp_entries(report)}))
+        print(json.dumps({"ok": True, "device": device_info()}))
+        return 0
     if argv[:1] == ["--vm-sample"]:
         build.build_all(VM_KERNELS)
         report = {}
@@ -4199,9 +4381,9 @@ def main(argv=None) -> int:
         return 0
 
     t0 = time.perf_counter()
-    build.build_all(KERNELS + HASH_KERNELS + VM_KERNELS)
-    print(f"[build] {KERNELS + HASH_KERNELS + VM_KERNELS} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    built = KERNELS + HASH_KERNELS + VM_KERNELS + MLP_KERNELS
+    build.build_all(built)
+    print(f"[build] {built} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.BUILD_LOGS.items():
         for line in log.splitlines():
             if "Compiling entry function" in line:
@@ -4219,6 +4401,7 @@ def main(argv=None) -> int:
     phase_kernel_occ_sampler(dev, report)
     phase_hash_encode(dev, report)
     phase_vm_sample(dev, report)
+    phase_tensorf_mlp(dev, report)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = phase_main_path(dev, Path(tmp))
         phase_reference(dev, ckpt)
@@ -4269,7 +4452,7 @@ def main(argv=None) -> int:
         # launches in the 100 occupancy steps (one per step)
         entry("occupancy_sampler", "minimal_nerf_tpu/kernels/occupancy_probe.py:44",
               [report["occ_sampler"]], occ_train["counts"]["sampler"]),
-    ] + hash_entries(report) + vm_entries(report)
+    ] + hash_entries(report) + vm_entries(report) + mlp_entries(report)
     # train single --kernel pallas's own run (its counts set to 0 just before)
     print("[single] launches of train single --kernel pallas: " + json.dumps(
         {"raymarch_mlp_fwd": single["launched"][2], "raymarch_mlp_bwd": single["launched"][3]}))

@@ -22,13 +22,16 @@ permuted to ``[N, N, R]``).
   ``a``, then ``[a, d, PE(a, feature_pe), PE(d, view_pe)]`` (``d`` the unit
   view direction; ``PE(v, F)`` the sines, then the cosines, of ``v_c 2^f``
   at index ``c F + f``) through ``feature_width``-wide ReLU layers with
-  biases to a sigmoid color.
+  biases to a sigmoid color (``kernels.tensorf_mlp``).
 
 Matmul inputs are rounded to the compute dtype with fp32 sums
 (``models.mlp.linear``); the factors, their products and their gradients
 stay fp32. The sampling goes through the CUDA kernels on a card unless the
 field is built for the plain path (``--kernel xla``); CPU tensors and that
-path take autograd through ``vm_sample.sample_plain``.
+path take autograd through ``vm_sample.sample_plain``. The shading chain
+goes through its CUDA kernels (``tensorf_mlp.tensorf_mlp``) where the
+sampling does and the compute dtype is bf16; CPU tensors, ``--kernel xla``
+and fp32 take autograd through ``tensorf_mlp.mlp_plain``.
 
 Training (``TensoRFField.adam_options``): Adam with ``b2 = 0.99``, ``eps =
 1e-8``; the factors at the schedule's learning rate (TensoRF's ``lr_init``
@@ -40,7 +43,7 @@ inputs (``training.loop.adam_scalars``).
 
 Spans (``utils.profiling``): ``nerf.tensorf.sample`` (the box and the
 sampling kernels), ``nerf.tensorf.mlp`` (the density's softplus, the basis
-and the shading MLP).
+and the shading MLP, or their kernels).
 """
 
 from __future__ import annotations
@@ -51,8 +54,9 @@ from typing import Any, Dict
 
 import torch
 
+from minimal_nerf_torch.kernels import tensorf_mlp as tm
 from minimal_nerf_torch.kernels import vm_sample as vm
-from minimal_nerf_torch.models.mlp import init_linear, linear, map_params, round_to
+from minimal_nerf_torch.models.mlp import init_linear, map_params
 from minimal_nerf_torch.utils import profiling
 
 Params = Dict[str, Any]
@@ -127,19 +131,11 @@ def init_tensorf(generator: torch.Generator, cfg: TensoRFConfig, device="cuda") 
     return dict(factors, basis=(u * (2 * bound) - bound).to(device), mlp=mlp)
 
 
-def frequency_encoding(v: torch.Tensor, freqs: int) -> torch.Tensor:
-    """``[..., C] -> [..., 2 C freqs]``: ``sin(v_c 2^f)`` at ``c freqs + f``,
-    then the cosines (TensoRF's ``positional_encoding``, no pi)."""
-    scales = 2.0 ** torch.arange(freqs, dtype=torch.float32, device=v.device)
-    pts = (v[..., None] * scales).reshape(*v.shape[:-1], freqs * v.shape[-1])
-    return torch.cat([torch.sin(pts), torch.cos(pts)], dim=-1)
-
-
 class TensoRFField:
     """The field as the train step, the grid's update, the checkpoint and
     the render chunk see it (``minimal_nerf_torch.fields``); ``kernels``
-    picks the CUDA kernels' sampling for CUDA tensors, or the plain
-    indexing everywhere (``--kernel xla``)."""
+    picks the CUDA kernels for CUDA tensors (the sampling; the shading chain
+    at bf16), or the plain versions everywhere (``--kernel xla``)."""
 
     name = FIELD
     adam = {"b1": 0.9, "b2": 0.99, "eps": 1e-8}
@@ -193,16 +189,11 @@ class TensoRFField:
         f_sigma, prods = self.sample(params, samples.reshape(-1, 3))
         with profiling.span("nerf.tensorf.mlp"):
             sigma = self._sigma(f_sigma)
-            a = round_to(prods, compute_dtype) @ round_to(params["basis"], compute_dtype)
-            d = direc / torch.linalg.norm(direc, dim=-1, keepdim=True)
-            d = torch.cat([d, frequency_encoding(d, cfg.view_pe)], dim=-1)
-            d = d[:, None, :].expand(*lead, d.shape[-1]).reshape(-1, d.shape[-1])
-            h = torch.cat([a, d[:, :3], frequency_encoding(a, cfg.feature_pe), d[:, 3:]],
-                          dim=-1)
-            mlp = params["mlp"]
-            for layer in mlp[:-1]:
-                h = torch.relu(linear(layer, h, compute_dtype))
-            rgb = torch.sigmoid(linear(mlp[-1], h, compute_dtype))
+            if self.kernels and prods.is_cuda and compute_dtype == torch.bfloat16:
+                rgb = tm.tensorf_mlp(prods, direc, params["basis"], params["mlp"])
+            else:
+                rgb = tm.mlp_plain(prods, direc, params["basis"], params["mlp"], cfg.feature_pe,
+                                   cfg.view_pe, compute_dtype)
         return sigma.reshape(*lead, 1), rgb.reshape(*lead, 3)
 
     def hooks(self):

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from minimal_nerf_torch.fields import checkpoint_field
+from minimal_nerf_torch.kernels import tensorf_mlp as tm
 from minimal_nerf_torch.kernels import vm_sample as vm
 from minimal_nerf_torch.models.nerf import NeRFConfig
 from minimal_nerf_torch.models.tensorf import TensoRFConfig, TensoRFField, param_shapes
@@ -443,3 +444,102 @@ def test_a_step_keeps_the_field_spans():
         _program_steps(cfg, weights(cfg), "single", True, 3, 16, 1)
     names = [s.name for s in profiling.spans()]
     assert names.count("nerf.tensorf.sample") == 3 and names.count("nerf.tensorf.mlp") == 3
+
+
+def _mlp_inputs(rays, s, seed, widths=True):
+    """Products (one ray's points outside the box: zeros), directions, the
+    basis and the layers at the published widths (or the test's small
+    ones), drawn from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    prods_n, app, width = (tm.PRODS, tm.APP_DIM, tm.WIDTH) if widths else (9, 5, 8)
+    inp = app + 3 + 4 * app + 12
+    prods = (torch.rand(rays * s, prods_n, generator=gen) * 2 - 1) * 2.0
+    prods[:s] = 0.0
+    direc = torch.randn(rays, 3, generator=gen)
+    u = lambda *shape, scale: (torch.rand(*shape, generator=gen) * 2 - 1) * scale  # noqa: E731
+    basis = u(prods_n, app, scale=math.sqrt(6.0 / prods_n))
+    mlp = [{"w": u(k, o, scale=math.sqrt(6.0 / k)), "b": u(o, scale=1.0 / math.sqrt(k))}
+           for k, o in ((inp, width), (width, width), (width, 3))]
+    return prods, direc, basis, mlp
+
+
+def _chain_written_out(prods, direc, basis, mlp, dtype):
+    """The shading chain column by column: the features, the unit direction,
+    each feature's and each direction component's sines and cosines at 1
+    and 2 in the plain order, the three layers."""
+    r = lambda t: t if dtype is None else t.to(dtype).float()  # noqa: E731
+    a = r(prods) @ r(basis)
+    s = prods.shape[0] // direc.shape[0]
+    d = (direc / direc.pow(2).sum(-1, keepdim=True).sqrt()).repeat_interleave(s, dim=0)
+    pe = lambda v: ([torch.sin(v[:, c] * f) for c in range(v.shape[1]) for f in (1.0, 2.0)]  # noqa: E731
+                    + [torch.cos(v[:, c] * f) for c in range(v.shape[1]) for f in (1.0, 2.0)])
+    h = torch.stack([a[:, c] for c in range(a.shape[1])] + [d[:, c] for c in range(3)]
+                    + pe(a) + pe(d), dim=1)
+    for i, layer in enumerate(mlp):
+        h = r(h) @ r(layer["w"]) + layer["b"]
+        h = torch.relu(h) if i < 2 else torch.sigmoid(h)
+    return h
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["fp32", "bf16"])
+def test_mlp_plain_matches_the_chain_written_out(dtype):
+    """``tensorf_mlp.mlp_plain`` (the chain the field ran inside ``apply``,
+    the kernels' yardstick on the card) against the chain written out here,
+    forward and autograd's gradients of every input but the directions, at
+    the published widths with a ray's points outside the box: the same
+    operations, some in another order (1e-6 relative)."""
+    prods, direc, basis, mlp = _mlp_inputs(6, 5, 3)
+    probe = torch.randn(prods.shape[0], 3, generator=torch.Generator().manual_seed(4))
+    out = []
+    for fn in (lambda *a: tm.mlp_plain(*a, 2, 2, dtype), lambda *a: _chain_written_out(*a, dtype)):
+        leaves = [prods.clone().requires_grad_(True), basis.clone().requires_grad_(True)] + [
+            t.clone().requires_grad_(True) for layer in mlp for t in (layer["w"], layer["b"])]
+        layers = [{"w": leaves[2 + 2 * i], "b": leaves[3 + 2 * i]} for i in range(3)]
+        rgb = fn(leaves[0], direc, leaves[1], layers)
+        out.append([rgb] + list(torch.autograd.grad((rgb * probe).sum(), leaves)))
+    assert out[0][0].shape == (30, 3)
+    for got, want in zip(*out):
+        assert rel(got, want) < FEATURE_RTOL
+
+
+def test_mlp_kernel_inputs_are_checked():
+    """The shading kernels take fp32, contiguous tensors at the published
+    widths on one device, a whole number of points a ray (an empty batch
+    too), CUDA tensors only, and give the directions no gradient."""
+    prods, direc, basis, mlp = _mlp_inputs(4, 3, 6)
+    tm.check_inputs(prods, direc, basis, mlp)
+    tm.check_inputs(prods[:0], direc[:0], basis, mlp)  # an empty batch
+    bad_mlp = [dict(mlp[0], w=mlp[0]["w"][:, :64]), mlp[1], mlp[2]]
+    for args in ((prods.double(), direc, basis, mlp), (prods[:, :100], direc, basis, mlp),
+                 (prods.t().contiguous().t(), direc, basis, mlp), (prods, direc[:, :2], basis, mlp),
+                 (prods[:10], direc, basis, mlp), (prods, direc, basis.t(), mlp),
+                 (prods, direc, basis, bad_mlp), (prods, direc, basis, mlp[:2]),
+                 (prods, direc, basis.half(), mlp), (prods, direc[:0], basis, mlp)):
+        with pytest.raises(ValueError):
+            tm.check_inputs(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        tm.forward(prods, direc, basis, mlp)
+    with pytest.raises(ValueError, match="CUDA"):
+        tm.backward(prods, direc, basis, mlp, torch.zeros(4), torch.zeros(12, 3))
+    with pytest.raises(ValueError, match="no gradient"):
+        tm.tensorf_mlp(prods, direc.requires_grad_(True), basis, mlp)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["fp32", "bf16"])
+def test_cpu_tensors_take_the_plain_chain(dtype):
+    """On the CPU the field's ``apply`` (its kernels on) runs
+    ``mlp_plain``, bit for bit, and launches neither shading kernel."""
+    from minimal_nerf_torch.utils import profiling
+
+    cfg = TensoRFConfig(resolution=8, density_components=2, app_components=3, app_dim=5,
+                        feature_width=8)
+    params = TensoRFField(cfg).init(torch.Generator().manual_seed(9), device="cpu")
+    samples = _points(4, 6, 10)
+    direc = torch.randn(4, 3, generator=torch.Generator().manual_seed(11))
+    profiling.reset()
+    sigma, rgb = TensoRFField(cfg, kernels=True).apply(params, samples, direc,
+                                                        compute_dtype=dtype)
+    _, prods = vm.sample_plain(samples.reshape(-1, 3), {k: params[k] for k in vm.KEYS}, cfg.bound)
+    want = tm.mlp_plain(prods, direc, params["basis"], params["mlp"], 2, 2, dtype)
+    assert sigma.shape == (4, 6, 1) and torch.equal(rgb.reshape(-1, 3), want)
+    assert profiling.counter(tm.LAUNCHES_FWD) == 0 and profiling.counter(tm.LAUNCHES_BWD) == 0

@@ -26,6 +26,16 @@ leaves within 0.005), a cosine of at least 0.986 (the appearance lines'
 moment the lowest), the grid up to 1.04e-3 apart in L2: the test holds the
 losses to 2e-3, the changes' norms to 1e-2 and the moments' to 5e-2, the
 cosines to 0.95 and the grid to 5e-3, about three times those readings.
+
+The shading kernels (``kernels/tensorf_mlp.py``) round every product's
+inputs to bf16 and sum in fp32 as the plain chain does at bf16, but round
+the backward's gradients at other points (the plain chain rounds each
+gradient that leaves a product; the kernels keep them fp32 until the next
+product), so each output is held to the plain chain in relative L2 norm:
+rgb within 1e-3, every gradient within 2e-2. An H100 read at most 1.13e-4
+and 5.6e-3 on these inputs, while both sides sat 2e-3 to 8e-2 from a
+float64 evaluation of the chain, equally far; the plain chain with one input
+column of the first layer dropped fails them.
 """
 
 import json
@@ -35,6 +45,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from minimal_nerf_torch.kernels import tensorf_mlp as tm
 from minimal_nerf_torch.kernels import vm_sample as vm
 from minimal_nerf_torch.models.tensorf import TensoRFConfig, TensoRFField
 from minimal_nerf_torch.utils import profiling
@@ -286,3 +297,99 @@ def test_tensorf_graph_swept_frames_equal_eager_frames(cuda_device, tmp_path):
     assert profiling.counter("view.graph_replays") == 2 * (math.ceil(hw * hw / 4096) - 1) - 1
     assert profiling.counter(vm.LAUNCHES_FWD) == 2 * 2 * math.ceil(hw * hw / 4096)
     assert all(torch.equal(a, b) for a, b in zip(want, got))
+
+
+MLP_RTOL = {"rgb": 1e-3, "dprods": 2e-2, "dbasis": 2e-2, "dw1": 2e-2, "db1": 2e-2, "dw2": 2e-2,
+            "db2": 2e-2, "dw3": 2e-2, "db3": 2e-2}
+
+
+def _mlp_inputs(dev, rays, s, seed):
+    """Products ``U(+-2)`` with a tenth of the points outside the box (zero
+    products), directions, the basis and the layers ``U(+-sqrt(6 / in))``
+    (biases ``U(+-1 / sqrt(in))``), the color's gradient."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = rays * s
+    prods = (torch.rand(p, tm.PRODS, generator=g, device=dev) * 2 - 1) * 2.0
+    prods[torch.rand(p, generator=g, device=dev) < 0.1] = 0.0
+    direc = torch.randn(rays, 3, generator=g, device=dev)
+    u = lambda *shape, scale: (torch.rand(*shape, generator=g, device=dev) * 2 - 1) * scale  # noqa: E731
+    basis = u(tm.PRODS, tm.APP_DIM, scale=math.sqrt(6.0 / tm.PRODS))
+    mlp = [{"w": u(k, o, scale=math.sqrt(6.0 / k)), "b": u(o, scale=1.0 / math.sqrt(k))}
+           for k, o in ((tm.IN, tm.WIDTH), (tm.WIDTH, tm.WIDTH), (tm.WIDTH, 3))]
+    return prods, direc, basis, mlp, torch.randn(p, 3, generator=g, device=dev)
+
+
+def _mlp_outputs(fn, prods, direc, basis, mlp, g_rgb):
+    """``fn``'s rgb and autograd's gradients of the products, the basis and
+    each layer's w and b (``MLP_RTOL``'s order)."""
+    leaves = [prods.clone().requires_grad_(True), basis.clone().requires_grad_(True)] + [
+        t.clone().requires_grad_(True) for layer in mlp for t in (layer["w"], layer["b"])]
+    layers = [{"w": leaves[2 + 2 * i], "b": leaves[3 + 2 * i]} for i in range(3)]
+    rgb = fn(leaves[0], direc, leaves[1], layers)
+    return [rgb.detach()] + list(torch.autograd.grad(rgb, leaves, g_rgb))
+
+
+def _plain(prods, direc, basis, mlp, dropped=None):
+    """The plain chain at bf16; with ``dropped``, that input column of the
+    first layer zeroed (a planted fault)."""
+    if dropped is None:
+        return tm.mlp_plain(prods, direc, basis, mlp, 2, 2, torch.bfloat16)
+    from minimal_nerf_torch.models.mlp import linear, round_to
+
+    bf, s = torch.bfloat16, prods.shape[0] // direc.shape[0]
+    a = round_to(prods, bf) @ round_to(basis, bf)
+    d = direc / torch.linalg.norm(direc, dim=-1, keepdim=True)
+    d = torch.cat([d, tm.frequency_encoding(d, 2)], dim=-1).repeat_interleave(s, dim=0)
+    h = torch.cat([a, d[:, :3], tm.frequency_encoding(a, 2), d[:, 3:]], dim=-1)
+    h = h * (torch.arange(h.shape[1], device=h.device) != dropped)
+    for layer in mlp[:-1]:
+        h = torch.relu(linear(layer, h, bf))
+    return torch.sigmoid(linear(mlp[-1], h, bf))
+
+
+def _mlp_gaps(got, want):
+    return {k: _rel(a, b) for k, a, b in zip(MLP_RTOL, got, want)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rays,s", [(4096, 16), (4096, 64), (1000, 7)],
+                         ids=["coarse", "fine", "ragged"])
+def test_mlp_kernels_match_the_plain_chain(cuda_device, rays, s):
+    """The shading kernels under autograd (``tensorf_mlp``) against autograd
+    of the plain chain at bf16: rgb and the gradients of the products, the
+    basis and every layer, at one ``train.tensorf`` step's coarse (4,096 x
+    16) and fine (4,096 x 64) shapes and at a ragged P (1,000 x 7), within
+    ``MLP_RTOL`` (module doc); one launch each way."""
+    prods, direc, basis, mlp, g = _mlp_inputs(cuda_device, rays, s, rays + s)
+    got = _mlp_outputs(tm.tensorf_mlp, prods, direc, basis, mlp, g)
+    gaps = _mlp_gaps(got, _mlp_outputs(_plain, prods, direc, basis, mlp, g))
+    print(f"[tensorf-mlp] P={rays * s}: " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert all(gaps[k] <= MLP_RTOL[k] for k in gaps), gaps
+    assert profiling.counter(tm.LAUNCHES_FWD) == 1 and profiling.counter(tm.LAUNCHES_BWD) == 1
+
+
+@pytest.mark.cuda
+def test_mlp_backward_gives_the_same_bits_twice(cuda_device):
+    """Two backward calls on the same inputs: every output bit-identical
+    (fixed slices of the points, no atomics)."""
+    prods, direc, basis, mlp, g = _mlp_inputs(cuda_device, 4096, 64, 5)
+    _, image = tm.forward(prods, direc, basis, mlp)
+    first, again = (tm.backward(prods, direc, basis, mlp, image, g) for _ in range(2))
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    assert all(torch.equal(x[k], y[k]) for x, y in zip(first[2], again[2]) for k in ("w", "b"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropped", [0, 30, 138], ids=["a0", "sin_a0", "sin_d0"])
+def test_mlp_tolerance_rejects_a_dropped_column(cuda_device, dropped):
+    """The plain chain with one input column of the first layer dropped (a
+    feature, a feature's sine, a direction's sine) fails ``MLP_RTOL``
+    against the kernels."""
+    prods, direc, basis, mlp, g = _mlp_inputs(cuda_device, 4096, 16, 6)
+    got = _mlp_outputs(tm.tensorf_mlp, prods, direc, basis, mlp, g)
+    bad = _mlp_outputs(lambda *a: _plain(*a, dropped=dropped), prods, direc, basis, mlp, g)
+    gaps = _mlp_gaps(got, bad)
+    print(f"[tensorf-mlp] column {dropped} dropped: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    assert any(gaps[k] > MLP_RTOL[k] for k in gaps)
