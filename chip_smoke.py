@@ -9,13 +9,14 @@
     python3 chip_smoke.py --hash-encode
     python3 chip_smoke.py --vm-sample
     python3 chip_smoke.py --tensorf-mlp
+    python3 chip_smoke.py --kplane-sample
 
 Builds every kernel of the serving and training paths from the sources in
 the checkout (the fused ray-march forward and backward, the point-level MLP
 forward and backward of the ``--kernel pallas`` path, the occupancy grid's
 probe and the fused occupancy sampler, the hash encoding's forward and
 backward, TensoRF's VM sampling forward and backward and its shading chain's
-forward and backward), holds each against its plain
+forward and backward, K-Planes' plane sampling forward and backward), holds each against its plain
 PyTorch version at the main paths' shapes (on weights whose outputs depend
 on the input, with bounds shown to reject faulty versions; the probe's bits
 and the sampler's weights, times and samples must be identical), then:
@@ -47,6 +48,15 @@ and the sampler's weights, times and samples must be identical), then:
   (``plain_ms``); counts their launches in one replayed call (40 and 40) and
   their kernels in a profiler trace of another, with no GEMM or bf16 kernel
   left in the step;
+- ``[kplane-sample]`` holds K-Planes' plane sampling kernels against their
+  plain versions on the points and feature gradients of one step of the
+  ``train.kplanes`` cell's program (its coarse and fine launches, 327,680
+  points at 4 scales of 64^2 to 512^2 planes of 32 channels; the forward
+  and the grid update's density launch bit for bit, the backward within the
+  atomics' tolerance, a planted zeroed plane and gradients off by 1e-4
+  rejected), times them beside the plain versions and the bytes' bound, and
+  counts their launches in one replayed call of that program (41 and 40)
+  and in a profiler trace;
 - ``[main]`` renders two 800x800 orbit frames from a full-width checkpoint
   written by the port and checks that the forward kernel carried the render;
 - ``[reference]`` holds a small render on the card against the CPU;
@@ -160,6 +170,7 @@ KERNELS = ["fused_raymarch_fwd", "fused_raymarch_bwd", "raymarch_mlp_fwd", "raym
 HASH_KERNELS = ["hash_encode_fwd", "hash_encode_bwd"]  # the ngp field's
 VM_KERNELS = ["vm_sample_fwd", "vm_sample_bwd"]        # the tensorf field's
 MLP_KERNELS = ["tensorf_mlp_fwd", "tensorf_mlp_bwd"]    # its shading chain
+KPLANE_KERNELS = ["kplane_sample_fwd", "kplane_sample_bwd"]  # the kplanes field's
 RAYS = 4096
 SAMPLES = (64, 192)       # coarse pass, then the 64 + 128 sorted union
 HW = 800                  # frame height and width
@@ -1306,13 +1317,13 @@ VM_BWD_RTOL = 1e-5
 TENSORF_CELL, TENSORF_SEED = "train.tensorf", 3_260_002_101
 
 
-def vm_bwd_errors(got, want, scale):
-    """(max |k - p| / the entry's sum of magnitudes over the four factors,
-    within ``VM_BWD_RTOL`` with no entry touched that no term reaches)."""
+def vm_bwd_errors(got, want, scale, rtol=VM_BWD_RTOL):
+    """(max |k - p| / the entry's sum of magnitudes over the leaves, within
+    ``rtol`` with no entry touched that no term reaches)."""
     err = max(float(((a - b).abs() / s.clamp_min(1e-30)).max())
               for a, b, s in zip(got, want, scale))
     untouched = all(not bool(a[s == 0].any()) for a, s in zip(got, scale))
-    return err, err <= VM_BWD_RTOL and untouched
+    return err, err <= rtol and untouched
 
 
 def vm_equal(got, want):
@@ -1459,6 +1470,157 @@ def phase_vm_sample(dev, report):
     if not ok_all:
         raise AssertionError("the VM sampling kernels disagree with their plain versions or "
                              "did not carry the train.tensorf call")
+
+
+# K-Planes' plane sampling kernels against their plain versions (as
+# tests/test_torch_kplanes_cuda.py): the forward does the plain version's
+# operations in its order with no FMA, so its features equal sample_plain's
+# bit for bit; the backward's float4 atomics add in an order that changes
+# from run to run, so each plane entry's gradient is held within
+# KPLANE_BWD_RTOL of the sum of its terms' magnitudes, and an entry no term
+# reaches stays 0
+KPLANE_BWD_RTOL = 1e-5
+KPLANES_CELL, KPLANES_SEED = "train.kplanes", 3_280_003_101
+
+
+def phase_kplane_sample(dev, report):
+    from minimal_nerf_torch.kernels import kplane_sample as kp
+    from minimal_nerf_torch.models.kplanes import KPlanesField
+    from minimal_nerf_torch.utils import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, traffic, images, poses, grid, params, step, state = cell_program(dev, KPLANES_CELL,
+                                                                         KPLANES_SEED)
+    start, spc = traffic["start_step"], cfg["train"]["steps_per_call"]
+    every, bound = cfg["occupancy"]["update_every"], cfg["kplanes"]["bound"]
+    per_point = 12 + 4 * kp.KERNEL_SCALES * kp.KERNEL_CHANNELS  # fields/kplanes.py's 524 B
+    # the first (eager) step's launches: its coarse and fine passes' points,
+    # then the features' gradients; the first grid update's points (the
+    # launch that KPlanesField.density makes)
+    seen = {"fwd": [], "density": [], "bwd": []}
+    in_density = [False]
+
+    def keep_density(density):
+        def kept(self, *a, **k):
+            in_density[0] = True
+            try:
+                return density(self, *a, **k)
+            finally:
+                in_density[0] = False
+        return kept
+
+    def keep_fwd(forward):
+        def kept(x, planes, bound):
+            kind = "density" if in_density[0] else "fwd"
+            if len(seen[kind]) < (1 if in_density[0] else 2):
+                seen[kind].append(x.clone())
+            return forward(x, planes, bound)
+        return kept
+
+    def keep_bwd(backward):
+        def kept(x, planes, bound, g):
+            if len(seen["bwd"]) < 2:
+                seen["bwd"].append((x.clone(), g.float().clone()))
+            return backward(x, planes, bound, g)
+        return kept
+
+    with wrapped(kp, "forward", keep_fwd), wrapped(kp, "backward", keep_bwd), \
+            wrapped(KPlanesField, "density", keep_density):
+        params, state, grid, _ = step(params, state, grid, images, poses, start, KPLANES_SEED)
+    torch.cuda.synchronize()
+    planes = [t.detach() for t in params["planes"]]
+    # the planted fault: the coarsest scale's first plane zeroed (its 4,096
+    # cells are the most shared, so every point reads it)
+    bad = [t.clone() for t in planes]
+    bad[0][0] = 0
+    ok_all = True
+    fwd, bwd = [], []
+    for kind in ("fwd", "density"):
+        for x in seen[kind]:
+            got, want = kp.forward(x, planes, bound), kp.sample_plain(x, planes, bound)
+            equal = torch.equal(got, want)
+            outside = int((x.abs() > bound).any(dim=-1).sum())
+            missed = torch.equal(got, kp.sample_plain(x, bad, bound))
+            ms = cuda_ms(lambda: kp.forward(x, planes, bound))
+            plain_ms = cuda_ms(lambda: kp.sample_plain(x, planes, bound))
+            b_ms = 1e3 * x.shape[0] * per_point / HBM_BYTES_PER_S
+            ok_all &= equal and not missed
+            what = ("forward" if kind == "fwd" else
+                    "density forward (the first grid update's points)")
+            print(f"[kplane-sample] {what} P={x.shape[0]} N={[t.shape[1] for t in planes]}: "
+                  f"the {got.shape[1]} features equal to sample_plain bit for bit: {equal}, "
+                  f"outside the box {outside} ({100 * outside / max(1, x.shape[0]):.2f}%); a "
+                  f"zeroed plane passed: {missed}; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"library_ms=null (no single PyTorch call computes it) bound_ms={b_ms:.5f} "
+                  f"(bytes: {per_point} a point, positions read, features written), "
+                  f"{100 * b_ms / ms:.2f}% of the bound's rate "
+                  f"{'PASS' if equal and not missed else 'FAIL'}", flush=True)
+            if kind == "fwd":
+                fwd.append(dict(err=0.0 if equal else float("inf"), ms=ms, plain_ms=plain_ms,
+                                library_ms=None, bound_ms=b_ms, bound_by="bytes"))
+    for x, g in seen["bwd"]:
+        got = kp.backward(x, planes, bound, g)
+        want = kp.backward_plain(x, planes, bound, g)
+        scale = kp.backward_plain(x, [t.abs() for t in planes], bound, g.abs())
+        err, ok = vm_bwd_errors(got, want, scale, KPLANE_BWD_RTOL)
+        again = vm_bwd_errors(kp.backward(x, planes, bound, g), want, scale,
+                              KPLANE_BWD_RTOL)[1]
+        missed = [name for name, p in (
+            ("a plane zeroed", kp.backward_plain(x, bad, bound, g)),
+            ("gradients x (1 + 1e-4)", [t * (1 + 1e-4) for t in want]))
+            if vm_bwd_errors(got, p, scale, KPLANE_BWD_RTOL)[1]]
+        ms = cuda_ms(lambda: kp.backward(x, planes, bound, g))
+        plain_ms = cuda_ms(lambda: kp.backward_plain(x, planes, bound, g))
+        b_ms = 1e3 * x.shape[0] * per_point / HBM_BYTES_PER_S
+        ok_b = ok and again and not missed
+        ok_all &= ok_b
+        print(f"[kplane-sample] backward P={x.shape[0]}: max |k - p| / sum |terms| = {err:.3e} "
+              f"(tol {KPLANE_BWD_RTOL}), touched {sum(int((w != 0).sum()) for w in want)} of "
+              f"{sum(w.numel() for w in want)}, a second launch within it too: {again}; faulty "
+              f"plain versions passed: {missed or 'none'}; ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms=null (no single PyTorch call computes it) bound_ms={b_ms:.5f} (bytes: "
+              f"{per_point} a point, positions and the features' gradients read), "
+              f"{100 * b_ms / ms:.2f}% of the bound's rate {'PASS' if ok_b else 'FAIL'}",
+              flush=True)
+        bwd.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                        bound_by="bytes"))
+    ok_all &= len(fwd) == 2 and len(seen["density"]) == 1 and len(bwd) == 2
+    # a whole call of the program: the first call captured its step, so this
+    # one replays it; the counters, set to 0 just before, count each
+    # replay's launches again, and each grid update's density launch once
+    first = start + spc
+    updates = sum(s % every == 0 for s in range(first, first + spc))
+    profiling.reset()
+    params, state, grid, _ = step(params, state, grid, images, poses, first, KPLANES_SEED)
+    torch.cuda.synchronize()
+    launches = (profiling.counter(kp.LAUNCHES_FWD), profiling.counter(kp.LAUNCHES_BWD))
+    replays = profiling.counter("graph.replays")
+    want_l = (2 * spc + updates, 2 * spc)
+    # the kernels a replayed call ran, by name in a profiler trace (one
+    # further call outside it first)
+    third = first + spc
+    starts = iter((third, third + spc))
+    spans = device_spans(lambda: step(params, state, grid, images, poses, next(starts),
+                                      KPLANES_SEED), 1)
+    traced = tuple(sum(k in name for name, _ in spans) for k in KPLANE_KERNELS)
+    want_t = (2 * spc + sum(s % every == 0 for s in range(third + spc, third + 2 * spc)),
+              2 * spc)
+    in_step = [sum(us for name, us in spans if k in name) / 1e3 / spc for k in KPLANE_KERNELS]
+    ok_l = launches == want_l and replays == spc and traced == want_t
+    ok_all &= ok_l
+    print(f"[kplane-sample] one replayed call of {KPLANES_CELL}'s program ({spc} steps from "
+          f"{first}, {updates} grid update(s)): launches fwd={launches[0]} bwd={launches[1]} "
+          f"(want {want_l[0]} = 2 passes x {spc} steps + {updates}, {want_l[1]}), graph "
+          f"replays {replays} (want {spc}); traced call: fwd={traced[0]} bwd={traced[1]} "
+          f"(want {want_t[0]}, {want_t[1]}), device ms per step: kplane_sample_fwd "
+          f"{in_step[0]:.4f}, kplane_sample_bwd {in_step[1]:.4f} {'PASS' if ok_l else 'FAIL'}",
+          flush=True)
+    report["kplane_fwd"], report["kplane_bwd"], report["kplane_launches"] = fwd, bwd, launches
+    del step, state, params, grid, images, poses, seen, planes, bad
+    torch.cuda.empty_cache()
+    if not ok_all:
+        raise AssertionError("the K-Planes sampling kernels disagree with their plain versions "
+                             "or did not carry the train.kplanes call")
 
 
 # TensoRF's shading kernels against the chain they replace (as
@@ -4327,6 +4489,17 @@ def mlp_entries(report):
             entry("tensorf_mlp_bwd", None, report["mlp_bwd"], bwd)]
 
 
+def kplane_entries(report):
+    """The K-Planes sampling kernels' entries: they replace no TPU kernel (the
+    JAX package has no K-Planes); their launches are those of one replayed
+    call of ``train.kplanes``'s program; ``max_abs_err`` is 0 for features
+    equal bit for bit (the forward) and relative to each entry's sum of
+    magnitudes (the backward)."""
+    fwd, bwd = report["kplane_launches"]
+    return [entry("kplane_sample_fwd", None, report["kplane_fwd"], fwd),
+            entry("kplane_sample_bwd", None, report["kplane_bwd"], bwd)]
+
+
 def device_info():
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
@@ -4380,8 +4553,17 @@ def main(argv=None) -> int:
         print(json.dumps({"ok": True, "device": device_info()}))
         return 0
 
+    if argv[:1] == ["--kplane-sample"]:
+        build.build_all(KPLANE_KERNELS)
+        report = {}
+        phase_kplane_sample(dev, report)
+        print(card)
+        print(json.dumps({"kernels": kplane_entries(report)}))
+        print(json.dumps({"ok": True, "device": device_info()}))
+        return 0
+
     t0 = time.perf_counter()
-    built = KERNELS + HASH_KERNELS + VM_KERNELS + MLP_KERNELS
+    built = KERNELS + HASH_KERNELS + VM_KERNELS + MLP_KERNELS + KPLANE_KERNELS
     build.build_all(built)
     print(f"[build] {built} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.BUILD_LOGS.items():
@@ -4402,6 +4584,7 @@ def main(argv=None) -> int:
     phase_hash_encode(dev, report)
     phase_vm_sample(dev, report)
     phase_tensorf_mlp(dev, report)
+    phase_kplane_sample(dev, report)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, launches = phase_main_path(dev, Path(tmp))
         phase_reference(dev, ckpt)
@@ -4452,7 +4635,7 @@ def main(argv=None) -> int:
         # launches in the 100 occupancy steps (one per step)
         entry("occupancy_sampler", "minimal_nerf_tpu/kernels/occupancy_probe.py:44",
               [report["occ_sampler"]], occ_train["counts"]["sampler"]),
-    ] + hash_entries(report) + vm_entries(report) + mlp_entries(report)
+    ] + hash_entries(report) + vm_entries(report) + mlp_entries(report) + kplane_entries(report)
     # train single --kernel pallas's own run (its counts set to 0 just before)
     print("[single] launches of train single --kernel pallas: " + json.dumps(
         {"raymarch_mlp_fwd": single["launched"][2], "raymarch_mlp_bwd": single["launched"][3]}))

@@ -10,8 +10,9 @@ checkpoint's layout), ``header()`` (its entry in a checkpoint's ``extra``),
 (learning rates replacing the ``TrainConfig``'s), ``mode`` (the training
 mode of its tree) and ``data_parallel``; a field with an L1 term also has
 ``l1_weight(count)``, its weight at an Adam update. The fields: the NeRF
-MLPs (``NeRFField``), Instant-NGP's (``models.ngp.NGPField``) and
-TensoRF's (``models.tensorf.TensoRFField``).
+MLPs (``NeRFField``), Instant-NGP's (``models.ngp.NGPField``), TensoRF's
+(``models.tensorf.TensoRFField``) and K-Planes' (``models.kplanes.
+KPlanesField``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from minimal_nerf_torch.models.kplanes import FIELD as KPLANES, KPlanesConfig, KPlanesField
 from minimal_nerf_torch.models.mlp import init_nerf_mlp, nerf_mlp_apply, nerf_mlp_shapes
 from minimal_nerf_torch.models.nerf import NeRFConfig, init_nerf_network, render_rays
 from minimal_nerf_torch.models.ngp import FIELD as NGP, NGPConfig, NGPField
@@ -143,11 +145,14 @@ class NeRFField:
 
 def make_field(name: str, nerf_cfg: NeRFConfig, kernel: str = "fused", device="cuda",
                mode: str = "full", ngp: Optional[Dict[str, Any]] = None,
-               tensorf: Optional[Dict[str, Any]] = None):
+               tensorf: Optional[Dict[str, Any]] = None,
+               kplanes: Optional[Dict[str, Any]] = None):
     """The field ``name`` (``--field``, a checkpoint's) under ``kernel``:
     the NeRF MLPs of ``nerf_cfg``, Instant-NGP's of the ``NGPConfig``
-    fields in ``ngp`` or TensoRF's of the ``TensoRFConfig`` fields in
-    ``tensorf``, the last two through their CUDA kernels unless ``"xla"``."""
+    fields in ``ngp``, TensoRF's of the ``TensoRFConfig`` fields in
+    ``tensorf`` or K-Planes' of the ``KPlanesConfig`` fields in
+    ``kplanes``, the last three through their CUDA kernels unless
+    ``"xla"``."""
     kernel = resolve_kernel(kernel, device)
     if name == NeRFField.name:
         return NeRFField(nerf_cfg, kernel, mode)
@@ -155,6 +160,8 @@ def make_field(name: str, nerf_cfg: NeRFConfig, kernel: str = "fused", device="c
         return NGPField(NGPConfig.from_dict(ngp or {}), kernels=kernel != "xla")
     if name == TENSORF:
         return TensoRFField(TensoRFConfig.from_dict(tensorf or {}), kernels=kernel != "xla")
+    if name == KPLANES:
+        return KPlanesField(KPlanesConfig.from_dict(kplanes or {}), kernels=kernel != "xla")
     raise ValueError(f"unknown field {name!r}")
 
 
@@ -165,7 +172,7 @@ def checkpoint_field(header: Dict[str, Any], kernel: str = "fused"):
     return make_field(extra.get("field", NeRFField.name),
                       NeRFConfig.from_dict(header.get("nerf_config", {})), kernel,
                       mode=checkpoint_mode(header), ngp=extra.get(NGP),
-                      tensorf=extra.get(TENSORF))
+                      tensorf=extra.get(TENSORF), kplanes=extra.get(KPLANES))
 
 
 def default_field(field, nerf_cfg: NeRFConfig, kernel: str = "fused", device="cuda",

@@ -17,7 +17,11 @@ coarse and fine MLPs, its encoding through the CUDA kernels unless
 16 + 48 components a mode, the box [-1.5, 1.5]^3) likewise, through its
 sampling kernels, at TensoRF's learning rates (0.02 on the factors, 1e-3
 on the basis and the MLP, decaying to a tenth over 300 epochs) and L1 term;
-either on one device only (``--data-parallel`` above 1 and ``--multihost``
+or ``--field kplanes``: K-Planes' hybrid field (``models/kplanes.py``,
+planes of 32 features at 64^2 to 512^2, Instant-NGP's tiny MLPs, the box
+[-1.3, 1.3]^3) likewise, through its plane kernels, at K-Planes' learning
+rate (0.01 decaying to a tenth over 300 epochs) and TV term on the planes;
+each on one device only (``--data-parallel`` above 1 and ``--multihost``
 raise). ``single``: one MLP on the coarse-only render at ``-c``
 samples (``Trainer(mode="single")``, no crop warmup); ``--kernel pallas``
 runs its MLP through the point kernels, any other choice through the plain
@@ -135,10 +139,11 @@ def build_parser() -> argparse.ArgumentParser:
                              default="reference",
                              help="in-bin jitter (reference parity) vs linear CDF "
                                   "interpolation")
-    full_parser.add_argument("--field", choices=["nerf", "ngp", "tensorf"], default="nerf",
+    full_parser.add_argument("--field", choices=["nerf", "ngp", "tensorf", "kplanes"],
+                             default="nerf",
                              help="the radiance field: the coarse and fine NeRF MLPs, or "
-                                  "Instant-NGP's hash-grid field or TensoRF's VM field for "
-                                  "both passes")
+                                  "Instant-NGP's hash-grid field, TensoRF's VM field or "
+                                  "K-Planes' hybrid field for both passes")
     full_parser.add_argument("--fast", action="store_true",
                              help="the fast recipe in one flag: --occupancy -c 16 -f 48 "
                                   "--steps-per-call 20; explicitly passed values win")

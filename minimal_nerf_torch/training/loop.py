@@ -129,11 +129,30 @@ def adam_scalars(lr, count: int, b1: float = 0.9, b2: float = 0.999,
                        + ([] if l1 is None else [f32(l1)]))
 
 
+def plane_tv_grad(p: torch.Tensor, weight: float = 1.0) -> torch.Tensor:
+    """``weight`` times the gradient of K-Planes' total variation ``sum over
+    the planes of 2 (sum (P[i + 1, :] - P[i, :])^2 / (C (H - 1) W) + sum
+    (P[:, j + 1] - P[:, j])^2 / (C H (W - 1)))`` (the authors'
+    ``compute_plane_tv``) of planes ``p [..., H, W, C]``, channel-last: a
+    plain stencil of the differences along each axis, the weight and the
+    counts folded into the adds."""
+    h, w, c = p.shape[-3:]
+    out = torch.zeros_like(p)
+    counts = {-3: c * (h - 1) * w, -2: c * h * (w - 1)}
+    for dim, count in counts.items():
+        k = 4.0 * weight / count
+        d = torch.diff(p, dim=dim)
+        n = p.shape[dim]
+        out.narrow(dim, 1, n - 1).add_(d, alpha=k)
+        out.narrow(dim, 0, n - 1).sub_(d, alpha=k)
+    return out
+
+
 @torch.no_grad()
 def adam_apply(params: Params, grads: Params, state: Dict[str, Any], scalars: torch.Tensor,
                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, l2: Optional[Params] = None,
                sparse: Optional[Params] = None, lr_scale: Optional[Params] = None,
-               l1: Optional[Params] = None) -> Dict[str, Any]:
+               l1: Optional[Params] = None, tv: Optional[Params] = None) -> Dict[str, Any]:
     """One ``optax.adam`` step on the ``adam_scalars`` of this update, a
     tensor on the parameters' device (no host value enters the update):
     moments updated, bias-corrected, ``p -= lr * mu_hat / (sqrt(nu_hat) +
@@ -147,9 +166,11 @@ def adam_apply(params: Params, grads: Params, state: Dict[str, Any], scalars: to
     ``nerf.ngp.table_adam``). ``lr_scale`` (floats in the layout) scales a
     leaf's learning rate; ``l1`` (floats in the layout) adds ``w * l1 *
     sign(p)`` to a leaf's gradient, ``w`` the sixth of the ``scalars``
-    (TensoRF's L1 term, ``models/tensorf.py``). Without them the update is
-    optax's, and a leaf at scale 1 with no L1 term is updated as without
-    them, bit for bit.
+    (TensoRF's L1 term, ``models/tensorf.py``); ``tv`` (floats in the
+    layout) adds ``plane_tv_grad(p, w)`` to a leaf's gradient (K-Planes'
+    total variation on its planes, ``models/kplanes.py``; in the span
+    ``nerf.kplanes.tv``). Without them the update is optax's, and a leaf at
+    scale 1 with no L1 or TV term is updated as without them, bit for bit.
 
     The bias corrections divide on the CPU and multiply by their reciprocals
     on a CUDA device: torch divides a CUDA tensor by a Python float as a
@@ -163,13 +184,17 @@ def adam_apply(params: Params, grads: Params, state: Dict[str, Any], scalars: to
     skips = flatten_tree(sparse) if sparse is not None else [False] * len(leaves)
     scales = flatten_tree(lr_scale) if lr_scale is not None else [1.0] * len(leaves)
     l1s = flatten_tree(l1) if l1 is not None else [0.0] * len(leaves)
-    for p, g, m, v, decay, skip, scale, l1c in zip(
+    tvs = flatten_tree(tv) if tv is not None else [0.0] * len(leaves)
+    for p, g, m, v, decay, skip, scale, l1c, tvc in zip(
             leaves, flatten_tree(grads), flatten_tree(state["mu"]), flatten_tree(state["nu"]),
-            decays, skips, scales, l1s):
+            decays, skips, scales, l1s, tvs):
         if decay:
             g = g + decay * p
         if l1c:
             g = g + (l1_weight[0] * l1c) * torch.sign(p)
+        if tvc:
+            with profiling.span("nerf.kplanes.tv"):
+                g = g + plane_tv_grad(p, tvc)
         step_lr = neg_lr if scale == 1.0 else neg_lr * scale
         if skip:
             with profiling.span("nerf.ngp.table_adam"):
